@@ -1,0 +1,164 @@
+"""The port's kernel wrappers (ops/raster_cuda.py), without JAX.
+
+This file imports no JAX, so it also runs on the card's host:
+
+    python -m pytest tests/test_torch_kernels.py -q
+
+- on the CPU each wrapper runs its plain version (launch count stays 0) and
+  a tensor on any other device than the CPU or CUDA raises;
+- tile_bins lists every bbox overlap in primitive order;
+- on a CUDA card (marker ``cuda``, skipped elsewhere) each kernel is
+  bit-identical to its plain version on the same tensors, and a Scene
+  rendered on the card matches the CPU render.
+
+``build_scene`` is the shared procedural test scene: test_torch_slice.py
+and test_torch_modules.py build the same scene in the JAX package.
+"""
+import numpy as np
+import pytest
+import torch
+
+import tpu_renderer_torch as tt
+from tpu_renderer_torch.models import gizmos as gz_torch
+from tpu_renderer_torch.ops import raster_cuda as rc
+
+RES = (64, 128)
+
+
+def textures(seed=0):
+    """Seeded in-memory maps: cube diffuse, cube tangent normal map, floor
+    diffuse — 8-bit-quantized like images loaded from disk."""
+    rng = np.random.default_rng(seed)
+    q = lambda a: (np.round(a * 255) / 255).astype(np.float32)
+    nm = q(rng.random((16, 16, 3))) * 2 - 1
+    nm = np.asarray(nm, dtype=np.dtype(np.float32, metadata={"tangent": True}))
+    return q(rng.random((16, 16, 3))), nm, q(rng.random((32, 48, 3)))
+
+
+def build_scene(pkg, gizmos, **scene_kw):
+    """The cube-over-floor scene in either package (``pkg`` is
+    tpu_renderer or tpu_renderer_torch)."""
+    cube_kd, cube_nm, floor_kd = textures()
+    cube = gizmos.make_cube(1.0)
+    cube.shadowing = True
+    cube.materials["default"].map_Kd = cube_kd
+    cube.materials["default"].norm = cube_nm
+    cube.normal_map_is_tangent = True
+    floor = gizmos.make_floor(2.0, y=-0.6)
+    floor.materials["default"].map_Kd = floor_kd
+    scene = pkg.Scene(
+        pkg.Camera((2, 2.5, 4), center=(0, 0, 0), fovy=60, near=0.01, far=50,
+                   backface_culling=True),
+        pkg.Light((3, 4, 2), light_type=pkg.Lightning.POINT_LIGHTNING,
+                  ambient_strength=0.1),
+        shadows=True, resolution=RES, system=pkg.SYSTEM.LH,
+        subsystem=pkg.SUBSYSTEM.OPENGL, **scene_kw)
+    scene.add_model(cube)
+    scene.add_model(floor)
+    return scene
+
+
+@pytest.fixture(scope="module")
+def stage_inputs():
+    """The four kernels' inputs for the test_torch_slice scene (CPU)."""
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops.shadow import prepare_quads
+
+    scene = build_scene(tt, gz_torch, device="cpu")
+    cfg, dyn = scene._prepare()
+    h, w = cfg.resolution
+    cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
+    faces, attrs = pl._build_face_batch(cfg, dyn, cam_m)
+    fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
+    zb, tid = rc.visibility_plain(fdata, flags, h, w, cfg.system)
+    adata = rc.pack_face_attrs(attrs)
+    gb = rc.gbuffer_plain(fdata, adata, tid)
+    qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
+    zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])
+    return {
+        "visibility": (fdata, flags, h, w, cfg.system),
+        "gbuffer": (fdata, adata, tid),
+        "sample_textures": (tid, gb[rc.GB_IU].contiguous(),
+                            gb[rc.GB_IV].contiguous(),
+                            *pl.texture_tables(cfg, dyn, attrs)),
+        "stencil": (qdata, qi, zb, cfg.system, *zc),
+    }
+
+
+def _equal(a, b):
+    if isinstance(a, tuple):
+        return all(_equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", list(rc.LAUNCHES))
+def test_wrapper_on_cpu_runs_plain_version(stage_inputs, name):
+    rc.reset_launches()
+    args = stage_inputs[name]
+    got = getattr(rc, name)(*args)
+    want = getattr(rc, f"{name}_plain")(*args)
+    assert _equal(got, want)
+    assert rc.LAUNCHES[name] == 0
+
+
+@pytest.mark.parametrize("name", list(rc.LAUNCHES))
+def test_wrapper_refuses_other_devices(stage_inputs, name):
+    """No silent path: tensors on a device that is neither the CPU nor CUDA
+    (here PyTorch's shape-only 'meta' device) raise."""
+    args = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
+                 for a in stage_inputs[name])
+    with pytest.raises(RuntimeError):
+        getattr(rc, name)(*args)
+
+
+def test_tile_bins_list_every_overlap_in_order():
+    rng = np.random.default_rng(3)
+    x0 = rng.integers(0, 60, 200)
+    y0 = rng.integers(0, 40, 200)
+    bbox = np.stack([x0, x0 + rng.integers(0, 20, 200),
+                     y0, y0 + rng.integers(0, 20, 200)], 1)
+    active = rng.random(200) > 0.2
+    off, items = rc.tile_bins(torch.from_numpy(bbox), torch.from_numpy(active),
+                              40, 60, tile=16)
+    off, items = off.numpy(), items.numpy()
+    n_tx = 4
+    for t in range(len(off) - 1):
+        ty, tx = divmod(t, n_tx)
+        want = [i for i in range(200) if active[i]
+                and bbox[i, 0] < (tx + 1) * 16 and bbox[i, 1] > tx * 16
+                and bbox[i, 2] < (ty + 1) * 16 and bbox[i, 3] > ty * 16]
+        assert items[off[t]:off[t + 1]].tolist() == want
+
+
+# ------------------------------------------------------------- on the card
+
+@pytest.fixture
+def cuda_inputs(stage_inputs):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    return {name: tuple(a.cuda() if isinstance(a, torch.Tensor) else a
+                        for a in args) for name, args in stage_inputs.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(rc.LAUNCHES))
+def test_kernel_matches_plain_on_card(cuda_inputs, name):
+    """The hand-written kernel against its plain version on the same CUDA
+    tensors: bit-identical (both round op by op)."""
+    rc.reset_launches()
+    args = cuda_inputs[name]
+    got = getattr(rc, name)(*args)
+    torch.cuda.synchronize()
+    assert rc.LAUNCHES[name] == 1
+    want = getattr(rc, f"{name}_plain")(*args)
+    assert _equal(got, want)
+
+
+@pytest.mark.cuda
+def test_render_on_card_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    frame_gpu = build_scene(tt, gz_torch, device="cuda").render()
+    frame_cpu = build_scene(tt, gz_torch, device="cpu").render()
+    assert frame_gpu.shape == (*RES, 3)
+    assert (frame_gpu == frame_cpu).all(-1).mean() >= 0.999

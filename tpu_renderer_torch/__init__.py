@@ -1,0 +1,51 @@
+"""tpu_renderer_torch: the PyTorch + CUDA port of ``tpu_renderer``.
+
+The JAX package ``tpu_renderer`` is the reference this port is held to.
+This package imports torch and numpy, never JAX and never ``tpu_renderer``.
+It covers the main path: a textured, normal-mapped, shadowed scene rendered
+with the general Blinn-Phong shader on one device, through four hand-written
+CUDA kernels on a CUDA device (``ops/raster_cuda.py``, sources in ``csrc/``,
+built at first use) and through their plain PyTorch versions on the CPU.
+
+    import tpu_renderer_torch as tr
+    from tpu_renderer_torch.models.gizmos import make_floor
+
+    floor = make_floor(2.0, y=-1.0)
+    floor.materials["default"].map_Kd = texture      # (H, W, 3) float32
+    scene = tr.Scene(tr.Camera((0.5, 3, 5), center=(0, 0, 0), near=1e-4,
+                               far=400),
+                     tr.Light((5, 5, 0)), shadows=True,
+                     resolution=(1024, 1024), system=tr.SYSTEM.LH,
+                     subsystem=tr.SUBSYSTEM.OPENGL, device="cuda")
+    scene.add_model(floor)
+    frame = scene.render()          # (H, W, 3) uint8
+
+Precision: geometry runs in float32 with TF32 off everywhere — the GPU form
+of the JAX package's ``precision="highest"`` rule (ops/transforms.py:55-62
+there). Importing the package sets the three switches below.
+"""
+import torch as _torch
+
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from tpu_renderer_torch import constants  # noqa: E402,F401
+from tpu_renderer_torch.constants import (PROJECTION_TYPE, SUBSYSTEM,  # noqa: E402
+                                          SYSTEM)
+from tpu_renderer_torch.models.camera import Camera, Light  # noqa: E402
+from tpu_renderer_torch.models.model import Model  # noqa: E402
+from tpu_renderer_torch.models.scene import Scene  # noqa: E402
+from tpu_renderer_torch.ops.errors import Errors  # noqa: E402
+from tpu_renderer_torch.ops.lightning import Lightning  # noqa: E402
+from tpu_renderer_torch.ops.pipeline import SHADER_GENERAL  # noqa: E402
+from tpu_renderer_torch.ops.transforms import (rotate, rotate_xyz,  # noqa: E402
+                                               scale, translation)
+
+__all__ = [
+    "Model", "Camera", "Light", "Scene", "Lightning", "Errors",
+    "scale", "translation", "rotate", "rotate_xyz",
+    "SYSTEM", "SUBSYSTEM", "PROJECTION_TYPE", "SHADER_GENERAL", "constants",
+]
+
+__version__ = "0.1.0"

@@ -1,0 +1,288 @@
+"""Scene: model container + camera/light binding + the render() entry point.
+
+Counterpart of ``tpu_renderer/models/scene.py`` (reference core.py:558-640)
+for the port's main path: the general Blinn-Phong shader on one device,
+with a color background and optional shadow volumes. Fixed reference quirks
+kept from the JAX package: ``shadows=`` is honored and ``Model.shadowing``
+gates which models cast shadows; camera/light bindings live on the Scene
+instance; default camera/light are fresh per Scene.
+
+``device`` is required: there is no automatic pick. ``Scene(device="cuda")``
+on a host without CUDA raises RuntimeError. Features of the JAX package that
+are not ported yet (debug camera and overlays, skybox, the flat/gouraud/pbr
+and debug shaders, supersampling, gizmos) raise NotImplementedError.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from tpu_renderer_torch.constants import SUBSYSTEM, SYSTEM
+from tpu_renderer_torch.models.camera import Camera, Light
+from tpu_renderer_torch.models.model import Model
+from tpu_renderer_torch.ops.pipeline import (ModelConfig, SceneConfig,
+                                             SHADER_GENERAL, render_frame)
+
+__all__ = ["Scene"]
+
+_PAD = 8  # face-count padding multiple (the JAX package's scan chunk)
+
+
+def _pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
+    if len(a) == rows:
+        return a
+    pad = np.zeros((rows - len(a), *a.shape[1:]), dtype=a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
+def _material_table(model: Model, attr: str, width: int) -> np.ndarray:
+    """Per-material-group scalar/vector attribute table, broadcast to width."""
+    out = []
+    for name in model.material_group:
+        mat = model.materials.get(name, model.materials["default"])
+        val = np.atleast_1d(np.asarray(getattr(mat, attr), dtype=np.float32))
+        out.append(np.broadcast_to(val, (width,)) if width > 1 else val[:1])
+    return np.stack(out)
+
+
+def _texture_stack(model: Model, attr: str):
+    """Stack all materials' ``attr`` maps, RGB-packed into one int32 texel.
+
+    Textures originate from 8-bit images (core.py:100-105), so quantizing
+    back to 8 bits per channel under a per-stack (scale, offset) affine —
+    (1, 0) for raw [0, 1] maps, (2, -1) for ``*2-1``-normalized normal
+    maps — reconstructs the original float values exactly. A texel uses 24
+    bits, so int32 holds it with the same bits as the JAX package's uint32.
+
+    Returns (stack (N, TH, TW) int32, slot (G,), shape (G, 2), tangent (G,),
+    scale_offset (2,) float32) or None when no material carries the map.
+    """
+    groups = model.material_group
+    entries = []
+    for gi, name in enumerate(groups):
+        mat = model.materials.get(name, model.materials["default"])
+        tex = mat.__dict__.get(attr)
+        if tex is not None:
+            tangent = bool((tex.dtype.metadata or {}).get("tangent", False))
+            entries.append((gi, np.asarray(tex, np.float32), tangent))
+    if not entries:
+        return None
+    th = max(t.shape[0] for _, t, _ in entries)
+    tw = max(t.shape[1] for _, t, _ in entries)
+    lo = min(float(t.min()) for _, t, _ in entries)
+    scale, offset = (2.0, -1.0) if lo < 0 else (1.0, 0.0)
+
+    stack = np.zeros((len(entries), th, tw), np.int32)
+    slot = np.full(len(groups), -1, np.int32)
+    shape = np.ones((len(groups), 2), np.float32)
+    tangent_flags = np.zeros(len(groups), bool)
+    for si, (gi, tex, tangent) in enumerate(entries):
+        q = np.round(np.clip((tex[..., :3] - offset) / scale, 0, 1) * 255)
+        q = q.astype(np.int32)
+        stack[si, :tex.shape[0], :tex.shape[1]] = (
+            q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16))
+        slot[gi] = si
+        shape[gi] = tex.shape[:2]
+        tangent_flags[gi] = tangent
+    return (stack, slot, shape, tangent_flags,
+            np.array([scale, offset], np.float32))
+
+
+def _check_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("Scene(device='cuda') but CUDA is not available "
+                           "on this host")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+class Scene:
+    def __init__(self, camera: Optional[Camera] = None,
+                 light: Optional[Light] = None, shadows: bool = False,
+                 debug_camera: Optional[Camera] = None,
+                 resolution=(1500, 1500), system=SYSTEM.RH,
+                 subsystem=SUBSYSTEM.DIRECTX, skymap=None,
+                 shader: str = SHADER_GENERAL, supersample: int = 1, *,
+                 device):
+        if debug_camera is not None:
+            raise NotImplementedError("debug camera and overlays are not "
+                                      "ported yet")
+        if shader != SHADER_GENERAL:
+            raise NotImplementedError(f"shader {shader!r} is not ported yet; "
+                                      "only 'general'")
+        if int(supersample) != 1:
+            raise NotImplementedError("supersampling is not ported yet")
+        if skymap is not None and np.ndim(skymap) != 1:
+            raise NotImplementedError("skybox backgrounds are not ported yet; "
+                                      "skymap takes an RGB color")
+        self.device = _check_device(device)
+        self.system = system
+        self.subsystem = subsystem
+        self.resolution = tuple(int(r) for r in resolution)
+        self.models: List[Model] = []
+        self.shadows = shadows
+        self.skybox = skymap
+        self.shader = shader
+        self.debug_camera = None
+        self.camera = camera if camera is not None else Camera(
+            position=(0, 0, 1), center=(0, 0, 0))
+        self.light = light if light is not None else Light(position=(1, 1, 1))
+        self._packets: Dict[int, dict] = {}
+        self.last_zbuf = None
+        self.last_tid = None
+        self.last_stencil = None
+
+    # ------------------------------------------------------------- binding
+
+    def __setattr__(self, key, value):
+        # Bind camera/light objects to this scene (reference Bound
+        # descriptor, core.py:527-555).
+        if key in ("camera", "light") and value is not None:
+            if getattr(value, "show", False):
+                raise NotImplementedError("camera/light gizmos (show=True) "
+                                          "are not ported yet")
+            value.scene = self
+        super().__setattr__(key, value)
+
+    def add_model(self, model: Model):
+        self.models.append(model)
+
+    # ------------------------------------------------------------- packing
+
+    def _pack_model(self, model: Model) -> dict:
+        """Per-model tensors on the scene's device, cached until the model's
+        vertices or textures change (scene.py:396 of the JAX package,
+        without the sampler window metadata)."""
+        key = id(model)
+        cached = self._packets.get(key)
+        if (cached is not None and cached["_verts_src"] is model.vertices
+                and cached["_version"] == model._version):
+            return cached
+
+        F = model.num_faces
+        Fp = max(_PAD, -(-F // _PAD) * _PAD)
+        faces = model.face_array
+        dev = self.device
+        t = lambda a, dtype=None: torch.as_tensor(a, dtype=dtype, device=dev)
+
+        vid = _pad_rows(faces[:, :, 0].astype(np.int64), Fp)
+        pad_valid = np.zeros(Fp, bool)
+        pad_valid[:F] = True
+        if model.uv is not None:
+            uv = model.uv[faces[:, :, 1]][..., :2].astype(np.float32)
+        else:
+            uv = np.zeros((F, 3, 2), np.float32)
+        mtl = faces[:, 0, 3].astype(np.int64)
+        packet = {
+            "_verts_src": model.vertices,
+            "_version": model._version,
+            "verts": t(model.vertices, torch.float32),
+            "vid": t(vid),
+            "pad_valid": t(pad_valid),
+            "uv": t(_pad_rows(uv, Fp)),
+            "kd": t(_pad_rows(_material_table(model, "Kd", 3)[mtl], Fp)),
+            "ks": t(_pad_rows(_material_table(model, "Ks", 3)[mtl], Fp)),
+            "ns": t(_pad_rows(_material_table(model, "Ns", 1)[:, 0][mtl], Fp)),
+        }
+        has_vn = model.normals is not None
+        if has_vn:
+            packet["vn"] = t(_pad_rows(
+                model.normals[faces[:, :, 2]].astype(np.float32), Fp))
+
+        # Edge incidence tensors for batched silhouette extraction.
+        et = model.edge_table
+        inc_edge = np.zeros(3 * Fp, np.int64)
+        inc_dir = np.zeros((3 * Fp, 2), np.int64)
+        inc_valid = np.zeros(3 * Fp, bool)
+        inc_edge[:3 * F] = et.incidence_edge
+        inc_dir[:3 * F] = et.incidence_dir
+        inc_valid[:3 * F] = True
+        packet.update(inc_edge=t(inc_edge), inc_dir=t(inc_dir),
+                      inc_valid=t(inc_valid))
+
+        flags = {}
+        for kind, attr in (("kd", "map_Kd"), ("ks", "map_Ks"), ("norm", "norm")):
+            st = _texture_stack(model, attr)
+            flags[kind] = st is not None
+            if st is None:
+                packet[f"{kind}_slot"] = t(np.full(Fp, -1, np.int32))
+                packet[f"{kind}_shape"] = t(np.ones((Fp, 2), np.float32))
+                continue
+            stack, slot, shape, tangent, scale_off = st
+            packet[f"{kind}_stack"] = t(stack)
+            packet[f"{kind}_slot"] = t(_pad_rows(slot[mtl], Fp))
+            packet[f"{kind}_shape"] = t(_pad_rows(shape[mtl], Fp))
+            packet[f"{kind}_scale_off"] = t(scale_off)
+            if kind == "norm":
+                packet["norm_tangent"] = t(_pad_rows(tangent[mtl], Fp))
+        if "norm_tangent" not in packet:
+            packet["norm_tangent"] = t(np.zeros(Fp, bool))
+
+        packet["_config"] = ModelConfig(
+            num_faces=Fp, clip=model.clip, depth_test=model.depth_test,
+            shadowing=model.shadowing, has_vn=has_vn,
+            has_uv=model.uv is not None, has_map_kd=flags["kd"],
+            has_map_ks=flags["ks"], has_norm=flags["norm"],
+            num_edges=et.num_edges)
+        self._packets[key] = packet
+        return packet
+
+    @staticmethod
+    def _cam_dyn(cam) -> dict:
+        """Camera parameters as float32 CPU tensors: the per-frame matrices
+        are composed on the host (pipeline._cam_matrices)."""
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+        return {"position": f32(cam.position), "center": f32(cam.center),
+                "up": f32(cam.up), "fovy": f32(cam.fovy),
+                "near": f32(cam.near), "far": f32(cam.far)}
+
+    def _light_dyn(self) -> dict:
+        lt = self.light
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                        device=self.device)
+        return {"position": f32(lt.position), "center": f32(lt.center),
+                "color": f32(lt.color), "ambient": f32(lt.ambient),
+                "specular_strength": f32(lt.specular_strength),
+                "constant": f32(lt.constant), "linear": f32(lt.linear),
+                "quadratic": f32(lt.quadratic)}
+
+    def _background(self):
+        # Reference default purple-ish background (core.py:600).
+        color = (self.skybox if self.skybox is not None
+                 else [64 / 255, 0.5, 198 / 255])
+        return torch.as_tensor(np.asarray(color, np.float32),
+                               device=self.device)
+
+    # -------------------------------------------------------------- render
+
+    def _prepare(self):
+        """Pack the scene into (static SceneConfig, dict of tensors)."""
+        packets = [self._pack_model(m) for m in self.models]
+        cfg = SceneConfig(
+            resolution=self.resolution, system=self.system,
+            subsystem=self.subsystem, shadows=self.shadows,
+            cam_projection_type=self.camera.projection_type,
+            backface_culling=self.camera.backface_culling,
+            light_type=self.light.light_type,
+            models=tuple(p["_config"] for p in packets))
+        dyn = {
+            "models": [{k: v for k, v in p.items() if not k.startswith("_")}
+                       for p in packets],
+            "camera": self._cam_dyn(self.camera),
+            "light": self._light_dyn(),
+            "background_color": self._background(),
+        }
+        return cfg, dyn
+
+    def render(self) -> np.ndarray:
+        """Render one frame; returns (H, W, 3) uint8, same as core.py:587-640.
+        The z-buffer, winner ids and stencil stay on the device as
+        ``last_zbuf``, ``last_tid`` and ``last_stencil``."""
+        cfg, dyn = self._prepare()
+        out, zbuf, tid, stencil = render_frame(cfg, dyn)
+        self.last_zbuf, self.last_tid, self.last_stencil = zbuf, tid, stencil
+        return out.cpu().numpy()

@@ -1,0 +1,106 @@
+"""Frustum-plane math and polygon clipping, in PyTorch.
+
+Counterpart of ``tpu_renderer/ops/frustum.py``: Gribb–Hartmann plane
+extraction from an MVP matrix (row-vector convention, so planes come from
+matrix *columns*) and Sutherland–Hodgman polygon clipping over fixed-size
+padded vertex buffers, batched over any leading dimensions so every shadow
+quad of a frame clips in one tensor computation.
+
+Each plane pass emits, per input edge, up to two candidate vertices (the
+current vertex if visible; the edge/plane intersection on a visibility
+change) and compacts them in order with a prefix-sum scatter — the same
+output order as the reference's sequential appends
+(plane_intersection.py:59-86).
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["extract_frustum_planes", "clip_polygon"]
+
+
+def _dot4(a, p):
+    """Row-wise 4-component dot product in a fixed left-to-right order."""
+    return ((a[..., 0] * p[0] + a[..., 1] * p[1]) + a[..., 2] * p[2]) \
+        + a[..., 3] * p[3]
+
+
+def extract_frustum_planes(matrix):
+    """Frustum planes [left, right, bottom, top, near, far] from a row-vector
+    MVP (reference plane_intersection.py:43-56): with the row-vector
+    convention, plane k combines the matrix's *columns*."""
+    m = torch.as_tensor(matrix)
+    col = lambda i: m[..., i]
+    planes = torch.stack([
+        col(3) + col(0),   # left
+        col(3) - col(0),   # right
+        col(3) + col(1),   # bottom
+        col(3) - col(1),   # top
+        col(3) + col(2),   # near
+        col(3) - col(2),   # far
+    ])
+    return planes / torch.linalg.vector_norm(planes, dim=-1, keepdim=True)
+
+
+def _clip_one_plane(verts, count, plane):
+    """One Sutherland–Hodgman pass over padded polygons.
+
+    verts: (..., P, 4) float32; count: (...,) active vertex counts.
+    Emits per input edge i < count the current vertex when visible, then the
+    edge/plane intersection on a visibility change — the reference's append
+    order (plane_intersection.py:69-83).
+    """
+    n = verts.shape[-2]
+    idx = torch.arange(n, device=verts.device)
+    active = idx < count[..., None]
+    cur = verts
+    wrap = (idx + 1 >= count[..., None])[..., None]
+    nxt = torch.where(wrap, verts[..., 0:1, :], torch.roll(verts, -1, dims=-2))
+
+    dist_cur = _dot4(cur, plane)
+    dist_nxt = _dot4(nxt, plane)
+    cur_vis = dist_cur >= 0
+    nxt_vis = dist_nxt >= 0
+
+    # Intersection of (nxt -> cur) with the plane, the reference's argument
+    # order line_plane_intersection(next_vertex, current_vertex, plane).
+    direction = cur - nxt
+    denom = _dot4(direction, plane)
+    parallel = denom.abs() < 1e-10
+    weight = -dist_nxt / torch.where(parallel, torch.ones_like(denom), denom)
+    ip = nxt + weight[..., None] * direction
+    ip_valid = (~parallel) & (weight >= 0) & (weight <= 1)
+
+    emit_cur = active & cur_vis
+    emit_ip = active & (cur_vis ^ nxt_vis) & ip_valid
+
+    # Interleave candidates in reference order: cur_0, ip_0, cur_1, ip_1, ...
+    lead = verts.shape[:-2]
+    cand = torch.stack([cur, ip], dim=-2).reshape(*lead, 2 * n, 4)
+    flags = torch.stack([emit_cur, emit_ip], dim=-1).reshape(*lead, 2 * n)
+    pos = torch.cumsum(flags.to(torch.int64), dim=-1) - 1
+    out_count = flags.sum(-1)
+    # Dropped candidates scatter into a dump slot past the end.
+    dest = torch.where(flags, pos, torch.full_like(pos, 2 * n))
+    out = torch.zeros(*lead, 2 * n + 1, 4, dtype=verts.dtype,
+                      device=verts.device)
+    out.scatter_(-2, dest[..., None].expand(*lead, 2 * n, 4), cand)
+    return out[..., :n, :], out_count
+
+
+def clip_polygon(verts, count, planes):
+    """Clip padded convex polygons by a stack of planes.
+
+    verts: (..., P, 4); count: (...,) ints; planes: (K, 4).
+    Returns (clipped verts (..., P, 4) with slots past the count zeroed,
+    new counts (...,) int32).
+    """
+    verts = torch.as_tensor(verts, dtype=torch.float32)
+    count = torch.as_tensor(count, device=verts.device).to(torch.int64)
+    planes = torch.as_tensor(planes, dtype=torch.float32, device=verts.device)
+    for k in range(planes.shape[0]):
+        verts, count = _clip_one_plane(verts, count, planes[k])
+    keep = (torch.arange(verts.shape[-2], device=verts.device)
+            < count[..., None])[..., None]
+    verts = torch.where(keep, verts, torch.zeros_like(verts))
+    return verts, count.to(torch.int32)

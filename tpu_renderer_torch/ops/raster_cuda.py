@@ -1,0 +1,485 @@
+"""The four hand-written CUDA kernels of the main path, their packers, their
+tile binning and their plain PyTorch versions.
+
+Counterpart of ``tpu_renderer/ops/raster_pallas.py``:
+
+| wrapper             | kernel source          | replaces (Pallas)                       |
+|---------------------|------------------------|-----------------------------------------|
+| ``visibility``      | csrc/visibility.cu     | visibility_gbuffer_pallas phase 0       |
+| ``gbuffer``         | csrc/gbuffer.cu        | visibility_gbuffer_pallas phase 1       |
+| ``sample_textures`` | csrc/sample_textures.cu| the in-kernel windowed texture sampler  |
+| ``stencil``         | csrc/stencil.cu        | stencil_pallas                          |
+
+Each wrapper runs its plain version for tensors on the CPU, and only
+there. For CUDA tensors it checks device, dtype, shape and contiguity,
+allocates the outputs, launches the kernel on the current stream, raises if
+the launch reports an error, and adds one to its entry in :data:`LAUNCHES`.
+There is no fallback from the kernel: any other device raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from tpu_renderer_torch.ops import raster_plain as rp
+from tpu_renderer_torch.ops.shadow import QUAD_PMAX, quad_edge_coeffs, \
+    quad_fragments, _cross, _dot3
+
+__all__ = [
+    "face_flags", "pack_faces", "pack_face_attrs", "pack_quads",
+    "stencil_scalars", "tile_bins", "visibility", "gbuffer",
+    "sample_textures", "stencil", "visibility_plain", "gbuffer_plain",
+    "sample_textures_plain", "stencil_plain", "LAUNCHES", "reset_launches",
+    "KERNELS", "PLAIN", "GB_CHANNELS", "N_KINDS", "KINDS", "TILE",
+]
+
+#: Kernel launches per wrapper since the last :func:`reset_launches`.
+LAUNCHES = {"visibility": 0, "gbuffer": 0, "sample_textures": 0,
+            "stencil": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+#: Pixel tile edge of the binning grid; each CUDA block shades one tile.
+TILE = 16
+
+# ------------------------------------------------------------- G-buffer
+#: Channel layout of the forward-interpolated G-buffer (general shader),
+#: raster_pallas.py:1222-1235.
+GB_WORLD = 0        # 0-2   fragment world position
+GB_IU = 3           # 3     interpolated u
+GB_IV = 4           # 4     interpolated v
+GB_N = 5            # 5-7   interpolated vertex normal (unnormalized)
+GB_TAN = 8          # 8-10  tangent (unnormalized)
+GB_BIT = 11         # 11-13 bitangent (unnormalized)
+GB_KD = 14          # 14-16 material Kd
+GB_KS = 17          # 17-19 material Ks
+GB_NS = 20          # 20    specular exponent
+GB_KD_SLOT = 21     # 21    diffuse-map slot (-1 none), 22-23 its (TH, TW)
+GB_NORM_SLOT = 24   # 24    normal-map slot, 25-26 (TH, TW), 27 tangent flag
+GB_KS_SLOT = 28     # 28    specular-map slot, 29-30 (TH, TW)
+GB_MODEL = 31       # 31    model id
+GB_CHANNELS = 32
+
+#: Per-face shading attribute table (pack_face_attrs), raster_pallas.py:1237:
+#: [0:9] world xyz per vertex, [9:15] u0 u1 u2 v0 v1 v2, [15:24] vn per
+#: vertex, [24:27] kd, [27:30] ks, [30] ns, [31] kd_slot, [32:34] kd (TH, TW),
+#: [34] norm_slot, [35:37] norm (TH, TW), [37] norm_tangent, [38] ks_slot,
+#: [39:41] ks (TH, TW), [41] model_id.
+A_COLS = 42
+
+#: Texture kinds sampled by K3, in sample-plane order: plane k and mask bit
+#: k belong to KINDS[k].
+KINDS = ("kd", "norm", "ks")
+N_KINDS = len(KINDS)
+
+#: Quad tables (pack_quads): qdata [0:12] A, [12:24] B, [24:36] K, 36-38
+#: zx zy zd, 39 zero, [40:44] bbox as float; qi [0:4] bbox, 4 count,
+#: 5 ok ∧ box_valid, 6 front.
+Q_COLS = 44
+QI_COLS = 8
+
+
+# ------------------------------------------------------------- packers
+
+def _conds(clip):                                 # (G, 3, 4) -> (G, 3, 6)
+    x, y, z, w = clip[..., 0], clip[..., 1], clip[..., 2], clip[..., 3]
+    return torch.stack([x + w, w - x, y + w, w - y, z + w, w - z], dim=-1)
+
+
+def face_flags(faces):
+    """Per-face flag word: 1 valid | 2 clip_en | 4 z_write | 8 needs the
+    per-pixel clip test (raster_pallas.face_flags :238). A clip-enabled face
+    whose three vertices lie strictly inside every clip plane passes the
+    interpolated test at every interior pixel by convexity and skips it."""
+    e_cam = _conds(faces["clip"]) * faces["inv_w"][..., None]
+    all_inside = (e_cam > 0).all(dim=2).all(dim=1)
+    needs_ppc = faces["clip_en"] & ~all_inside
+    i32 = lambda b: b.to(torch.int32)
+    return (i32(faces["valid"]) | (i32(faces["clip_en"]) << 1)
+            | (i32(faces["z_write"]) << 2) | (i32(needs_ppc) << 3))
+
+
+def pack_faces(faces):
+    """faces dict (ops/vertex.gather_faces layout) -> (G, 34) float32 table
+    (raster_pallas.pack_faces :261 without the 128-lane padding; layout in
+    raster_plain.F_*). Clip planes are pre-scaled per vertex:
+    e[i, j] = inv_w[i] * cond_j(clip_i)."""
+    g = faces["sx"].shape[0]
+    e_cam = _conds(faces["clip"]) * faces["inv_w"][..., None]
+    return torch.cat([faces["aff"], faces["inv_w"],
+                      faces["bbox"].to(torch.float32),
+                      e_cam.reshape(g, 18)], dim=1).contiguous()
+
+
+def pack_face_attrs(attrs):
+    """Shading attribute dict -> (G, 42) float32 (raster_pallas.py:1245)."""
+    g = attrs["world"].shape[0]
+    f32 = lambda a: a.to(torch.float32)
+    cols = [
+        attrs["world"].reshape(g, 9),
+        attrs["uv"][..., 0], attrs["uv"][..., 1],
+        attrs["vn"].reshape(g, 9),
+        attrs["kd"], attrs["ks"], attrs["ns"][:, None],
+        f32(attrs["kd_slot"])[:, None], attrs["kd_shape"],
+        f32(attrs["norm_slot"])[:, None], attrs["norm_shape"],
+        f32(attrs["norm_tangent"])[:, None],
+        f32(attrs["ks_slot"])[:, None], attrs["ks_shape"],
+        f32(attrs["model_id"])[:, None],
+    ]
+    return torch.cat([f32(c) for c in cols], dim=1).contiguous()
+
+
+def pack_quads(screen, counts, ok, height, width):
+    """Clipped shadow polygons -> (qdata (E, 44) f32, qi (E, 8) int32)
+    (raster_pallas.pack_quads :903 without the 128-lane padding).
+
+    screen: (E, QUAD_PMAX, 4) viewport-space clipped polygons; counts: (E,)
+    active vertex counts; ok: (E,) silhouette ∧ count >= 3.
+    """
+    e = screen.shape[0]
+    dev = screen.device
+    sx = screen[..., 0]
+    sy = screen[..., 1]
+    a = screen[:, 0, :3]
+    nrm = _cross(a - screen[:, 1, :3], a - screen[:, 2, :3])
+    d_coef = -_dot3(a, nrm)
+    is_front = nrm[:, 2] < 0
+
+    active = torch.arange(QUAD_PMAX, device=dev)[None, :] < counts[:, None]
+    inf = torch.tensor(float("inf"), device=dev)
+    min_x = torch.clamp(torch.where(active, sx, inf).amin(1), min=0)
+    max_x = torch.clamp(torch.where(active, sx, -inf).amax(1), max=width)
+    min_y = torch.clamp(torch.where(active, sy, inf).amin(1), min=0)
+    max_y = torch.clamp(torch.where(active, sy, -inf).amax(1), max=height)
+    box_valid = ~((min_x > max_x) | (min_y > max_y))
+    bbox = torch.ceil(torch.stack([min_x, max_x, min_y, max_y], 1))
+    bbox = torch.where(torch.isfinite(bbox), bbox,
+                       torch.zeros_like(bbox)).to(torch.int32)
+
+    sx12 = torch.nan_to_num(sx, nan=0.0, posinf=3e38, neginf=-3e38)
+    sy12 = torch.nan_to_num(sy, nan=0.0, posinf=3e38, neginf=-3e38)
+    eA, eB, eK = quad_edge_coeffs(sx12, sy12, counts.to(torch.int32),
+                                  is_front)
+    # Plane depth as an affine function of the pixel: z_raw = zx*x+zy*y+zd
+    # (edge-on quads with nrm.z == 0 cover no pixels).
+    czs = torch.where(nrm[:, 2] == 0, torch.ones_like(nrm[:, 2]), nrm[:, 2])
+    zx = -nrm[:, 0] / czs
+    zy = -nrm[:, 1] / czs
+    zd = -d_coef / czs
+    qdata = torch.cat([eA, eB, eK, zx[:, None], zy[:, None], zd[:, None],
+                       torch.zeros_like(zd)[:, None],
+                       bbox.to(torch.float32)], dim=1).contiguous()
+    qi = torch.zeros((e, QI_COLS), dtype=torch.int32, device=dev)
+    qi[:, 0:4] = bbox
+    qi[:, 4] = counts.to(torch.int32)
+    qi[:, 5] = (ok & box_valid).to(torch.int32)
+    qi[:, 6] = is_front.to(torch.int32)
+    return qdata, qi
+
+
+def stencil_scalars(near, far):
+    """(2·near·far, far + near, far − near) in float32, as Python floats —
+    the depth constants the stencil test reads (raster_pallas.py:1035)."""
+    near = torch.as_tensor(near, dtype=torch.float32)
+    far = torch.as_tensor(far, dtype=torch.float32)
+    return (float(2.0 * near * far), float(far + near), float(far - near))
+
+
+def tile_bins(bbox, active, height, width, tile=TILE):
+    """Per-tile primitive lists in primitive order (a plain counterpart of
+    raster_pallas.face_bins / _bin_quads, by bounding box only).
+
+    bbox: (N, 4) int [x0, x1, y0, y1) windows; active: (N,) bool.
+    Returns (offsets (T + 1,) int32, items (M,) int32): tile t =
+    ty * tiles_x + tx lists items[offsets[t]:offsets[t + 1]], ascending.
+    """
+    dev = bbox.device
+    n_ty = -(-height // tile)
+    n_tx = -(-width // tile)
+    ty = torch.arange(n_ty, device=dev)[:, None] * tile
+    tx = torch.arange(n_tx, device=dev)[:, None] * tile
+    b = bbox.to(torch.int64)
+    ov_x = (b[None, :, 0] < tx + tile) & (b[None, :, 1] > tx)    # (Tx, N)
+    ov_y = (b[None, :, 2] < ty + tile) & (b[None, :, 3] > ty)    # (Ty, N)
+    ov = (ov_y[:, None, :] & ov_x[None, :, :] & active[None, None, :])
+    ov = ov.reshape(n_ty * n_tx, -1)
+    counts = ov.sum(1)
+    offsets = torch.zeros(n_ty * n_tx + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(counts, 0)
+    items = torch.nonzero(ov)[:, 1]          # row-major: tile, then order
+    return offsets.to(torch.int32), items.to(torch.int32).contiguous()
+
+
+# ------------------------------------------------------------- plain versions
+
+def visibility_plain(fdata, flags, height, width, sign):
+    """K1's plain version: raster_plain's z pass then id pass.
+    Returns (zb_sign (H, W) float32, tid (H, W) int32)."""
+    return rp.render_visibility(fdata, flags, height, width, sign)
+
+
+def gbuffer_plain(fdata, adata, tid):
+    """K2's plain version: a per-pixel gather of the winning face's rows,
+    then _gb_interp_face's expressions term for term (raster_pallas.py:
+    1322-1397), zero on background. Returns (32, H, W) float32."""
+    height, width = tid.shape
+    fid = torch.clamp(tid, min=0).long()
+    f = fdata[fid]                                     # (H, W, 34)
+    a = adata[fid]                                     # (H, W, 42)
+    rows = torch.arange(height, dtype=torch.float32,
+                        device=tid.device)[:, None]
+    cols = torch.arange(width, dtype=torch.float32, device=tid.device)[None]
+    co = lambda c: f[..., c]
+    at = lambda c: a[..., c]
+    v = co(0) * cols + co(1) * rows + co(2)
+    w = co(3) * cols + co(4) * rows + co(5)
+    u = 1.0 - v - w
+    su, sv, sw = u * co(9), v * co(10), w * co(11)
+    inv_s = 1.0 / (su + sv + sw)
+    pb0, pb1, pb2 = su * inv_s, sv * inv_s, sw * inv_s
+
+    def interp(c0, c1, c2):
+        return pb0 * c0 + pb1 * c1 + pb2 * c2
+
+    out = [None] * GB_CHANNELS
+    wx = [at(i) for i in range(9)]
+    for ci in range(3):
+        out[GB_WORLD + ci] = interp(wx[ci], wx[3 + ci], wx[6 + ci])
+    u0, u1, u2 = at(9), at(10), at(11)
+    vv0, vv1, vv2 = at(12), at(13), at(14)
+    out[GB_IU] = interp(u0, u1, u2)
+    out[GB_IV] = interp(vv0, vv1, vv2)
+    nv = [at(15 + i) for i in range(9)]
+    n = [interp(nv[c], nv[3 + c], nv[6 + c]) for c in range(3)]
+    for ci in range(3):
+        out[GB_N + ci] = n[ci]
+    # Tangent/bitangent via the adjugate of A = (b-a, c-a, n) (du2 = dv2 = 0).
+    e1 = [wx[3] - wx[0], wx[4] - wx[1], wx[5] - wx[2]]
+    e2 = [wx[6] - wx[0], wx[7] - wx[1], wx[8] - wx[2]]
+    c0 = [e2[1] * n[2] - e2[2] * n[1],
+          e2[2] * n[0] - e2[0] * n[2],
+          e2[0] * n[1] - e2[1] * n[0]]
+    c1 = [n[1] * e1[2] - n[2] * e1[1],
+          n[2] * e1[0] - n[0] * e1[2],
+          n[0] * e1[1] - n[1] * e1[0]]
+    det = e1[0] * c0[0] + e1[1] * c0[1] + e1[2] * c0[2]
+    inv_det = 1.0 / det
+    du0, du1 = u1 - u0, u2 - u0
+    dv0, dv1 = vv1 - vv0, vv2 - vv0
+    for ci in range(3):
+        out[GB_TAN + ci] = (c0[ci] * du0 + c1[ci] * du1) * inv_det
+        out[GB_BIT + ci] = (c0[ci] * dv0 + c1[ci] * dv1) * inv_det
+    for ci in range(3):
+        out[GB_KD + ci] = at(24 + ci)
+        out[GB_KS + ci] = at(27 + ci)
+    out[GB_NS] = at(30)
+    for off in range(10):                 # slots, shapes, tangent flag
+        out[GB_KD_SLOT + off] = at(31 + off)
+    out[GB_MODEL] = at(41)
+    gb = torch.stack(out)
+    return torch.where(tid[None] >= 0, gb, torch.zeros_like(gb))
+
+
+def _wrap_clamped(x, dim):
+    """pipeline._wrap_index (truncate, then numpy-style floor-mod wrap), then
+    clamped into [0, dim - 1] before the integer cast so that no pixel can
+    index outside its texture; NaN lands on 0. ``dim`` is float32."""
+    i = torch.trunc(x)
+    wrapped = i - dim * torch.floor(i / dim)
+    wrapped = torch.where(wrapped >= 0, wrapped, torch.zeros_like(wrapped))
+    wrapped = torch.where(wrapped <= dim - 1.0, wrapped, dim - 1.0)
+    return wrapped.to(torch.int64)
+
+
+def sample_textures_plain(tid, iu, iv, ftex, slots, pool):
+    """K3's plain version: for each winning pixel and texture kind, the
+    nearest texel at col = clip(iu, max=1)·(TW−1), row = (1 − clip(iv,
+    max=1))·(TH−1), truncated and floor-mod wrapped (reference get_UV,
+    core.py:138-143), gathered from the scene-wide texel pool.
+
+    ftex: (G, N_KINDS, 3) int32 per-face (global slot or -1, TH, TW);
+    slots: (S, 2) int32 (pool offset, row stride); pool: (P,) int32 packed
+    RGB texels. Returns (samp (N_KINDS, H, W) int32, mask (H, W) int32 with
+    bit k set where kind k was sampled).
+    """
+    win = tid >= 0
+    fid = torch.clamp(tid, min=0).long()
+    ciu = torch.clamp(iu, max=1.0)
+    civ = torch.clamp(iv, max=1.0)
+    samp = []
+    mask = torch.zeros(tid.shape, dtype=torch.int32, device=tid.device)
+    for k in range(ftex.shape[1]):
+        ft = ftex[:, k][fid]                              # (H, W, 3)
+        slot = ft[..., 0]
+        th = ft[..., 1].to(torch.float32)
+        tw = ft[..., 2].to(torch.float32)
+        col = _wrap_clamped(ciu * (tw - 1.0), tw)
+        row = _wrap_clamped((1.0 - civ) * (th - 1.0), th)
+        hit = win & (slot >= 0)
+        st = slots.long()[torch.clamp(slot, min=0).long()]
+        idx = st[..., 0] + row * st[..., 1] + col
+        idx = torch.where(hit, idx, torch.zeros_like(idx))
+        texel = pool[idx] if pool.numel() else torch.zeros_like(tid)
+        samp.append(torch.where(hit, texel, torch.zeros_like(texel)))
+        mask |= hit.to(torch.int32) << k
+    return torch.stack(samp).to(torch.int32), mask
+
+
+def stencil_plain(qdata, qi, zb_sign, sign, nf2, fpn, fmn, chunk=16):
+    """K4's plain version: the JAX package's _quad_fragments summed over all
+    quads (see shadow.quad_fragments). Returns (H, W) int32."""
+    height, width = zb_sign.shape
+    dev = zb_sign.device
+    rows = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    cols = torch.arange(width, dtype=torch.float32, device=dev)[None]
+    st = torch.zeros((height, width), dtype=torch.int32, device=dev)
+    keep = qi[:, 5] > 0                  # quads without ok contribute 0
+    qdata, qi = qdata[keep], qi[keep]
+    for q0 in range(0, qdata.shape[0], chunk):
+        qrow = torch.cat([qdata[q0:q0 + chunk],
+                          qi[q0:q0 + chunk, 5:7].to(torch.float32)], dim=1)
+        st += quad_fragments(qrow, zb_sign, rows, cols, sign, nf2, fpn, fmn)
+    return st
+
+
+# ------------------------------------------------------------- wrappers
+
+def _on_cpu(*tensors):
+    """True when every tensor lies on the CPU (the plain path); False when
+    every one lies on a CUDA device (the kernel path); raises otherwise."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise RuntimeError(f"kernel inputs must all lie on the CPU or all on one "
+                       f"CUDA device, got {[str(t.device) for t in tensors]}")
+
+
+def _require(t, name, dtype, shape):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if len(shape) != t.dim() or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: expected shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _launch(name, *args):
+    from tpu_renderer_torch.ops import _build
+
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(_build.load(), f"tr_{name}")(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+    LAUNCHES[name] += 1
+
+
+def visibility(fdata, flags, height, width, sign):
+    """K1: final sign-space z-buffer and winning face id per pixel.
+
+    fdata: (G, 34) float32 (pack_faces); flags: (G,) int32 (face_flags).
+    Returns (zb_sign (H, W) float32, tid (H, W) int32, -1 = background).
+    """
+    if _on_cpu(fdata, flags):
+        return visibility_plain(fdata, flags, height, width, sign)
+    g = fdata.shape[0]
+    _require(fdata, "fdata", torch.float32, (g, rp.F_COLS))
+    _require(flags, "flags", torch.int32, (g,))
+    bbox = fdata[:, rp.F_BBOX:rp.F_BBOX + 4].to(torch.int32)
+    off, items = tile_bins(bbox, (flags & rp.FLAG_VALID) > 0, height, width)
+    zb = torch.empty((height, width), dtype=torch.float32,
+                     device=fdata.device)
+    tid = torch.empty((height, width), dtype=torch.int32, device=fdata.device)
+    _launch("visibility", fdata.data_ptr(), flags.data_ptr(), off.data_ptr(),
+            items.data_ptr(), height, width, -(-width // TILE), float(sign),
+            zb.data_ptr(), tid.data_ptr())
+    return zb, tid
+
+
+def gbuffer(fdata, adata, tid):
+    """K2: the 32-channel G-buffer of each pixel's winning face, zero on
+    background. fdata (G, 34), adata (G, 42) float32; tid (H, W) int32."""
+    if _on_cpu(fdata, adata, tid):
+        return gbuffer_plain(fdata, adata, tid)
+    g = fdata.shape[0]
+    height, width = tid.shape
+    _require(fdata, "fdata", torch.float32, (g, rp.F_COLS))
+    _require(adata, "adata", torch.float32, (g, A_COLS))
+    _require(tid, "tid", torch.int32, (height, width))
+    gb = torch.empty((GB_CHANNELS, height, width), dtype=torch.float32,
+                     device=tid.device)
+    _launch("gbuffer", fdata.data_ptr(), adata.data_ptr(), tid.data_ptr(),
+            height, width, gb.data_ptr())
+    return gb
+
+
+def sample_textures(tid, iu, iv, ftex, slots, pool):
+    """K3: nearest-texel samples per kind and the sampled-kind bitmask (see
+    sample_textures_plain for the arguments)."""
+    if _on_cpu(tid, iu, iv, ftex, slots, pool):
+        return sample_textures_plain(tid, iu, iv, ftex, slots, pool)
+    height, width = tid.shape
+    g, n_kinds = ftex.shape[0], ftex.shape[1]
+    _require(tid, "tid", torch.int32, (height, width))
+    _require(iu, "iu", torch.float32, (height, width))
+    _require(iv, "iv", torch.float32, (height, width))
+    _require(ftex, "ftex", torch.int32, (g, n_kinds, 3))
+    _require(slots, "slots", torch.int32, (None, 2))
+    _require(pool, "pool", torch.int32, (None,))
+    if not 0 < n_kinds <= 8 or pool.numel() >= 2 ** 31:
+        raise ValueError("sample_textures: 1-8 kinds and < 2**31 texels")
+    samp = torch.empty((n_kinds, height, width), dtype=torch.int32,
+                       device=tid.device)
+    mask = torch.empty((height, width), dtype=torch.int32, device=tid.device)
+    _launch("sample_textures", tid.data_ptr(), iu.data_ptr(), iv.data_ptr(),
+            ftex.data_ptr(), slots.data_ptr(), pool.data_ptr(), n_kinds,
+            slots.shape[0], pool.numel(), height, width, samp.data_ptr(),
+            mask.data_ptr())
+    return samp, mask
+
+
+def stencil(qdata, qi, zb_sign, sign, nf2, fpn, fmn):
+    """K4: signed shadow-volume stencil against the final z-buffer.
+
+    qdata (E, 44) float32, qi (E, 8) int32 (pack_quads); zb_sign (H, W)
+    float32; sign ±1; nf2, fpn, fmn from :func:`stencil_scalars`.
+    Returns (H, W) int32.
+    """
+    if _on_cpu(qdata, qi, zb_sign):
+        return stencil_plain(qdata, qi, zb_sign, sign, nf2, fpn, fmn)
+    e = qdata.shape[0]
+    height, width = zb_sign.shape
+    _require(qdata, "qdata", torch.float32, (e, Q_COLS))
+    _require(qi, "qi", torch.int32, (e, QI_COLS))
+    _require(zb_sign, "zb_sign", torch.float32, (height, width))
+    off, items = tile_bins(qi[:, 0:4], qi[:, 5] > 0, height, width)
+    st = torch.empty((height, width), dtype=torch.int32,
+                     device=zb_sign.device)
+    _launch("stencil", qdata.data_ptr(), qi.data_ptr(), off.data_ptr(),
+            items.data_ptr(), zb_sign.data_ptr(), height, width,
+            -(-width // TILE), float(sign * nf2), fpn, fmn, st.data_ptr())
+    return st
+
+
+class _Ops:
+    """The four per-frame raster operations render_core calls."""
+
+    def __init__(self, visibility, gbuffer, sample_textures, stencil):
+        self.visibility = visibility
+        self.gbuffer = gbuffer
+        self.sample_textures = sample_textures
+        self.stencil = stencil
+
+
+#: The main path: kernels on CUDA tensors, plain versions on CPU tensors.
+KERNELS = _Ops(visibility, gbuffer, sample_textures, stencil)
+#: The plain versions on any device: the oracle a kernel run is held to.
+PLAIN = _Ops(visibility_plain, gbuffer_plain, sample_textures_plain,
+             stencil_plain)

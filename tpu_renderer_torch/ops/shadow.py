@@ -1,0 +1,190 @@
+"""Stencil shadow volumes, batched, in PyTorch.
+
+Counterpart of ``tpu_renderer/ops/shadow.py``:
+
+1. **Silhouette extraction** — parity of the light-facing mask summed over
+   unique-edge ids (odd = silhouette); the surviving edge keeps the vertex
+   order of the *last* light-facing incidence (reference XOR set,
+   triangular.py:294-302). The facing test is ``normal @ light.position > 0``
+   — position, not direction — like triangular.py:295.
+2. **Extrusion** (core.py:613-621), including the reference's homogeneous
+   quirk for directional lights (w = 2 on the extruded points).
+3. **Clipping** of every quad against the six world-space frustum planes
+   (triangular.py:320), batched (ops/frustum.clip_polygon).
+4. **Stencil** (triangular.py:319-368): point-in-convex-polygon by edge
+   half-planes, plane-equation depth in divide-free multiply-compare form,
+   geometry pixels only, +1 for front quads and -1 for back quads. The sum
+   is over integers, so any order gives the same stencil.
+
+Quads are prepared through the JAX package's uncompacted path
+(``prepare_quads``'s ``_prep``, shadow.py:262-287 there) at every scene size:
+its silhouette compaction and cap ladder exist to save TPU work, and the
+quads they skip have ``ok`` false, so the stencil comes out the same.
+"""
+from __future__ import annotations
+
+import torch
+
+from tpu_renderer_torch.ops.frustum import clip_polygon
+from tpu_renderer_torch.ops.lightning import Lightning
+from tpu_renderer_torch.ops.transforms import normalize
+from tpu_renderer_torch.ops.vertex import _rowvec
+
+__all__ = ["silhouette_edges", "extrude_quads", "quad_edge_coeffs",
+           "prepare_quads", "shadow_stencil", "QUAD_PMAX"]
+
+#: Padded vertex capacity for a quad clipped by 6 planes (4 + 6 = 10 max).
+QUAD_PMAX = 12
+
+
+def _cross(a, b):
+    """Row-wise cross product, component order of ``jnp.cross``."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def _dot3(a, b):
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
+def silhouette_edges(verts, vid, pad_valid, inc_edge, inc_dir, inc_valid,
+                     light_position, num_edges):
+    """Per-edge silhouette mask + directed vertex ids.
+
+    verts: (V, 4); vid: (Fp, 3); pad_valid: (Fp,); inc_edge / inc_dir /
+    inc_valid: (3Fp,) / (3Fp, 2) / (3Fp,) incidence tensors.
+    Returns (silhouette (E,) bool, a_vid (E,), b_vid (E,)).
+    """
+    world = verts[vid.long()][..., :3]
+    n = _cross(world[:, 1] - world[:, 0], world[:, 2] - world[:, 0])
+    light_facing = (_dot3(n, light_position) > 0) & pad_valid
+
+    inc_lf = torch.repeat_interleave(light_facing, 3) & inc_valid
+    edge = inc_edge.long()
+    parity = torch.zeros(num_edges, dtype=torch.int32, device=verts.device)
+    parity.index_add_(0, edge, inc_lf.to(torch.int32))
+    order = torch.where(
+        inc_lf, torch.arange(inc_lf.shape[0], device=verts.device),
+        torch.full_like(edge, -1))
+    last = torch.full((num_edges,), -1, dtype=torch.int64, device=verts.device)
+    last.scatter_reduce_(0, edge, order, reduce="amax", include_self=True)
+
+    silhouette = (parity & 1) == 1
+    ab = inc_dir.long()[torch.clamp(last, min=0)]
+    return silhouette, ab[:, 0], ab[:, 1]
+
+
+def extrude_quads(verts, a_vid, b_vid, light, light_type):
+    """Silhouette edges -> shadow quads (A, B, D, C), reference core.py:613-621."""
+    A = verts[a_vid]
+    B = verts[b_vid]
+    one = torch.ones(1, dtype=torch.float32, device=verts.device)
+    if light_type == Lightning.POINT_LIGHTNING:
+        lp = torch.cat([light["position"], one])
+        C = A + 1000.0 * normalize(A - lp)
+        D = B + 1000.0 * normalize(B - lp)
+    else:
+        # Directional/spot: w gets +1 on top of the vertex's w=1 — the
+        # reference's tuple-append quirk, kept for pixel parity.
+        direction = normalize(light["position"] - light["center"]).reshape(-1)
+        ext = torch.cat([direction * -1000.0, one])
+        C = A + ext
+        D = B + ext
+    return torch.stack([A, B, D, C], dim=1)                      # (E, 4, 4)
+
+
+def quad_edge_coeffs(sx, sy, counts, front):
+    """Edge half-plane functions of convex screen polygons, orientation folded
+    in: inside requires A*x + B*y + K > 0 on every edge. Inactive edge slots
+    encode (0, 0, 1), an always-true test. sx, sy: (..., 12); counts, front:
+    (...,)."""
+    fs = torch.where(front, 1.0, -1.0).to(torch.float32)[..., None]
+    slots = torch.arange(sx.shape[-1], device=sx.device)
+    wrap = slots + 1 >= counts[..., None]
+    px1 = torch.where(wrap, sx[..., 0:1], torch.roll(sx, -1, dims=-1))
+    py1 = torch.where(wrap, sy[..., 0:1], torch.roll(sy, -1, dims=-1))
+    A = (py1 - sy) * fs
+    B = -(px1 - sx) * fs
+    K = -(sx * A + sy * B)
+    active = slots < counts[..., None]
+    zero, one = torch.zeros_like(A), torch.ones_like(K)
+    return (torch.where(active, A, zero), torch.where(active, B, zero),
+            torch.where(active, K, one))
+
+
+def quad_fragments(qrow, zb_sign, rows, cols, sign, nf2, fpn, fmn):
+    """Signed stencil contribution of a chunk of Q packed shadow polygons.
+
+    The JAX package's ``_quad_fragments`` (shadow.py:150) evaluated on the
+    packed coefficients of ``raster_cuda.pack_quads`` (qdata columns
+    [0:12] A, [12:24] B, [24:36] K, 36-38 zx zy zd; ``qrow`` also carries the
+    0/1 ``ok`` and ``front`` words as columns 44 and 45). Returns (H, W) int32.
+    """
+    co = lambda c: qrow[:, c, None, None]
+    m = None
+    for i in range(QUAD_PMAX):
+        e = co(i) * cols + co(12 + i) * rows + co(24 + i)
+        m = e if m is None else torch.minimum(m, e)
+    # zb >= sign*nf2/q  <=>  (zb*q - sign*nf2 >= 0) == (q > 0): the
+    # multiply-compare form of raster_pallas.py:1100-1103, geometry pixels
+    # only (background never reads the stencil).
+    zraw = co(36) * cols + co(37) * rows + co(38)
+    qden = fpn - zraw * fmn
+    pass_z = ((zb_sign * qden - sign * nf2 >= 0) == (qden > 0)) \
+        & (zb_sign < 3e38)
+    mask = (m > 0) & pass_z & (co(44) > 0)
+    contrib = torch.where(co(45) > 0, 1, -1).to(torch.int32)
+    return torch.where(mask, contrib, 0).sum(0, dtype=torch.int32)
+
+
+def prepare_quads(cfg, dyn, cam_m):
+    """Silhouette -> extruded quads -> world clip -> screen projection.
+
+    Returns (screen (E, QUAD_PMAX, 4), counts (E,) int32, ok (E,) bool), or
+    None when no model casts shadows.
+    """
+    light = dyn["light"]
+    quads, flags = [], []
+    for mc, md in zip(cfg.models, dyn["models"]):
+        if not mc.shadowing or mc.num_edges == 0:
+            continue
+        sil, a_vid, b_vid = silhouette_edges(
+            md["verts"], md["vid"], md["pad_valid"], md["inc_edge"],
+            md["inc_dir"], md["inc_valid"], light["position"], mc.num_edges)
+        quads.append(extrude_quads(md["verts"], a_vid, b_vid, light,
+                                   cfg.light_type))
+        flags.append(sil)
+    if not quads:
+        return None
+    quad = torch.cat(quads, dim=0)
+    sil = torch.cat(flags, dim=0)
+
+    padded = torch.zeros((quad.shape[0], QUAD_PMAX, 4), dtype=torch.float32,
+                         device=quad.device)
+    padded[:, :4] = quad
+    counts = torch.full((quad.shape[0],), 4, dtype=torch.int32,
+                        device=quad.device)
+    clipped, counts = clip_polygon(padded, counts, cam_m["frustum_planes"])
+    ok = sil & (counts >= 3)
+    # Project to screen: MVP -> /w -> viewport (triangular.py:325-327).
+    ndc = _rowvec(clipped, cam_m["MVP"])
+    screen = _rowvec(ndc / ndc[..., 3:4], cam_m["viewport"])
+    return screen, counts, ok
+
+
+def shadow_stencil(cfg, dyn, cam_m, zb_sign):
+    """Full-frame signed stencil through the plain path: prepared quads,
+    packed (raster_cuda.pack_quads) and summed with :func:`quad_fragments`.
+    ``zb_sign``: the final z-buffer in sign space."""
+    from tpu_renderer_torch.ops import raster_cuda
+
+    height, width = zb_sign.shape
+    prepared = prepare_quads(cfg, dyn, cam_m)
+    if prepared is None:
+        return torch.zeros((height, width), dtype=torch.int32,
+                           device=zb_sign.device)
+    qdata, qi = raster_cuda.pack_quads(*prepared, height, width)
+    zc = raster_cuda.stencil_scalars(dyn["camera"]["near"],
+                                     dyn["camera"]["far"])
+    return raster_cuda.stencil_plain(qdata, qi, zb_sign, cfg.system, *zc)

@@ -1,0 +1,281 @@
+"""Transform-matrix library: the L0 math core, in PyTorch.
+
+Counterpart of ``tpu_renderer/ops/transforms.py``. Every matrix follows the
+reference's **row-vector convention** (points are rows; matrices
+right-multiply: ``vertices @ M``, reference core.py:350-352), which is why
+``translation`` carries its offset in the last row and ``ViewPort`` its
+translation in the last row (transformation.py:123-136, 219-227).
+
+Matrices are float32 tensors built on the CPU: they are a handful of scalars
+per frame, and building them on the host keeps the per-frame matrices
+bit-identical whichever device renders. Callers move them with ``.to(device)``.
+
+Parity map (reference transformation.py):
+  scale:207  translation:219  rotate_xyz:230  looka_at_translate:77
+  look_at_rotate_lh:83  look_at_rotate_rh:92  lookAtLH:52  lookAtRH:101
+  ViewPort:123  opengl_orthographicLH:139  opengl_perspectiveLH:157
+  opengl_perspectiveRH:168  directx_perspectiveRH:179  directx_perspectiveLH:193
+  perspectives registry:346  bound_box:35  normalize:46
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_renderer_torch.constants import PROJECTION_TYPE, SUBSYSTEM, SYSTEM
+
+__all__ = [
+    "matmul", "normalize", "bound_box_batch", "scale", "translation",
+    "rotate_xyz", "rotate", "looka_at_translate", "look_at_translate",
+    "look_at_rotate_lh", "look_at_rotate_rh", "lookAtLH", "lookAtRH",
+    "ViewPort", "opengl_orthographicLH", "opengl_perspectiveLH",
+    "opengl_perspectiveRH", "directx_perspectiveLH", "directx_perspectiveRH",
+    "perspectives", "SYSTEM", "SUBSYSTEM",
+]
+
+_F32 = torch.float32
+
+
+def _t(x, device=None):
+    """Scalar / array / tensor -> float32 tensor (CPU unless ``device``)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=_F32, device=device or x.device)
+    return torch.tensor(np.asarray(x), dtype=_F32, device=device)
+
+
+def matmul(a, b):
+    """float32 matrix product at full precision.
+
+    The package sets ``torch.backends.cuda.matmul.allow_tf32 = False`` and
+    ``torch.set_float32_matmul_precision("highest")`` on import (see
+    ``tpu_renderer_torch/__init__.py``), the counterpart of the JAX package's
+    ``precision="highest"`` rule: rasterization coverage is sign-sensitive.
+    """
+    return torch.matmul(_t(a), _t(b))
+
+
+def normalize(a, axis=-1, order=2):
+    """Safe L2 (or Lp) normalization (reference transformation.py:46-49).
+
+    Zero-norm rows are passed through unchanged (norm treated as 1).
+    """
+    a = _t(a)
+    l2 = torch.linalg.vector_norm(a, ord=order, dim=axis, keepdim=True)
+    l2 = torch.where(l2 == 0, torch.ones_like(l2), l2)
+    return a / l2
+
+
+def bound_box_batch(tri_xy, height, width):
+    """Batched ``bound_box``: ``tri_xy`` (F, K, 2) -> ((F, 4) int32, (F,) bool)."""
+    min_x = torch.clamp(tri_xy[..., 0].amin(-1), min=0)
+    max_x = torch.clamp(tri_xy[..., 0].amax(-1), max=width)
+    min_y = torch.clamp(tri_xy[..., 1].amin(-1), min=0)
+    max_y = torch.clamp(tri_xy[..., 1].amax(-1), max=height)
+    valid = ~((min_x > max_x) | (min_y > max_y))
+    box = torch.ceil(torch.stack([min_x, max_x, min_y, max_y], -1))
+    return box.to(torch.int32), valid
+
+
+# --------------------------------------------------------------------------
+# Model transforms (row-vector convention)
+# --------------------------------------------------------------------------
+
+def _mat(rows):
+    """4x4 float32 matrix from nested rows of float32 0-d tensors."""
+    return torch.stack([torch.stack([_t(x) for x in r]) for r in rows])
+
+
+def scale(factor):
+    """Uniform scale matrix (reference transformation.py:207-216)."""
+    f = _t(factor)
+    m = torch.eye(4, dtype=_F32)
+    m[0, 0] = f
+    m[1, 1] = f
+    m[2, 2] = f
+    return m
+
+
+def translation(vec):
+    """Translation matrix, transposed for row vectors (transformation.py:219-227)."""
+    m = torch.eye(4, dtype=_F32)
+    m[3, :3] = _t(vec)
+    return m
+
+
+def rotate_xyz(a):
+    """Euler rotation from degrees ``(x, y, z)`` (transformation.py:230-263).
+
+    Replicates the reference's angle wiring, where the matrix labelled
+    ``rotate_x`` uses the *y* angle and ``rotate_y`` the *x* angle.
+    """
+    a = torch.deg2rad(_t(a))
+    x, y, z = a[0], a[1], a[2]
+    one, zero = torch.ones((), dtype=_F32), torch.zeros((), dtype=_F32)
+    rot_x = _mat([[one, zero, zero, zero],
+                  [zero, torch.cos(y), -torch.sin(y), zero],
+                  [zero, torch.sin(y), torch.cos(y), zero],
+                  [zero, zero, zero, one]]).T
+    rot_y = _mat([[torch.cos(x), zero, torch.sin(x), zero],
+                  [zero, one, zero, zero],
+                  [-torch.sin(x), zero, torch.cos(x), zero],
+                  [zero, zero, zero, one]]).T
+    rot_z = _mat([[torch.cos(z), torch.sin(z), zero, zero],
+                  [-torch.sin(z), torch.cos(z), zero, zero],
+                  [zero, zero, one, zero],
+                  [zero, zero, zero, one]]).T
+    return matmul(matmul(rot_z, rot_y), rot_x)
+
+
+#: The reference README documents ``rotate`` but ships only ``rotate_xyz``.
+rotate = rotate_xyz
+
+
+# --------------------------------------------------------------------------
+# Look-at family
+# --------------------------------------------------------------------------
+
+def looka_at_translate(eye):
+    """Look-at translation part (reference transformation.py:77-80)."""
+    m = torch.eye(4, dtype=_F32)
+    m[3, :3] = -_t(eye)
+    return m
+
+
+look_at_translate = looka_at_translate
+
+
+def _cross3(a, b):
+    return torch.stack([a[1] * b[2] - a[2] * b[1],
+                        a[2] * b[0] - a[0] * b[2],
+                        a[0] * b[1] - a[1] * b[0]])
+
+
+def _look_at_rotate(eye, center, up, forward_sign):
+    forward = normalize(_t(center) - _t(eye)).reshape(-1)
+    right = normalize(_cross3(_t(up), forward)).reshape(-1)
+    new_up = _cross3(forward, right)
+    rot = torch.eye(4, dtype=_F32)
+    rot[:3, :3] = torch.stack((right, new_up, forward_sign * forward), dim=1)
+    return rot
+
+
+def look_at_rotate_lh(eye, center, up):
+    """LH look-at rotation part (reference transformation.py:83-89)."""
+    return _look_at_rotate(eye, center, up, -1.0)
+
+
+def look_at_rotate_rh(eye, center, up):
+    """RH look-at rotation part (reference transformation.py:92-98)."""
+    return _look_at_rotate(eye, center, up, 1.0)
+
+
+def lookAtLH(eye, center, up=(0, 1, 0)):
+    """Monolithic LH view matrix (reference transformation.py:52-74)."""
+    eye = _t(eye)
+    m = look_at_rotate_lh(eye, center, up)
+    m[3, :3] = matmul(-eye, m[:3, :3])
+    return m
+
+
+def lookAtRH(eye, center, up=(0, 1, 0)):
+    """Monolithic RH view matrix (reference transformation.py:101-120);
+    replicates the reference's ``eye @ rot`` translation (no negation)."""
+    eye = _t(eye)
+    m = look_at_rotate_rh(eye, center, up)
+    m[3, :3] = matmul(eye, m[:3, :3])
+    return m
+
+
+# --------------------------------------------------------------------------
+# Viewport & projections
+# --------------------------------------------------------------------------
+
+def ViewPort(resolution, far, near, x_offset=0, y_offset=0):
+    """NDC -> screen matrix, translation in last row (transformation.py:123-136).
+
+    ``resolution`` is (height, width) like the reference.
+    """
+    height, width = resolution
+    hw, hh = _t(width) / 2, _t(height) / 2
+    hd = (_t(far) - _t(near)) / 2
+    m = torch.zeros((4, 4), dtype=_F32)
+    m[0, 0] = hw
+    m[1, 1] = hh
+    m[2, 2] = hd
+    m[3, 0] = hw + x_offset
+    m[3, 1] = hh + y_offset
+    m[3, 2] = hd
+    m[3, 3] = 1.0
+    return m
+
+
+def opengl_orthographicLH(fov, aspect_ratio, z_near, z_far):
+    """OpenGL LH orthographic projection (transformation.py:139-154)."""
+    z_near, z_far = _t(z_near), _t(z_far)
+    half_height = torch.tan(torch.deg2rad(_t(fov) / 2.0)) * z_near
+    half_width = half_height * aspect_ratio
+    m = torch.zeros((4, 4), dtype=_F32)
+    m[0, 0] = 1.0 / half_width
+    m[1, 1] = 1.0 / half_height
+    m[2, 2] = -2.0 / (z_far - z_near)
+    m[3, 2] = (z_far + z_near) / (z_far - z_near)
+    m[3, 3] = 1.0
+    return m
+
+
+def _perspective(fovy, aspect, m22, m32, m23):
+    f = 1.0 / torch.tan(torch.deg2rad(_t(fovy)) / 2.0)
+    m = torch.zeros((4, 4), dtype=_F32)
+    m[0, 0] = f / aspect
+    m[1, 1] = f
+    m[2, 2] = _t(m22)
+    m[2, 3] = _t(m23)
+    m[3, 2] = _t(m32)
+    return m
+
+
+def opengl_perspectiveLH(fovy, aspect, z_near, z_far):
+    """OpenGL LH perspective (transformation.py:157-165)."""
+    n, f = _t(z_near), _t(z_far)
+    return _perspective(fovy, aspect, -(f + n) / (f - n), 2.0 * f * n / (f - n), 1.0)
+
+
+def opengl_perspectiveRH(fovy, aspect, z_near, z_far):
+    """OpenGL RH perspective (transformation.py:168-176)."""
+    n, f = _t(z_near), _t(z_far)
+    return _perspective(fovy, aspect, -(f + n) / (f - n), -2.0 * f * n / (f - n), -1.0)
+
+
+def directx_perspectiveRH(fovy, aspect, z_near, z_far):
+    """DirectX RH perspective (transformation.py:179-190)."""
+    n, f = _t(z_near), _t(z_far)
+    return _perspective(fovy, aspect, f / (n - f), n * f / (n - f), -1.0)
+
+
+def directx_perspectiveLH(fovy, aspect, z_near, z_far):
+    """DirectX LH perspective (transformation.py:193-204)."""
+    n, f = _t(z_near), _t(z_far)
+    return _perspective(fovy, aspect, -f / (f - n), n * f / (f - n), 1.0)
+
+
+#: Projection registry keyed by (SUBSYSTEM, PROJECTION_TYPE, SYSTEM), the same
+#: shape (missing combinations raise KeyError) as the reference's
+#: ``perspectives`` dict (transformation.py:346-361).
+perspectives = {
+    SUBSYSTEM.DIRECTX: {
+        PROJECTION_TYPE.PERSPECTIVE: {
+            SYSTEM.LH: directx_perspectiveLH,
+            SYSTEM.RH: directx_perspectiveRH,
+        },
+        PROJECTION_TYPE.ORTHOGRAPHIC: {},
+    },
+    SUBSYSTEM.OPENGL: {
+        PROJECTION_TYPE.PERSPECTIVE: {
+            SYSTEM.LH: opengl_perspectiveLH,
+            SYSTEM.RH: opengl_perspectiveRH,
+        },
+        PROJECTION_TYPE.ORTHOGRAPHIC: {
+            SYSTEM.LH: opengl_orthographicLH,
+        },
+    },
+}
