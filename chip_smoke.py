@@ -1,26 +1,37 @@
-"""Drive the PyTorch/CUDA port's main path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's render paths once on one CUDA card.
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises, so the script exits
-non-zero without the final line):
+Phases (each prints one line or a few; any failure raises, so the script
+exits non-zero without the final line):
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA and
    nvcc versions;
 2. build: compile ``tpu_renderer_torch/csrc/*.cu`` with nvcc for sm_90a;
-3. per kernel: K1-K4 against their plain PyTorch versions on the card, at
-   the flagship frame's shapes, each timed with CUDA events (median of a
-   few runs after a warm-up);
-4. end to end: the flagship frame — a seeded procedural shadow-casting mesh
-   of 4,992 faces with 1024² diffuse and tangent-space normal maps over a
-   textured floor, point light, shadow volumes, 1024×1024, LH/OpenGL —
-   through ``Scene.render()``; every kernel's launch count must rise, and
-   tid, stencil and frame must match the same render through the plain
-   versions; then a short camera orbit is timed, and a few frames are
-   profiled (device busy share, each stage's host time and device span).
+3. per kernel: K1-K6 (K5 in its flat, gouraud and pbr layouts) against
+   their plain PyTorch versions on the card, at the flagship frame's
+   shapes, each timed with CUDA events (median of a few runs after a
+   warm-up), beside its bound: the larger of the bytes its function must
+   move in this run (``needed_bytes``) over 3.35 TB/s and a lower count of
+   its float operations over 67 TFLOP/s;
+4. end to end, general shader: the flagship frame — a seeded procedural
+   shadow-casting mesh of 4,992 faces with 1024² diffuse and tangent-space
+   normal maps over a textured floor, point light, shadow volumes,
+   1024×1024, LH/OpenGL — through ``Scene.render()``; K1-K4's launch counts
+   must rise, and tid, stencil and frame must match the same render through
+   the plain versions; then a camera orbit is timed, and a few frames are
+   profiled (device busy share, each stage's host time and device span);
+5. the other shaders: the same frame through ``Scene.render()`` under
+   flat, gouraud, pbr, wireframe and points, and under the general shader
+   over a seeded procedural cubemap skybox (6 × 512² faces); each render
+   must launch the kernels of its path and match its plain-path render;
+   each is timed against the general shader (without the skybox) as
+   interleaved orbits, general then variant, PAIRS times, and profiled.
 
 Before the last line it prints the card's ``name, power.limit`` line and
-one JSON object with the per-kernel records; the last line is
+one JSON object with the per-kernel records (each with its launches in
+the render of its path: K1-K4 from phase 4, each K5 layout from its
+shader's render, K6 from the wireframe render); the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX: the card's
 host runs the port alone.
 """
@@ -37,6 +48,12 @@ import numpy as np
 RES = (1024, 1024)
 SEED = 0
 TEX = 1024
+SKY = 512
+
+#: Published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
+#: float32 operations/s outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
 
 
 def _smooth_noise(rng, shape, octaves=4):
@@ -121,6 +138,18 @@ def build_flagship(tr, device, resolution=RES, tex=TEX, seed=SEED):
     return scene
 
 
+def procedural_cubemap(tr, size=SKY, seed=SEED):
+    """Six seeded, 8-bit-quantized (size, size, 3) skybox faces, no image
+    files."""
+    rng = np.random.default_rng(seed + 1)
+    faces = {}
+    for side in ("left", "right", "top", "bottom", "front", "back"):
+        rgb = np.stack([_smooth_noise(rng, (size, size), octaves=3)
+                        for _ in range(3)], axis=-1)
+        faces[side] = (np.round(rgb * 255) / 255).astype(np.float32)
+    return tr.CubeMap(**faces)
+
+
 def orbit_position(t, radius=5.05, height=3.0):
     """bench.orbit_position's camera path."""
     return np.array([radius * np.sin(t) + 0.5, height, radius * np.cos(t)],
@@ -128,8 +157,9 @@ def orbit_position(t, radius=5.05, height=3.0):
 
 
 def kernel_inputs(scene):
-    """The four kernels' inputs at the scene's main-path shapes (the stage
-    calls of pipeline.render_core, through the plain versions)."""
+    """Every kernel's inputs at the scene's shapes, keyed by case (K5 once
+    per layout): the stage calls of pipeline.render_core and
+    render_debug_frame, through the plain versions. Returns (inputs, zb_sign)."""
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
     from tpu_renderer_torch.ops.shadow import prepare_quads
@@ -145,13 +175,148 @@ def kernel_inputs(scene):
     tables = pl.texture_tables(cfg, dyn, attrs)
     qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
     zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])
-    return {
+    inputs = {
         "visibility": (fdata, flags, h, w, cfg.system),
         "gbuffer": (fdata, adata, tid),
         "sample_textures": (tid, gb[rc.GB_IU].contiguous(),
                             gb[rc.GB_IV].contiguous(), *tables),
         "stencil": (qdata, qi, zb_sign, cfg.system, *zc),
     }
+    for layout in rc.SLIM_CHANNELS:
+        inputs[f"gbuffer_slim_{layout}"] = (
+            fdata, rc.pack_slim_attrs(attrs, layout), tid, layout)
+    # The wireframe frame's K6 call: its z-buffer is K1's (the shader does
+    # not change visibility), its edges every face's (no culling).
+    sx, sy, sz, _, valid = pl._debug_vertices(dyn, cam_m)
+    inputs["lines"] = pl._wireframe_lines(sx, sy, sz, valid,
+                                          zb_sign * cfg.system, h, w)
+    return inputs, zb_sign
+
+
+def wrapper_of(case):
+    """raster_cuda wrapper name of a kernel case."""
+    return "gbuffer_slim" if case.startswith("gbuffer_slim") else case
+
+
+def _tile_counts(bbox, active, h, w):
+    """Items per binning tile, as the wrapper's tile_bins lists them."""
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    off, _ = rc.tile_bins(bbox, active, h, w)
+    return (off[1:] - off[:-1]).double()
+
+
+def _tile_sums(mask):
+    """Pixels of ``mask`` (H, W) in each binning tile, tile-row-major."""
+    import torch
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    t = rc.TILE
+    h, w = mask.shape
+    m = torch.zeros((-(-h // t) * t, -(-w // t) * t), dtype=torch.float64,
+                    device=mask.device)
+    m[:h, :w] = mask.double()
+    return m.reshape(m.shape[0] // t, t, m.shape[1] // t, t).sum((1, 3)
+                                                                ).reshape(-1)
+
+
+#: Lower counts of float operations (multiply, add, compare, floor) per
+#: (pixel, listed item) visit of the tile-binned kernels — K1's coverage and
+#: depth test of one face in one pass; K4's first edge test, on geometry
+#: pixels only (it skips background); K6's bbox test, on interior pixels —
+#: and per foreground pixel of the per-pixel kernels (K3: per kind).
+OPS_PER_VISIT = {"visibility": 20, "stencil": 5, "lines": 4}
+OPS_PER_PIXEL = {"gbuffer": 100, "sample_textures": 45,
+                 "gbuffer_slim_flat": 0, "gbuffer_slim_gouraud": 25,
+                 "gbuffer_slim_pbr": 40}
+
+
+#: Columns of each face table a G-buffer kernel reads per winning face:
+#: K2 the six barycentric and three 1/w columns of fdata and every column of
+#: adata; K5 the slim table, and the six barycentric columns of fdata unless
+#: the layout is flat.
+WINNER_COLS = {"gbuffer": 9 + 42, "gbuffer_slim_flat": 3,
+               "gbuffer_slim_gouraud": 6 + 9, "gbuffer_slim_pbr": 6 + 23}
+
+
+def needed_bytes(case, args, out):
+    """Bytes the call's function must move in this run: each output written
+    once, and of its inputs only what its outputs depend on, each read once
+    — per-pixel planes where the function reads them, the table rows of the
+    faces that win a pixel (or of the valid faces, active quads and edges),
+    and the texels that some pixel samples."""
+    import torch
+    from tpu_renderer_torch.ops import raster_cuda as rc
+    from tpu_renderer_torch.ops import raster_plain as rp
+
+    outs = out if isinstance(out, tuple) else (out,)
+    n = sum(t.numel() * t.element_size() for t in outs)
+    if case == "visibility":
+        # Every valid face's row, every face's flag word.
+        flags = args[1]
+        valid = int(((flags & rp.FLAG_VALID) > 0).sum())
+        return n + valid * rp.F_COLS * 4 + flags.numel() * 4
+    if case == "stencil":
+        # The active quads' rows and every quad's flag; zb where the
+        # stencil is nonzero (a lower count: there the output certainly
+        # depends on it).
+        qi = args[1]
+        active = int((qi[:, 5] > 0).sum())
+        return (n + active * (rc.Q_COLS + rc.QI_COLS) * 4 + qi.shape[0] * 4
+                + int((outs[0] != 0).sum()) * 4)
+    if case == "lines":
+        # The active edges' rows and every edge's flag; zbuf on the pixels
+        # where some edge's DDA pixel lands (the mask with every z test
+        # passed).
+        ldata, bbox, active, zbuf, h, w = args
+        reach = rc.lines_plain(ldata, bbox, active,
+                               torch.full_like(zbuf, float("inf")), h, w)
+        return (n + int(active.sum()) * (rc.L_COLS + 4) * 4 + active.numel()
+                + int(reach.sum()) * 4)
+    tid = args[0] if case == "sample_textures" else args[2]
+    faces = torch.unique(tid[tid >= 0]).long()
+    if case != "sample_textures":
+        return n + tid.numel() * 4 + faces.numel() * WINNER_COLS[case] * 4
+    # K3: tid everywhere; iu and iv where some kind is sampled; the winning
+    # faces' texture rows, the slots they name, and each sampled texel.
+    _, iu, iv, ftex, slots, _ = args
+    idx, hit = rc.texel_indices(tid, iu, iv, ftex, slots)
+    used = torch.unique(ftex[faces, :, 0])
+    return (n + tid.numel() * 4 + int(hit.any(0).sum()) * 8
+            + faces.numel() * ftex.shape[1] * 3 * 4 + int((used >= 0).sum()) * 8
+            + torch.unique(idx[hit]).numel() * 4)
+
+
+def bound(case, args, out, zb_sign):
+    """(bound_ms, "bytes" or "operations", bytes, operations): the least time
+    the card could take for this call, the larger of needed_bytes over
+    PEAK_BYTES and its operations on these inputs over PEAK_F32."""
+    import torch
+    from tpu_renderer_torch.ops import raster_plain as rp
+
+    nbytes = needed_bytes(case, args, out)
+    h, w = zb_sign.shape
+    fg = zb_sign < 3e38
+    if case == "visibility":
+        fdata, flags = args[0], args[1]
+        counts = _tile_counts(fdata[:, rp.F_BBOX:rp.F_BBOX + 4].to(torch.int32),
+                              (flags & rp.FLAG_VALID) > 0, h, w)
+        ops = counts @ _tile_sums(torch.ones_like(fg))
+    elif case == "stencil":
+        qi = args[1]
+        ops = _tile_counts(qi[:, 0:4], qi[:, 5] > 0, h, w) @ _tile_sums(fg)
+    elif case == "lines":
+        rows = torch.arange(h, device=fg.device)[:, None]
+        cols = torch.arange(w, device=fg.device)[None]
+        inner = (rows > 0) & (rows < h - 1) & (cols > 0) & (cols < w - 1)
+        ops = _tile_counts(args[1], args[2], h, w) @ _tile_sums(inner)
+    else:
+        ops = fg.double().sum()
+    per = OPS_PER_VISIT.get(case, OPS_PER_PIXEL.get(case))
+    ops = float(ops) * per
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
 
 
 def _time_ms(fn, runs=5):
@@ -176,6 +341,11 @@ def _compare(name, got, ref):
     on disagreement."""
     import torch
 
+    if wrapper_of(name) in ("gbuffer_slim", "lines"):
+        if not torch.equal(got, ref):
+            err = (got.double() - ref.double()).abs().nan_to_num(0.0).max()
+            raise AssertionError(f"{name}: differs, max abs err {err.item()}")
+        return 0.0, "exact"
     if name == "visibility":
         (zk, tk), (zp, tp) = got, ref
         same = tk == tp
@@ -233,8 +403,11 @@ def _profile(scene, n_frames=5):
     top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
     # The kernels alone, without the torch binning their wrappers run
     # (phase 3 times the wrappers).
-    kernels = {n: sum(v for k, v in device.items() if f"::{n}_kernel(" in k)
-               for n in ("visibility", "gbuffer", "sample", "stencil")}
+    kernels = {n: sum(v for k, v in device.items()
+                      if f"::{n}_kernel(" in k or f"::{n}_kernel<" in k)
+               for n in ("visibility", "gbuffer", "sample", "stencil",
+                         "gbuffer_slim", "lines")}
+    kernels = {k: v for k, v in kernels.items() if v > 0}
     r = lambda d: {k[:60]: round(v, 4) for k, v in d}
     return {"wall": wall_ms, "busy": busy, "busy_share": busy / wall_ms,
             "host": r(host.items()), "device_span": r(span.items()),
@@ -250,7 +423,66 @@ SOURCES = {
                         "tpu_renderer/ops/raster_pallas.py:1886"),
     "stencil": ("tpu_renderer_torch/csrc/stencil.cu",
                 "tpu_renderer/ops/raster_pallas.py:964"),
+    "gbuffer_slim": ("tpu_renderer_torch/csrc/gbuffer_slim.cu",
+                     "tpu_renderer/ops/raster_pallas.py:1294"),
+    "lines": ("tpu_renderer_torch/csrc/lines.cu",
+              "tpu_renderer/ops/raster_pallas.py:2561"),
 }
+
+#: The kernels each render path launches (flagship frame, shadows on).
+PATH_KERNELS = {
+    "general": ("visibility", "gbuffer", "sample_textures", "stencil"),
+    "slim": ("visibility", "gbuffer_slim", "stencil"),
+    "wireframe": ("visibility", "gbuffer_slim", "stencil", "lines"),
+}
+
+
+def _check_render(scene, frame, debug):
+    """Hold the scene's last render to the same frame through the plain
+    versions: tid >= 99.9%, stencil equal, frame >= 99.9%. Returns
+    (tid match, frame match, foreground share)."""
+    import torch
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    tid, stencil = scene.last_tid, scene.last_stencil
+    cfg, dyn = scene._prepare()
+    if debug:
+        f_p, _, tid_p, st_p = pl.render_debug_frame(cfg, dyn, scene.shader,
+                                                     ops=rc.PLAIN)
+    else:
+        f_p, _, tid_p, st_p = pl.render_frame(cfg, dyn, ops=rc.PLAIN)
+    f_p = f_p.cpu().numpy()
+    tid_match = (tid == tid_p).float().mean().item()
+    frame_match = float((frame == f_p).all(-1).mean())
+    if frame.shape != (*RES, 3) or tid_match < 0.999 or frame_match < 0.999 \
+            or not torch.equal(stencil, st_p):
+        raise AssertionError(f"{scene.shader}: frame vs plain path: tid "
+                             f"{tid_match}, frame {frame_match}, stencil "
+                             f"equal {torch.equal(stencil, st_p)}")
+    fg = (tid >= 0).float().mean().item()
+    if fg == 0.0:
+        raise AssertionError(f"{scene.shader}: degenerate frame, no "
+                             "foreground")
+    return tid_match, frame_match, fg
+
+
+#: Interleaved orbit pairs (general, variant) per phase-5 variant, and
+#: frames per orbit.
+PAIRS = 5
+ORBIT = 20
+
+
+def _orbit_ms(scene, n_frames):
+    """ms per Scene.render() over ``n_frames`` of the orbit (host clock)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        scene.camera.set_position(orbit_position(2 * np.pi * i / n_frames))
+        scene.render()
+    return (time.perf_counter() - t0) / n_frames * 1e3
 
 
 def main():
@@ -261,7 +493,6 @@ def main():
                          "runs on a CUDA card only")
     import tpu_renderer_torch as tr
     from tpu_renderer_torch.ops import _build
-    from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
 
     # 1. environment
@@ -286,55 +517,46 @@ def main():
 
     # 3. per kernel, at the flagship frame's shapes
     scene = build_flagship(tr, "cuda")
-    inputs = kernel_inputs(scene)
+    start = scene.camera.position.copy()
+    inputs, zb_sign = kernel_inputs(scene)
     records = {}
     for name, args in inputs.items():
-        kern = getattr(rc, name)
-        plain = getattr(rc, f"{name}_plain")
+        kern = getattr(rc, wrapper_of(name))
+        plain = getattr(rc, f"{wrapper_of(name)}_plain")
         got = kern(*args)
         torch.cuda.synchronize()
         ref = plain(*args)
         err, verdict = _compare(name, got, ref)
         ms = _time_ms(lambda: kern(*args))
         plain_ms = _time_ms(lambda: plain(*args), runs=3)
+        bound_ms, bound_by, nbytes, ops = bound(name, args, got, zb_sign)
         records[name] = {"name": name, "route": "cuda",
-                         "source": SOURCES[name][0],
-                         "replaces": SOURCES[name][1], "max_abs_err": err,
-                         "ms": ms, "plain_ms": plain_ms}
+                         "source": SOURCES[wrapper_of(name)][0],
+                         "replaces": SOURCES[wrapper_of(name)][1],
+                         "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None}
         print(f"[3 kernel] {name}: {verdict}; max_abs_err {err:.3g}; "
               f"kernel {ms:.4f} ms (its wrapper, binning included), plain "
-              f"{plain_ms:.2f} ms", flush=True)
+              f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} Mop)", flush=True)
+    del inputs
 
     # 4. end to end through Scene.render()
     rc.reset_launches()
     frame = scene.render()
     torch.cuda.synchronize()
-    launches = dict(rc.LAUNCHES)
+    launches = {k: rc.LAUNCHES[k] for k in PATH_KERNELS["general"]}
     if min(launches.values()) < 1:
         raise AssertionError(f"main path skipped a kernel: {launches}")
-    tid, stencil = scene.last_tid, scene.last_stencil
-    cfg, dyn = scene._prepare()
-    f_p, _, tid_p, st_p = pl.render_frame(cfg, dyn, ops=rc.PLAIN)
-    f_p = f_p.cpu().numpy()
-    tid_match = (tid == tid_p).float().mean().item()
-    frame_match = float((frame == f_p).all(-1).mean())
-    if frame.shape != (*RES, 3) or tid_match < 0.999 or frame_match < 0.999 \
-            or not torch.equal(stencil, st_p):
-        raise AssertionError(f"frame vs plain path: tid {tid_match}, frame "
-                             f"{frame_match}, stencil equal "
-                             f"{torch.equal(stencil, st_p)}")
-    fg = (tid >= 0).float().mean().item()
-    shadowed = int((stencil != 0).sum().item())
-    if fg == 0.0 or shadowed == 0:
-        raise AssertionError(f"degenerate frame: foreground {fg}, "
-                             f"shadowed pixels {shadowed}")
+    for name, count in launches.items():
+        records[name]["launches"] = count
+    tid_match, frame_match, fg = _check_render(scene, frame, debug=False)
+    shadowed = int((scene.last_stencil != 0).sum().item())
+    if shadowed == 0:
+        raise AssertionError("degenerate frame: no shadowed pixel")
     n_frames = 20
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n_frames):
-        scene.camera.set_position(orbit_position(2 * np.pi * i / n_frames))
-        scene.render()
-    dt = (time.perf_counter() - t0) / n_frames
+    dt = _orbit_ms(scene, n_frames) / 1e3
     print(f"[4 e2e] {RES[0]}x{RES[1]}, {sum(m.num_faces for m in scene.models)}"
           f" faces: launches {launches}; vs plain path tid {tid_match:.6f}, "
           f"frame {frame_match:.6f}, stencil equal; foreground {fg:.3f}, "
@@ -344,8 +566,71 @@ def main():
 
     print(f"[4 profile] {json.dumps(_profile(scene))}", flush=True)
 
-    for name, rec in records.items():
-        rec["launches"] = launches[name]
+    # 5. the other shaders and the cubemap background through Scene.render()
+    sky = procedural_cubemap(tr)
+
+    def use(variant):
+        scene.shader = "general" if variant == "cubemap" else variant
+        scene.skybox = sky if variant == "cubemap" else None
+
+    for shader in ("flat", "gouraud", "pbr", "wireframe", "points",
+                   "cubemap"):
+        scene.camera.set_position(start)
+        use(shader)
+        path = {"cubemap": "general", "wireframe": "wireframe"}.get(
+            shader, "slim")
+        debug = shader in ("wireframe", "points")
+        rc.reset_launches()
+        frame = scene.render()
+        torch.cuda.synchronize()
+        launched = {k: rc.LAUNCHES[k] for k in PATH_KERNELS[path]}
+        if min(launched.values()) < 1:
+            raise AssertionError(f"{shader} path skipped a kernel: "
+                                 f"{launched}")
+        if shader in rc.SLIM_CHANNELS:
+            records[f"gbuffer_slim_{shader}"]["launches"] = \
+                launched["gbuffer_slim"]
+        if shader == "wireframe":
+            records["lines"]["launches"] = launched["lines"]
+        tid_match, frame_match, fg = _check_render(scene, frame, debug)
+        extra = ""
+        if shader == "wireframe":
+            line = (np.clip((np.array([64, 64, 128]) / 255.0) ** 0.8, 0, 1)
+                    * 255).astype(np.uint8)
+            lit = int((frame == line).all(-1).sum())
+            if lit == 0:
+                raise AssertionError("wireframe: no line pixel lit")
+            extra = f", lit px {lit}"
+        if shader == "cubemap":
+            bg = frame[::-1][(scene.last_tid < 0).cpu().numpy()]
+            n_colors = len(np.unique(bg, axis=0))
+            if n_colors < 64:
+                raise AssertionError(f"cubemap: {n_colors} background colors")
+            extra = f", background colors {n_colors}"
+        general_ms, variant_ms = [], []
+        for _ in range(PAIRS):
+            use("general")
+            general_ms.append(_orbit_ms(scene, ORBIT))
+            use(shader)
+            variant_ms.append(_orbit_ms(scene, ORBIT))
+        diff = [v - g for g, v in zip(general_ms, variant_ms)]
+        spread = lambda xs: (f"median {statistics.median(xs):.3f} "
+                             f"[{min(xs):.3f}, {max(xs):.3f}]")
+        prof = _profile(scene, n_frames=3)
+        lead = sorted(prof["host"].items(), key=lambda kv: -kv[1])[:3]
+        print(f"[5 {shader}] launches {launched}; vs plain path tid "
+              f"{tid_match:.6f}, frame {frame_match:.6f}, stencil equal; "
+              f"foreground {fg:.3f}{extra}; ms/frame (host clock, {PAIRS} "
+              f"interleaved {ORBIT}-frame orbit pairs): {shader} "
+              f"{spread(variant_ms)}, general {spread(general_ms)}, "
+              f"{shader} - general {spread(diff)}; traced wall "
+              f"{prof['wall']:.2f}, device busy {prof['busy']:.3f} ms/frame;"
+              f" leading host stages {lead}; kernels {prof['kernels']}",
+              flush=True)
+
+    unread = [n for n, r in records.items() if not r["launches"]]
+    if unread:
+        raise AssertionError(f"kernels not launched on their path: {unread}")
     print(smi)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

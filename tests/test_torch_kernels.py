@@ -7,9 +7,10 @@ This file imports no JAX, so it also runs on the card's host:
 - on the CPU each wrapper runs its plain version (launch count stays 0) and
   a tensor on any other device than the CPU or CUDA raises;
 - tile_bins lists every bbox overlap in primitive order;
-- on a CUDA card (marker ``cuda``, skipped elsewhere) each kernel is
-  bit-identical to its plain version on the same tensors, and a Scene
-  rendered on the card matches the CPU render.
+- on a CUDA card (marker ``cuda``, skipped elsewhere) each kernel (K5 in
+  its three layouts) is bit-identical to its plain version on the same
+  tensors, and a Scene rendered on the card matches the CPU render under
+  every shader.
 
 ``build_scene`` is the shared procedural test scene: test_torch_slice.py
 and test_torch_modules.py build the same scene in the JAX package.
@@ -58,9 +59,18 @@ def build_scene(pkg, gizmos, **scene_kw):
     return scene
 
 
+#: Kernel cases: case id -> wrapper name in raster_cuda (K5 once per layout).
+CASES = {"visibility": "visibility", "gbuffer": "gbuffer",
+         "sample_textures": "sample_textures", "stencil": "stencil",
+         "gbuffer_slim-flat": "gbuffer_slim",
+         "gbuffer_slim-gouraud": "gbuffer_slim",
+         "gbuffer_slim-pbr": "gbuffer_slim", "lines": "lines"}
+
+
 @pytest.fixture(scope="module")
 def stage_inputs():
-    """The four kernels' inputs for the test_torch_slice scene (CPU)."""
+    """The kernels' inputs for the test_torch_slice scene (CPU), keyed by
+    case id."""
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops.shadow import prepare_quads
 
@@ -75,14 +85,22 @@ def stage_inputs():
     gb = rc.gbuffer_plain(fdata, adata, tid)
     qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
     zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])
-    return {
+    inputs = {
         "visibility": (fdata, flags, h, w, cfg.system),
         "gbuffer": (fdata, adata, tid),
         "sample_textures": (tid, gb[rc.GB_IU].contiguous(),
                             gb[rc.GB_IV].contiguous(),
                             *pl.texture_tables(cfg, dyn, attrs)),
         "stencil": (qdata, qi, zb, cfg.system, *zc),
+        "lines": pl._wireframe_lines(
+            *pl._debug_vertices(dyn, cam_m)[:3],
+            torch.cat([md["pad_valid"] for md in dyn["models"]]),
+            zb * cfg.system, h, w),
     }
+    for layout in rc.SLIM_CHANNELS:
+        inputs[f"gbuffer_slim-{layout}"] = (
+            fdata, rc.pack_slim_attrs(attrs, layout), tid, layout)
+    return inputs
 
 
 def _equal(a, b):
@@ -91,24 +109,40 @@ def _equal(a, b):
     return torch.equal(a, b)
 
 
-@pytest.mark.parametrize("name", list(rc.LAUNCHES))
+def test_cases_cover_every_wrapper():
+    assert set(CASES.values()) == set(rc.LAUNCHES)
+
+
+@pytest.mark.parametrize("name", list(CASES))
 def test_wrapper_on_cpu_runs_plain_version(stage_inputs, name):
     rc.reset_launches()
     args = stage_inputs[name]
-    got = getattr(rc, name)(*args)
-    want = getattr(rc, f"{name}_plain")(*args)
+    fn = CASES[name]
+    got = getattr(rc, fn)(*args)
+    want = getattr(rc, f"{fn}_plain")(*args)
     assert _equal(got, want)
-    assert rc.LAUNCHES[name] == 0
+    assert rc.LAUNCHES[fn] == 0
 
 
-@pytest.mark.parametrize("name", list(rc.LAUNCHES))
+@pytest.mark.parametrize("name", list(CASES))
 def test_wrapper_refuses_other_devices(stage_inputs, name):
     """No silent path: tensors on a device that is neither the CPU nor CUDA
     (here PyTorch's shape-only 'meta' device) raise."""
     args = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
                  for a in stage_inputs[name])
     with pytest.raises(RuntimeError):
-        getattr(rc, name)(*args)
+        getattr(rc, CASES[name])(*args)
+
+
+def test_stage_inputs_are_not_degenerate(stage_inputs):
+    """The slim G-buffers carry foreground, and the wireframe lights pixels
+    of the scene (edges of faces behind the visible surface pass the LH
+    z test)."""
+    for layout in rc.SLIM_CHANNELS:
+        gb = rc.gbuffer_slim(*stage_inputs[f"gbuffer_slim-{layout}"])
+        assert gb.shape == (rc.SLIM_CHANNELS[layout], *RES)
+        assert (gb != 0).any()
+    assert rc.lines(*stage_inputs["lines"]).sum() > 0
 
 
 def test_tile_bins_list_every_overlap_in_order():
@@ -141,16 +175,17 @@ def cuda_inputs(stage_inputs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(rc.LAUNCHES))
+@pytest.mark.parametrize("name", list(CASES))
 def test_kernel_matches_plain_on_card(cuda_inputs, name):
     """The hand-written kernel against its plain version on the same CUDA
     tensors: bit-identical (both round op by op)."""
     rc.reset_launches()
     args = cuda_inputs[name]
-    got = getattr(rc, name)(*args)
+    fn = CASES[name]
+    got = getattr(rc, fn)(*args)
     torch.cuda.synchronize()
-    assert rc.LAUNCHES[name] == 1
-    want = getattr(rc, f"{name}_plain")(*args)
+    assert rc.LAUNCHES[fn] == 1
+    want = getattr(rc, f"{fn}_plain")(*args)
     assert _equal(got, want)
 
 
@@ -161,4 +196,21 @@ def test_render_on_card_matches_cpu():
     frame_gpu = build_scene(tt, gz_torch, device="cuda").render()
     frame_cpu = build_scene(tt, gz_torch, device="cpu").render()
     assert frame_gpu.shape == (*RES, 3)
+    assert (frame_gpu == frame_cpu).all(-1).mean() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shader", ["flat", "gouraud", "pbr", "wireframe",
+                                    "points"])
+def test_shader_render_on_card_matches_cpu(shader):
+    """Every shader on the card (Scene's default device) against the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    rc.reset_launches()
+    scene = build_scene(tt, gz_torch, shader=shader)
+    assert scene.device.type == "cuda"
+    frame_gpu = scene.render()
+    assert rc.LAUNCHES["gbuffer_slim"] == 1
+    assert rc.LAUNCHES["lines"] == (1 if shader == "wireframe" else 0)
+    frame_cpu = build_scene(tt, gz_torch, shader=shader, device="cpu").render()
     assert (frame_gpu == frame_cpu).all(-1).mean() >= 0.999

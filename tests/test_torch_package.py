@@ -1,8 +1,9 @@
 """Package rules and host code of the PyTorch port.
 
 - importing tpu_renderer_torch pulls in neither JAX nor tpu_renderer;
-- Scene(device="cuda") raises without CUDA and needs an explicit device;
-  features not ported yet raise NotImplementedError;
+- Scene renders on CUDA by default, so without CUDA both
+  Scene(device="cuda") and Scene() raise, and device="cpu" is an explicit
+  request; features not ported yet raise NotImplementedError;
 - the numpy host code (OBJ loader, EdgeTable, gizmos, texture stacks,
   transforms) matches the JAX package's.
 
@@ -31,7 +32,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, tpu_renderer_torch, tpu_renderer_torch.interop, "
-            "tpu_renderer_torch.ops.pipeline\n"
+            "tpu_renderer_torch.ops.pipeline, tpu_renderer_torch.ops.cubemap\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'tpu_renderer.')) or m == 'tpu_renderer']\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -49,18 +50,24 @@ def test_scene_on_cuda_without_cuda_raises():
 
 
 def test_scene_needs_explicit_device():
-    with pytest.raises(TypeError):
+    """The default device is CUDA: without it, only an explicit
+    device="cpu" renders."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(RuntimeError):
         tt.Scene(tt.Camera((0, 0, 3)), tt.Light((1, 1, 1)))
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"debug_camera": tt.Camera((1, 1, 1))}, {"shader": "pbr"},
-    {"supersample": 2}, {"skymap": np.zeros((6, 4, 4, 3), np.float32)},
-    {"light": tt.Light((1, 1, 1), show=True)},
-], ids=["debug_camera", "shader", "supersample", "skybox", "gizmo"])
-def test_unported_features_raise(kwargs):
+@pytest.mark.parametrize("make", [
+    lambda: tt.Scene(device="cpu", debug_camera=tt.Camera((1, 1, 1))),
+    lambda: tt.Scene(tt.Camera((0, 0, 3), show=True), device="cpu"),
+    lambda: tt.Scene(device="cpu", supersample=2),
+    lambda: tt.Scene(device="cpu").stats(),
+    lambda: tt.Scene(device="cpu", light=tt.Light((1, 1, 1), show=True)),
+], ids=["debug_camera", "camera_gizmo", "supersample", "stats", "gizmo"])
+def test_unported_features_raise(make):
     with pytest.raises(NotImplementedError):
-        tt.Scene(device="cpu", **kwargs)
+        make()
 
 
 def test_obj_loader_and_edge_table_match(tmp_path):

@@ -2,10 +2,12 @@
 
 The JAX package ``tpu_renderer`` is the reference this port is held to.
 This package imports torch and numpy, never JAX and never ``tpu_renderer``.
-It covers the main path: a textured, normal-mapped, shadowed scene rendered
-with the general Blinn-Phong shader on one device, through four hand-written
-CUDA kernels on a CUDA device (``ops/raster_cuda.py``, sources in ``csrc/``,
-built at first use) and through their plain PyTorch versions on the CPU.
+It renders on one device: textured, normal-mapped, shadowed scenes with the
+general Blinn-Phong shader, the flat, gouraud, PBR, wireframe and points
+shaders, over a color or a cubemap skybox (``CubeMap``). On a CUDA device
+(the default) it runs six hand-written CUDA kernels (``ops/raster_cuda.py``,
+sources in ``csrc/``, built at first use); with ``device="cpu"`` it runs
+their plain PyTorch versions.
 
     import tpu_renderer_torch as tr
     from tpu_renderer_torch.models.gizmos import make_floor
@@ -16,7 +18,7 @@ built at first use) and through their plain PyTorch versions on the CPU.
                                far=400),
                      tr.Light((5, 5, 0)), shadows=True,
                      resolution=(1024, 1024), system=tr.SYSTEM.LH,
-                     subsystem=tr.SUBSYSTEM.OPENGL, device="cuda")
+                     subsystem=tr.SUBSYSTEM.OPENGL)        # on the card
     scene.add_model(floor)
     frame = scene.render()          # (H, W, 3) uint8
 
@@ -38,14 +40,20 @@ from tpu_renderer_torch.models.model import Model  # noqa: E402
 from tpu_renderer_torch.models.scene import Scene  # noqa: E402
 from tpu_renderer_torch.ops.errors import Errors  # noqa: E402
 from tpu_renderer_torch.ops.lightning import Lightning  # noqa: E402
-from tpu_renderer_torch.ops.pipeline import SHADER_GENERAL  # noqa: E402
+from tpu_renderer_torch.ops.cubemap import CubeMap  # noqa: E402
+from tpu_renderer_torch.ops.pipeline import (SHADER_FLAT,  # noqa: E402
+                                             SHADER_GENERAL, SHADER_GOURAUD,
+                                             SHADER_PBR, SHADER_POINTS,
+                                             SHADER_WIREFRAME)
 from tpu_renderer_torch.ops.transforms import (rotate, rotate_xyz,  # noqa: E402
                                                scale, translation)
 
 __all__ = [
-    "Model", "Camera", "Light", "Scene", "Lightning", "Errors",
+    "Model", "Camera", "Light", "Scene", "CubeMap", "Lightning", "Errors",
     "scale", "translation", "rotate", "rotate_xyz",
-    "SYSTEM", "SUBSYSTEM", "PROJECTION_TYPE", "SHADER_GENERAL", "constants",
+    "SYSTEM", "SUBSYSTEM", "PROJECTION_TYPE", "SHADER_GENERAL", "SHADER_FLAT",
+    "SHADER_GOURAUD", "SHADER_PBR", "SHADER_WIREFRAME", "SHADER_POINTS",
+    "constants",
 ]
 
 __version__ = "0.1.0"

@@ -16,19 +16,19 @@ import torch
 __all__ = ["dyn_from_numpy"]
 
 #: Per-model leaves the port's render path reads; the sampler window/grid
-#: leaves (win_*, win2_*, windows) and the slim-shader material leaves
-#: (pm, pr, ka) are dropped.
-_MODEL_KEYS = ("verts", "vid", "pad_valid", "uv", "kd", "ks", "ns", "vn",
-               "inc_edge", "inc_dir", "inc_valid", "norm_tangent")
+#: leaves (win_*, win2_*, windows) are dropped.
+_MODEL_KEYS = ("verts", "vid", "pad_valid", "uv", "kd", "ks", "ns", "pm",
+               "pr", "ka", "vn", "inc_edge", "inc_dir", "inc_valid",
+               "norm_tangent")
 _KINDS = ("kd", "ks", "norm")
 _INDEX_KEYS = ("vid", "inc_edge", "inc_dir")
 
 
 def _tensor(a, device, key):
     a = np.array(a)              # a writable copy (JAX hands out read-only)
-    if key.endswith("_stack"):
-        # uint32 RGB texels use at most 24 bits (scene.py:89-91 of the JAX
-        # package): the same bits as int32.
+    if key.endswith("_stack") or key == "packed":
+        # uint32 RGB texels use at most 24 bits (scene.py:89-91 and
+        # cubemap.py:66-73 of the JAX package): the same bits as int32.
         a = a.astype(np.uint32).view(np.int32)
     elif key in _INDEX_KEYS:
         a = a.astype(np.int64)
@@ -40,6 +40,8 @@ def dyn_from_numpy(dyn_np, device):
 
     Camera parameters stay float32 tensors on the CPU (the port composes the
     per-frame matrices on the host); everything else lands on ``device``.
+    A cubemap background arrives as ``skybox`` (its ``packed`` texels)
+    instead of ``background_color``.
     """
     device = torch.device(device)
     models = []
@@ -51,13 +53,18 @@ def dyn_from_numpy(dyn_np, device):
                 if key in md:
                     out[key] = _tensor(md[key], device, key)
         models.append(out)
-    if "skybox" in dyn_np or "debug_camera" in dyn_np:
-        raise NotImplementedError("skybox and debug camera are not ported yet")
+    if "debug_camera" in dyn_np:
+        raise NotImplementedError("the debug camera is not ported yet")
     f32 = lambda a, dev=device: torch.as_tensor(
         np.array(a, np.float32), device=dev)
-    return {
+    dyn = {
         "models": models,
         "camera": {k: f32(v, "cpu") for k, v in dyn_np["camera"].items()},
         "light": {k: f32(v) for k, v in dyn_np["light"].items()},
-        "background_color": f32(dyn_np["background_color"]),
     }
+    if "skybox" in dyn_np:
+        dyn["skybox"] = {"packed": _tensor(dyn_np["skybox"]["packed"],
+                                           device, "packed")}
+    else:
+        dyn["background_color"] = f32(dyn_np["background_color"])
+    return dyn

@@ -1,16 +1,18 @@
 """Scene: model container + camera/light binding + the render() entry point.
 
 Counterpart of ``tpu_renderer/models/scene.py`` (reference core.py:558-640)
-for the port's main path: the general Blinn-Phong shader on one device,
-with a color background and optional shadow volumes. Fixed reference quirks
-kept from the JAX package: ``shadows=`` is honored and ``Model.shadowing``
-gates which models cast shadows; camera/light bindings live on the Scene
-instance; default camera/light are fresh per Scene.
+on one device: the six shaders (general, flat, gouraud, pbr, wireframe,
+points), optional shadow volumes, and a color or cubemap-skybox background.
+Fixed reference quirks kept from the JAX package: ``shadows=`` is honored
+and ``Model.shadowing`` gates which models cast shadows; camera/light
+bindings live on the Scene instance; default camera/light are fresh per
+Scene.
 
-``device`` is required: there is no automatic pick. ``Scene(device="cuda")``
-on a host without CUDA raises RuntimeError. Features of the JAX package that
-are not ported yet (debug camera and overlays, skybox, the flat/gouraud/pbr
-and debug shaders, supersampling, gizmos) raise NotImplementedError.
+``device`` defaults to ``"cuda"``: a Scene renders on the card unless the
+caller asks for the CPU (``device="cpu"``, the plain versions of the
+kernels). On a host without CUDA, ``Scene()`` raises RuntimeError. Features
+of the JAX package that are not ported yet (debug camera and overlays,
+supersampling, camera/light gizmos, ``stats()``) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -22,8 +24,11 @@ import torch
 from tpu_renderer_torch.constants import SUBSYSTEM, SYSTEM
 from tpu_renderer_torch.models.camera import Camera, Light
 from tpu_renderer_torch.models.model import Model
-from tpu_renderer_torch.ops.pipeline import (ModelConfig, SceneConfig,
-                                             SHADER_GENERAL, render_frame)
+from tpu_renderer_torch.ops.cubemap import CubeMap
+from tpu_renderer_torch.ops.pipeline import (DEBUG_SHADERS, ModelConfig,
+                                             SceneConfig, SHADER_GENERAL,
+                                             SHADERS, render_debug_frame,
+                                             render_frame)
 
 __all__ = ["Scene"]
 
@@ -107,18 +112,17 @@ class Scene:
                  resolution=(1500, 1500), system=SYSTEM.RH,
                  subsystem=SUBSYSTEM.DIRECTX, skymap=None,
                  shader: str = SHADER_GENERAL, supersample: int = 1, *,
-                 device):
+                 device="cuda"):
         if debug_camera is not None:
             raise NotImplementedError("debug camera and overlays are not "
                                       "ported yet")
-        if shader != SHADER_GENERAL:
-            raise NotImplementedError(f"shader {shader!r} is not ported yet; "
-                                      "only 'general'")
+        if shader not in SHADERS:
+            raise ValueError(f"unknown shader {shader!r}; one of {SHADERS}")
         if int(supersample) != 1:
             raise NotImplementedError("supersampling is not ported yet")
-        if skymap is not None and np.ndim(skymap) != 1:
-            raise NotImplementedError("skybox backgrounds are not ported yet; "
-                                      "skymap takes an RGB color")
+        if (skymap is not None and not isinstance(skymap, CubeMap)
+                and np.shape(skymap) != (3,)):
+            raise ValueError("skymap takes a CubeMap or an RGB color")
         self.device = _check_device(device)
         self.system = system
         self.subsystem = subsystem
@@ -187,6 +191,9 @@ class Scene:
             "kd": t(_pad_rows(_material_table(model, "Kd", 3)[mtl], Fp)),
             "ks": t(_pad_rows(_material_table(model, "Ks", 3)[mtl], Fp)),
             "ns": t(_pad_rows(_material_table(model, "Ns", 1)[:, 0][mtl], Fp)),
+            "pm": t(_pad_rows(_material_table(model, "Pm", 1)[:, 0][mtl], Fp)),
+            "pr": t(_pad_rows(_material_table(model, "Pr", 1)[:, 0][mtl], Fp)),
+            "ka": t(_pad_rows(_material_table(model, "Ka", 3)[mtl], Fp)),
         }
         has_vn = model.normals is not None
         if has_vn:
@@ -251,31 +258,39 @@ class Scene:
                 "quadratic": f32(lt.quadratic)}
 
     def _background(self):
+        """("cubemap", None) or ("color", (3,) float32 tensor)."""
+        if isinstance(self.skybox, CubeMap):
+            return "cubemap", None
         # Reference default purple-ish background (core.py:600).
         color = (self.skybox if self.skybox is not None
                  else [64 / 255, 0.5, 198 / 255])
-        return torch.as_tensor(np.asarray(color, np.float32),
-                               device=self.device)
+        return "color", torch.as_tensor(np.asarray(color, np.float32),
+                                        device=self.device)
 
     # -------------------------------------------------------------- render
 
     def _prepare(self):
         """Pack the scene into (static SceneConfig, dict of tensors)."""
         packets = [self._pack_model(m) for m in self.models]
+        background, bg_color = self._background()
         cfg = SceneConfig(
             resolution=self.resolution, system=self.system,
             subsystem=self.subsystem, shadows=self.shadows,
             cam_projection_type=self.camera.projection_type,
             backface_culling=self.camera.backface_culling,
             light_type=self.light.light_type,
-            models=tuple(p["_config"] for p in packets))
+            models=tuple(p["_config"] for p in packets),
+            shader=self.shader, background=background)
         dyn = {
             "models": [{k: v for k, v in p.items() if not k.startswith("_")}
                        for p in packets],
             "camera": self._cam_dyn(self.camera),
             "light": self._light_dyn(),
-            "background_color": self._background(),
         }
+        if background == "color":
+            dyn["background_color"] = bg_color
+        else:
+            dyn["skybox"] = self.skybox.as_device_arrays(self.device)
         return cfg, dyn
 
     def render(self) -> np.ndarray:
@@ -283,6 +298,20 @@ class Scene:
         The z-buffer, winner ids and stencil stay on the device as
         ``last_zbuf``, ``last_tid`` and ``last_stencil``."""
         cfg, dyn = self._prepare()
+        if self.shader in DEBUG_SHADERS:
+            return self._render_debug_shader(cfg, dyn)
         out, zbuf, tid, stencil = render_frame(cfg, dyn)
         self.last_zbuf, self.last_tid, self.last_stencil = zbuf, tid, stencil
         return out.cpu().numpy()
+
+    def _render_debug_shader(self, cfg, dyn) -> np.ndarray:
+        """Wireframe / points shaders (reference triangular.py:269-283):
+        K6 line coverage or the scatter-max point splat
+        (pipeline.render_debug_frame)."""
+        out, zbuf, tid, stencil = render_debug_frame(cfg, dyn, self.shader)
+        self.last_zbuf, self.last_tid, self.last_stencil = zbuf, tid, stencil
+        return out.cpu().numpy()
+
+    def stats(self):
+        """Per-model render statistics (scene.py:856 of the JAX package)."""
+        raise NotImplementedError("Scene.stats() is not ported yet")

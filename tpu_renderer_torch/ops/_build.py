@@ -47,6 +47,10 @@ _SIGNATURES = {
     # qdata, qi, tile_off, tile_items, zb_sign, H, W, tiles_x, sign_nf2, fpn,
     # fmn, stencil, stream
     "tr_stencil": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P],
+    # fdata, sdata, tid, layout, H, W, gbuffer, stream
+    "tr_gbuffer_slim": [_P, _P, _P, _I, _I, _I, _P, _P],
+    # ldata, lbbox, tile_off, tile_items, zbuf, H, W, tiles_x, mask, stream
+    "tr_lines": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 _lib = None

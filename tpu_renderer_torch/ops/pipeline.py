@@ -1,15 +1,24 @@
-"""The whole-frame render path, in PyTorch: the main (general-shader,
-single-device) branch of ``tpu_renderer/ops/pipeline.py``.
+"""The whole-frame render path, in PyTorch: the single-device kernel
+branches of ``tpu_renderer/ops/pipeline.py``.
 
     vertex stage (per model)                        ops/vertex.py
     -> global face batch (models concatenated)      _build_face_batch
     -> K1 visibility: z-buffer + winning face id    raster_cuda.visibility
+    general shader:
     -> K2 G-buffer: 32 interpolated channels        raster_cuda.gbuffer
     -> K3 texture samples from the texel pool       raster_cuda.sample_textures
+    flat / gouraud / pbr shaders:
+    -> K5 slim G-buffer: 3 or 11 channels           raster_cuda.gbuffer_slim
     -> shadow quads (silhouette, extrude, clip)     ops/shadow.py
     -> K4 signed stencil                            raster_cuda.stencil
-    -> deferred Blinn-Phong shading                 _shade_gbuffer
-    -> background, vertical flip, gamma 0.8, uint8  render_frame
+    -> deferred shading over the background         _shade_gbuffer / _shade_slim
+       (a color, or the cubemap skybox)             _background, ops/cubemap.py
+    -> vertical flip, gamma 0.8, uint8              render_frame
+
+The wireframe and points shaders (``render_debug_frame``) run the gouraud
+path for the z-buffer, re-run the vertex stage over every face, and draw
+edges through K6 (``raster_cuda.lines``) or vertex splats through a
+scatter-max.
 
 PyTorch runs eagerly, so there is no compiled program: ``SceneConfig``
 holds the static facts of a scene (resolution, handedness, per-model flags)
@@ -19,6 +28,7 @@ versions.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -27,15 +37,27 @@ import torch
 from tpu_renderer_torch.models.camera import camera_matrices
 from tpu_renderer_torch.ops import raster_cuda as rc
 from tpu_renderer_torch.ops import shading as sh
+from tpu_renderer_torch.ops.cubemap import fill_frame_from_skybox
 from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.shadow import _cross, prepare_quads
 from tpu_renderer_torch.ops.transforms import normalize
 from tpu_renderer_torch.ops.vertex import gather_faces, transform_vertices
 
 __all__ = ["SceneConfig", "ModelConfig", "render_core", "render_frame",
-           "texture_tables", "SHADER_GENERAL"]
+           "render_debug_frame", "texture_tables", "SHADER_GENERAL",
+           "SHADER_FLAT", "SHADER_GOURAUD", "SHADER_PBR", "SHADER_WIREFRAME",
+           "SHADER_POINTS", "SHADERS", "SLIM_SHADERS", "DEBUG_SHADERS"]
 
 SHADER_GENERAL = "general"
+SHADER_FLAT = "flat"
+SHADER_GOURAUD = "gouraud"
+SHADER_PBR = "pbr"
+SHADER_WIREFRAME = "wireframe"
+SHADER_POINTS = "points"
+#: Shaders through the slim G-buffer (K5), and through render_debug_frame.
+SLIM_SHADERS = (SHADER_FLAT, SHADER_GOURAUD, SHADER_PBR)
+DEBUG_SHADERS = (SHADER_WIREFRAME, SHADER_POINTS)
+SHADERS = (SHADER_GENERAL,) + SLIM_SHADERS + DEBUG_SHADERS
 
 
 @dataclass(frozen=True)
@@ -64,6 +86,8 @@ class SceneConfig:
     backface_culling: bool
     light_type: Lightning
     models: Tuple[ModelConfig, ...]
+    shader: str = SHADER_GENERAL   # one of SHADERS
+    background: str = "color"      # "color" | "cubemap"
 
 
 def _cam_matrices(cfg: SceneConfig, cam, device):
@@ -78,7 +102,8 @@ def _cam_matrices(cfg: SceneConfig, cam, device):
 
 def _build_face_batch(cfg: SceneConfig, dyn, cam_m):
     """Vertex stage + per-face gathers for every model, concatenated
-    (pipeline._build_face_batch :133 without the sampler-window fields).
+    (pipeline._build_face_batch :133 without the sampler-window fields;
+    the attrs carry what every shader reads, :218-229).
     Returns (raster dict, attrs dict) of per-face tensors."""
     height, width = cfg.resolution
     near, far = dyn["camera"]["near"], dyn["camera"]["far"]
@@ -103,8 +128,10 @@ def _build_face_batch(cfg: SceneConfig, dyn, cam_m):
             "z_write": torch.full((F,), mc.depth_test, device=dev),
         })
         attr_parts.append({
-            "world": world, "vn": vn, "uv": md["uv"], "kd": md["kd"],
-            "ks": md["ks"], "ns": md["ns"],
+            "sx": f["sx"], "sy": f["sy"], "szlin": f["szlin"],
+            "world": world, "vn": vn, "face_normal": face_normal,
+            "uv": md["uv"], "kd": md["kd"], "ks": md["ks"], "ns": md["ns"],
+            "pm": md["pm"], "pr": md["pr"], "ka": md["ka"],
             "kd_slot": md["kd_slot"], "ks_slot": md["ks_slot"],
             "norm_slot": md["norm_slot"], "norm_tangent": md["norm_tangent"],
             "kd_shape": md["kd_shape"], "ks_shape": md["ks_shape"],
@@ -169,11 +196,26 @@ def _unpack_texel(packed, scale_off):
     return rgb * scale_off[0] + scale_off[1]
 
 
+def _light(cfg: SceneConfig, dyn):
+    light = dict(dyn["light"])
+    light["light_type"] = cfg.light_type
+    light["direction"] = normalize(light["position"] - light["center"]).reshape(-1)
+    return light
+
+
+def _background(cfg: SceneConfig, dyn, cam_host, height, width, device):
+    """The frame's fill where no face won (pipeline._background :506): the
+    background color, or the cubemap skybox through the camera's rays."""
+    if cfg.background == "color":
+        return dyn["background_color"].expand(height, width, 3)
+    return fill_frame_from_skybox(dyn["skybox"], cam_host, (height, width),
+                                  device)
+
+
 def _shade_gbuffer(cfg: SceneConfig, dyn, tid, stencil, gb, samp, samp_mask,
-                   camera_position):
+                   camera_position, background):
     """Deferred shading from the G-buffer and the K3 texture samples
     (pipeline._shade_gbuffer :388, sampler branch)."""
-    height, width = tid.shape
     bg = tid < 0
     vec = lambda c: torch.movedim(gb[c:c + 3], 0, -1)
     frag_world = vec(rc.GB_WORLD)
@@ -210,15 +252,29 @@ def _shade_gbuffer(cfg: SceneConfig, dyn, tid, stencil, gb, samp, samp_mask,
             specular_light = torch.where(mask[..., None], rgb[..., 0:1] * 255.0,
                                          specular_light)
 
-    light = dict(dyn["light"])
-    light["light_type"] = cfg.light_type
-    light["direction"] = normalize(light["position"] - light["center"]).reshape(-1)
     pix = {"color": color, "normal": normal, "frag_world": frag_world,
            "specular_light": specular_light, "ns": gb[rc.GB_NS][..., None]}
-    rgb = sh.shade_general(pix, light, camera_position,
+    rgb = sh.shade_general(pix, _light(cfg, dyn), camera_position,
                            shadows_mask=(stencil != 0) if cfg.shadows else None)
-    background = dyn["background_color"].expand(height, width, 3)
     return torch.where(bg[..., None], background, rgb)
+
+
+def _shade_slim(cfg: SceneConfig, dyn, tid, gb, camera_position, background):
+    """Deferred shading from the slim G-buffer (pipeline._shade_slim :513).
+    flat, gouraud and pbr read no textures and no stencil (reference
+    triangular.py:174-182, 220-266)."""
+    light = _light(cfg, dyn)
+    vec = lambda c: torch.movedim(gb[c:c + 3], 0, -1)
+    if cfg.shader == SHADER_FLAT:
+        rgb = sh.shade_flat(vec(0), light)
+    elif cfg.shader == SHADER_GOURAUD:
+        rgb = sh.shade_gouraud_n(vec(0), light)
+    else:                                           # SHADER_PBR
+        pix = {"normal_raw": normalize(vec(0)), "screen_pos": vec(3),
+               "metallic": gb[6][..., None], "roughness": gb[7],
+               "ao": vec(8)}
+        rgb = sh.shade_pbr(pix, light, camera_position)
+    return torch.where((tid < 0)[..., None], background, rgb)
 
 
 def _span(stage):
@@ -228,9 +284,10 @@ def _span(stage):
 
 
 def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS):
-    """Render the frame BEFORE flip/quantize.
+    """Render the frame BEFORE flip/quantize, for the general, flat,
+    gouraud or pbr shader.
 
-    ``ops`` supplies the four raster operations; the default runs the CUDA
+    ``ops`` supplies the raster operations; the default runs the CUDA
     kernels on a CUDA device and their plain versions on the CPU.
     ``raster_cuda.PLAIN`` runs the plain versions on any device — the oracle
     a kernel run is compared with. Returns (frame (H, W, 3) float32, zbuf,
@@ -239,31 +296,45 @@ def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS):
     height, width = cfg.resolution
     sign = cfg.system
     device = dyn["light"]["position"].device
+    slim = cfg.shader in SLIM_SHADERS
+    if not slim and cfg.shader != SHADER_GENERAL:
+        raise ValueError(f"render_core draws no {cfg.shader!r} frames "
+                         "(render_debug_frame does)")
+    cam_host = _cam_matrices(cfg, dyn["camera"], "cpu")
     if not cfg.models:
         # Empty scene: background only (the reference renders its fill).
-        frame = dyn["background_color"].expand(height, width, 3)
+        frame = _background(cfg, dyn, cam_host, height, width, device)
         zbuf = torch.full((height, width), float("inf") * sign, device=device)
         tid = torch.full((height, width), -1, dtype=torch.int32, device=device)
         return frame, zbuf, tid, torch.zeros_like(tid)
     with _span("vertex"):
-        cam_m = _cam_matrices(cfg, dyn["camera"], device)
+        cam_m = {k: v.to(device) for k, v in cam_host.items()}
         faces, attrs = _build_face_batch(cfg, dyn, cam_m)
         fdata = rc.pack_faces(faces)
         flags = rc.face_flags(faces)
-        adata = rc.pack_face_attrs(attrs)
+        if slim:
+            sdata = rc.pack_slim_attrs(attrs, cfg.shader)
+        else:
+            adata = rc.pack_face_attrs(attrs)
     with _span("visibility"):
         zb_sign, tid = ops.visibility(fdata, flags, height, width, sign)
-    with _span("gbuffer"):
-        gb = ops.gbuffer(fdata, adata, tid)
     samp = samp_mask = None
-    with _span("sample_textures"):
-        tables = texture_tables(cfg, dyn, attrs)
-        if tables is not None:
-            samp, samp_mask = ops.sample_textures(
-                tid, gb[rc.GB_IU], gb[rc.GB_IV], *tables)
+    if slim:
+        with _span("gbuffer"):
+            gb = ops.gbuffer_slim(fdata, sdata, tid, cfg.shader)
+    else:
+        with _span("gbuffer"):
+            gb = ops.gbuffer(fdata, adata, tid)
+        with _span("sample_textures"):
+            tables = texture_tables(cfg, dyn, attrs)
+            if tables is not None:
+                samp, samp_mask = ops.sample_textures(
+                    tid, gb[rc.GB_IU], gb[rc.GB_IV], *tables)
 
     stencil = torch.zeros((height, width), dtype=torch.int32, device=device)
     if cfg.shadows:
+        # Computed for every shader and returned; the slim shaders do not
+        # read it (pipeline.py:878-939 of the JAX package).
         with _span("shadow_quads"):
             prepared = prepare_quads(cfg, dyn, cam_m)
             if prepared is not None:
@@ -276,16 +347,140 @@ def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS):
     with _span("shade"):
         cam_pos = torch.as_tensor(dyn["camera"]["position"],
                                   dtype=torch.float32, device=device)
-        frame = _shade_gbuffer(cfg, dyn, tid, stencil, gb, samp, samp_mask,
-                               cam_pos)
+        background = _background(cfg, dyn, cam_host, height, width, device)
+        if slim:
+            frame = _shade_slim(cfg, dyn, tid, gb, cam_pos, background)
+        else:
+            frame = _shade_gbuffer(cfg, dyn, tid, stencil, gb, samp,
+                                   samp_mask, cam_pos, background)
     return frame, zb_sign * sign, tid, stencil
+
+
+def _quantize(frame):
+    """Vertical flip + gamma 0.8 + quantize (reference core.py:640)."""
+    with _span("quantize"):
+        out = torch.clamp(torch.flip(frame, [0]) ** 0.8, 0.0, 1.0) * 255
+        return out.to(torch.uint8)
 
 
 def render_frame(cfg: SceneConfig, dyn, ops=rc.KERNELS):
     """One frame: (frame_u8 (H, W, 3), zbuf, tid, stencil)."""
     frame, zbuf, tid, stencil = render_core(cfg, dyn, ops)
-    with _span("quantize"):
-        # Vertical flip + gamma 0.8 + quantize (reference core.py:640).
-        out = torch.clamp(torch.flip(frame, [0]) ** 0.8, 0.0, 1.0) * 255
-        out = out.to(torch.uint8)
-    return out, zbuf, tid, stencil
+    return _quantize(frame), zbuf, tid, stencil
+
+
+def render_debug_frame(cfg: SceneConfig, dyn, kind, ops=rc.KERNELS):
+    """Wireframe / points frames (pipeline.render_debug_frame :957,
+    reference triangular.py:269-283).
+
+    - the gouraud path (K1, K5, and K4 with shadows) resolves the z-buffer;
+      its shading is discarded;
+    - every real face (no culling or validity masks: the reference iterates
+      all of model.face_array) re-runs the vertex stage, z linearized;
+    - wireframe: the three directed edges of every face through K6, one
+      color over the background;
+    - points: the vertex splats' last write wins, resolved by a scatter-max
+      over the write index whose parity picks red or blue.
+
+    Returns (frame_u8, zbuf, tid, stencil) like render_frame.
+    """
+    if kind not in DEBUG_SHADERS:
+        raise ValueError(f"not a debug shader: {kind!r}")
+    _, zbuf, tid, stencil = render_core(
+        dataclasses.replace(cfg, shader=SHADER_GOURAUD), dyn, ops)
+    height, width = cfg.resolution
+    device = zbuf.device
+    cam_host = _cam_matrices(cfg, dyn["camera"], "cpu")
+    frame = _background(cfg, dyn, cam_host, height, width, device)
+    if not cfg.models:
+        return _quantize(frame), zbuf, tid, stencil
+
+    with _span("debug_vertex"):
+        cam_m = {k: v.to(device) for k, v in cam_host.items()}
+        sx, sy, sz, fn, valid = _debug_vertices(dyn, cam_m)
+    if kind == SHADER_WIREFRAME:
+        with _span("lines"):
+            mask = ops.lines(*_wireframe_lines(sx, sy, sz, valid, zbuf,
+                                               height, width))
+            color = torch.tensor([64 / 255, 64 / 255, 128 / 255],
+                                 dtype=torch.float32, device=device)
+            frame = torch.where((mask > 0)[..., None], color, frame)
+    else:
+        with _span("points"):
+            frame = torch.where(*_point_splats(dyn, sx, sy, fn, valid, height,
+                                               width), frame)
+    return _quantize(frame), zbuf, tid, stencil
+
+
+def _debug_vertices(dyn, cam_m):
+    """The vertex stage over every face of every model, without culling or
+    validity masks: per-face screen x, y and linearized z (F, 3) each, the
+    unit world face normal (F, 3), and the mask (F,) of real (not padding)
+    faces."""
+    sxs, sys_, szs, fns, valids = [], [], [], [], []
+    for md in dyn["models"]:
+        va = transform_vertices(md["verts"], cam_m["MVP"], cam_m["viewport"],
+                                dyn["camera"]["near"], dyn["camera"]["far"])
+        vid = md["vid"].long()
+        screen = va["screen"][vid]
+        sxs.append(screen[..., 0])
+        sys_.append(screen[..., 1])
+        szs.append(va["zlin"][vid])
+        world = va["world"][vid]
+        n = _cross(world[:, 1] - world[:, 0], world[:, 2] - world[:, 0])
+        nn = torch.linalg.vector_norm(n, dim=1, keepdim=True)
+        fns.append(n / torch.where(nn == 0, torch.ones_like(nn), nn))
+        valids.append(md["pad_valid"])
+    return (torch.cat(sxs), torch.cat(sys_), torch.cat(szs), torch.cat(fns),
+            torch.cat(valids))
+
+
+def _wireframe_lines(sx, sy, sz, valid, zbuf, height, width):
+    """K6's arguments: the three directed edges of every face (vertices
+    0->1, 1->2, 2->0) packed by raster_cuda.pack_lines, each active where
+    its face is real, and the z-buffer."""
+    ia, ib = [0, 1, 2], [1, 2, 0]
+    p0 = torch.stack([sx[:, ia], sy[:, ia], sz[:, ia]], -1).reshape(-1, 3)
+    p1 = torch.stack([sx[:, ib], sy[:, ib], sz[:, ib]], -1).reshape(-1, 3)
+    ldata, lbbox = rc.pack_lines(p0, p1, height, width)
+    return ldata, lbbox, valid.repeat_interleave(3), zbuf, height, width
+
+
+def _point_splats(dyn, sx, sy, fn, valid, height, width):
+    """(mask (H, W, 1), rgb (H, W, 3)) of the points shader
+    (pipeline.py:1016-1037 of the JAX package).
+
+    Faces facing the camera direction (-position normalized; keep
+    normal · cam_dir > 0) splat their vertices in the write order
+    (v0 R)(v1 B)(v1 R)(v2 B)(v2 R)(v0 B); a pixel keeps its last write,
+    found with a scatter-max over the write index. Writes outside the frame,
+    of culled faces or from non-finite coordinates go to a spare slot H·W
+    that is sliced off.
+    """
+    device = sx.device
+    pos = torch.as_tensor(dyn["camera"]["position"], dtype=torch.float32,
+                          device=device)
+    cam_dir = -pos / torch.clamp(torch.linalg.vector_norm(pos), min=1e-30)
+    keep = valid & ((fn * cam_dir).sum(-1) > 0)
+    vsel = [0, 1, 1, 2, 2, 0]
+    fx, fy = sx[:, vsel], sy[:, vsel]
+    finite = torch.isfinite(fx) & torch.isfinite(fy)
+    # Truncating casts, like .astype; coordinates are clamped to [-1, size]
+    # first (which keeps in-frame ones and out-of-frame ones out), so no
+    # cast leaves int32's range.
+    off = lambda x, size: torch.where(finite, x, -1.0).clamp(-1.0, float(size))
+    ci = off(fx, width).to(torch.int32)
+    ri = off(fy, height).to(torch.int32)
+    inb = finite & (ri >= 0) & (ri < height) & (ci >= 0) & (ci < width)
+    ok = keep[:, None] & inb
+    order = torch.arange(ok.numel(), dtype=torch.int64, device=device)
+    lin = torch.where(ok, ri.to(torch.int64) * width + ci,
+                      torch.full_like(ri, height * width, dtype=torch.int64))
+    win = torch.full((height * width + 1,), -1, dtype=torch.int64,
+                     device=device)
+    win.scatter_reduce_(0, lin.reshape(-1), order, "amax", include_self=True)
+    win = win[:height * width].reshape(height, width)
+    blue = torch.tensor([0.0, 0.0, 1.0], device=device)
+    red = torch.tensor([1.0, 0.0, 0.0], device=device)
+    rgb = torch.where(((win & 1) == 1)[..., None], blue, red)
+    return (win >= 0)[..., None], rgb

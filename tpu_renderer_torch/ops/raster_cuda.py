@@ -1,5 +1,5 @@
-"""The four hand-written CUDA kernels of the main path, their packers, their
-tile binning and their plain PyTorch versions.
+"""The port's hand-written CUDA kernels, their packers, their tile binning
+and their plain PyTorch versions.
 
 Counterpart of ``tpu_renderer/ops/raster_pallas.py``:
 
@@ -9,6 +9,8 @@ Counterpart of ``tpu_renderer/ops/raster_pallas.py``:
 | ``gbuffer``         | csrc/gbuffer.cu        | visibility_gbuffer_pallas phase 1       |
 | ``sample_textures`` | csrc/sample_textures.cu| the in-kernel windowed texture sampler  |
 | ``stencil``         | csrc/stencil.cu        | stencil_pallas                          |
+| ``gbuffer_slim``    | csrc/gbuffer_slim.cu   | phase 1, slim layouts (_slim_interp_face)|
+| ``lines``           | csrc/lines.cu          | lines_pallas                            |
 
 Each wrapper runs its plain version for tensors on the CPU, and only
 there. For CUDA tensors it checks device, dtype, shape and contiguity,
@@ -26,15 +28,17 @@ from tpu_renderer_torch.ops.shadow import QUAD_PMAX, quad_edge_coeffs, \
 
 __all__ = [
     "face_flags", "pack_faces", "pack_face_attrs", "pack_quads",
-    "stencil_scalars", "tile_bins", "visibility", "gbuffer",
-    "sample_textures", "stencil", "visibility_plain", "gbuffer_plain",
-    "sample_textures_plain", "stencil_plain", "LAUNCHES", "reset_launches",
-    "KERNELS", "PLAIN", "GB_CHANNELS", "N_KINDS", "KINDS", "TILE",
+    "pack_slim_attrs", "pack_lines", "stencil_scalars", "tile_bins",
+    "visibility", "gbuffer", "sample_textures", "stencil", "gbuffer_slim",
+    "lines", "visibility_plain", "gbuffer_plain", "sample_textures_plain",
+    "stencil_plain", "gbuffer_slim_plain", "lines_plain", "texel_indices",
+    "LAUNCHES", "reset_launches", "KERNELS", "PLAIN", "GB_CHANNELS", "SLIM_CHANNELS",
+    "N_KINDS", "KINDS", "TILE",
 ]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES = {"visibility": 0, "gbuffer": 0, "sample_textures": 0,
-            "stencil": 0}
+            "stencil": 0, "gbuffer_slim": 0, "lines": 0}
 
 
 def reset_launches():
@@ -69,6 +73,22 @@ GB_CHANNELS = 32
 #: [34] norm_slot, [35:37] norm (TH, TW), [37] norm_tangent, [38] ks_slot,
 #: [39:41] ks (TH, TW), [41] model_id.
 A_COLS = 42
+
+#: Slim G-buffer layouts of the flat, gouraud and pbr shaders
+#: (raster_pallas._SLIM_CHANNELS :1275): output channels per layout —
+#:   flat:    [0:3] face world normal (constant per face)
+#:   gouraud: [0:3] screen-barycentric vertex normal (unnormalized)
+#:   pbr:     [0:3] that normal, [3:6] interpolated (sx, sy, z_lin),
+#:            [6] Pm, [7] Pr, [8:11] Ka
+SLIM_CHANNELS = {"flat": 3, "gouraud": 3, "pbr": 11}
+#: Columns of the per-face slim table (pack_slim_attrs) per layout, and the
+#: layout's number in the kernel's C interface.
+SLIM_COLS = {"flat": 3, "gouraud": 9, "pbr": 23}
+SLIM_LAYOUT_ID = {"flat": 0, "gouraud": 1, "pbr": 2}
+
+#: Edge table of the wireframe kernel (pack_lines): [0] x0, [1] y0, [2] z0,
+#: [3] sx, [4] sy, [5] sz per step, [6] step count, [7] major-x flag.
+L_COLS = 8
 
 #: Texture kinds sampled by K3, in sample-plane order: plane k and mask bit
 #: k belong to KINDS[k].
@@ -180,6 +200,64 @@ def pack_quads(screen, counts, ok, height, width):
     return qdata, qi
 
 
+def pack_slim_attrs(attrs, layout):
+    """Shading attrs -> (G, SLIM_COLS[layout]) float32 slim face table,
+    column for column as raster_pallas.pack_slim_attrs (:1278): flat the
+    face normal; gouraud the 9 vertex-normal components; pbr those, then
+    sx, sy, szlin per vertex, pm, pr and ka."""
+    g = attrs["vn"].shape[0]
+    if layout == "flat":
+        cols = [attrs["face_normal"]]
+    elif layout == "gouraud":
+        cols = [attrs["vn"].reshape(g, 9)]
+    elif layout == "pbr":
+        cols = [attrs["vn"].reshape(g, 9),
+                attrs["sx"], attrs["sy"], attrs["szlin"],
+                attrs["pm"][:, None], attrs["pr"][:, None], attrs["ka"]]
+    else:
+        raise ValueError(f"unknown slim layout {layout!r}")
+    return torch.cat([c.to(torch.float32) for c in cols], dim=1).contiguous()
+
+
+def pack_lines(p0, p1, height, width):
+    """Directed screen-space edges -> the wireframe kernel's tables
+    (raster_pallas.pack_lines :2507, without the 128-lane padding and the
+    tube coefficients: K6 bins by bounding box).
+
+    Replicates the reference DDA (line.py:6-16) in closed form: right-to-left
+    normalization (dx > 0 swaps the endpoints), steps = max(|dx|, |dy|),
+    ``int(steps)`` uniform float steps. A zero-length edge draws its start
+    pixel; a sub-pixel edge (0 < steps < 1) draws nothing.
+
+    p0, p1: (E, 3) float32 (x, y, z) endpoints, z linearized. Returns
+    (ldata (E, L_COLS) float32, bbox (E, 4) int32 [x0, x1, y0, y1) windows
+    clipped to the frame, 0 where not finite).
+    """
+    swap = (p1[:, 0] - p0[:, 0]) > 0
+    a = torch.where(swap[:, None], p1, p0)
+    b = torch.where(swap[:, None], p0, p1)
+    d = b - a
+    adx = torch.abs(d[:, 0])
+    ady = torch.abs(d[:, 1])
+    steps = torch.maximum(adx, ady)
+    pt = steps == 0
+    one = torch.ones_like(steps)
+    stepv = d / torch.where(pt, one, steps)[:, None]
+    nsteps = torch.where(pt, one, torch.floor(steps))
+    majx = (pt | (adx >= ady)).to(torch.float32)
+    ldata = torch.cat([a, stepv, nsteps[:, None], majx[:, None]], dim=1)
+
+    x_lo = torch.floor(torch.minimum(a[:, 0], b[:, 0]))
+    x_hi = torch.floor(torch.maximum(a[:, 0], b[:, 0])) + 1
+    y_lo = torch.floor(torch.minimum(a[:, 1], b[:, 1]))
+    y_hi = torch.floor(torch.maximum(a[:, 1], b[:, 1])) + 1
+    bbox = torch.stack([torch.clamp(x_lo, 0, width), torch.clamp(x_hi, 0, width),
+                        torch.clamp(y_lo, 0, height),
+                        torch.clamp(y_hi, 0, height)], dim=1)
+    bbox = torch.where(torch.isfinite(bbox), bbox, torch.zeros_like(bbox))
+    return ldata.contiguous(), bbox.to(torch.int32).contiguous()
+
+
 def stencil_scalars(near, far):
     """(2·near·far, far + near, far − near) in float32, as Python floats —
     the depth constants the stencil test reads (raster_pallas.py:1035)."""
@@ -283,6 +361,42 @@ def gbuffer_plain(fdata, adata, tid):
     return torch.where(tid[None] >= 0, gb, torch.zeros_like(gb))
 
 
+def gbuffer_slim_plain(fdata, sdata, tid, layout):
+    """K5's plain version: a per-pixel gather of the winning face's rows,
+    then _slim_interp_face's expressions term for term (raster_pallas.py:
+    1294-1319) with RAW screen barycentrics u = 1 - v - w (no perspective
+    correction, as the reference's flat/gouraud/pbr shaders), zero on
+    background. Returns (SLIM_CHANNELS[layout], H, W) float32."""
+    height, width = tid.shape
+    fid = torch.clamp(tid, min=0).long()
+    s = sdata[fid]                                     # (H, W, SLIM_COLS)
+    at = lambda c: s[..., c]
+    if layout == "flat":
+        out = [at(ci) for ci in range(3)]
+    else:
+        f = fdata[fid]                                 # (H, W, 34)
+        rows = torch.arange(height, dtype=torch.float32,
+                            device=tid.device)[:, None]
+        cols = torch.arange(width, dtype=torch.float32,
+                            device=tid.device)[None]
+        co = lambda c: f[..., c]
+        v = co(0) * cols + co(1) * rows + co(2)
+        w = co(3) * cols + co(4) * rows + co(5)
+        u = 1.0 - v - w
+
+        def interp(c0, c1, c2):
+            return u * c0 + v * c1 + w * c2
+
+        out = [interp(at(ci), at(3 + ci), at(6 + ci)) for ci in range(3)]
+        if layout == "pbr":
+            for ci in range(3):                    # sx / sy / z_lin triples
+                b = 9 + 3 * ci
+                out.append(interp(at(b), at(b + 1), at(b + 2)))
+            out += [at(18), at(19)] + [at(20 + ci) for ci in range(3)]
+    gb = torch.stack(out)
+    return torch.where(tid[None] >= 0, gb, torch.zeros_like(gb))
+
+
 def _wrap_clamped(x, dim):
     """pipeline._wrap_index (truncate, then numpy-style floor-mod wrap), then
     clamped into [0, dim - 1] before the integer cast so that no pixel can
@@ -305,12 +419,25 @@ def sample_textures_plain(tid, iu, iv, ftex, slots, pool):
     RGB texels. Returns (samp (N_KINDS, H, W) int32, mask (H, W) int32 with
     bit k set where kind k was sampled).
     """
+    idx, hit = texel_indices(tid, iu, iv, ftex, slots)
+    samp = []
+    mask = torch.zeros(tid.shape, dtype=torch.int32, device=tid.device)
+    for k in range(ftex.shape[1]):
+        texel = pool[idx[k]] if pool.numel() else torch.zeros_like(tid)
+        samp.append(torch.where(hit[k], texel, torch.zeros_like(texel)))
+        mask |= hit[k].to(torch.int32) << k
+    return torch.stack(samp).to(torch.int32), mask
+
+
+def texel_indices(tid, iu, iv, ftex, slots):
+    """The pool index each pixel samples per kind, and where it samples
+    (see sample_textures_plain). Returns (idx (N_KINDS, H, W) int64, 0
+    where nothing is sampled; hit (N_KINDS, H, W) bool)."""
     win = tid >= 0
     fid = torch.clamp(tid, min=0).long()
     ciu = torch.clamp(iu, max=1.0)
     civ = torch.clamp(iv, max=1.0)
-    samp = []
-    mask = torch.zeros(tid.shape, dtype=torch.int32, device=tid.device)
+    idxs, hits = [], []
     for k in range(ftex.shape[1]):
         ft = ftex[:, k][fid]                              # (H, W, 3)
         slot = ft[..., 0]
@@ -321,11 +448,9 @@ def sample_textures_plain(tid, iu, iv, ftex, slots, pool):
         hit = win & (slot >= 0)
         st = slots.long()[torch.clamp(slot, min=0).long()]
         idx = st[..., 0] + row * st[..., 1] + col
-        idx = torch.where(hit, idx, torch.zeros_like(idx))
-        texel = pool[idx] if pool.numel() else torch.zeros_like(tid)
-        samp.append(torch.where(hit, texel, torch.zeros_like(texel)))
-        mask |= hit.to(torch.int32) << k
-    return torch.stack(samp).to(torch.int32), mask
+        idxs.append(torch.where(hit, idx, torch.zeros_like(idx)))
+        hits.append(hit)
+    return torch.stack(idxs), torch.stack(hits)
 
 
 def stencil_plain(qdata, qi, zb_sign, sign, nf2, fpn, fmn, chunk=16):
@@ -343,6 +468,47 @@ def stencil_plain(qdata, qi, zb_sign, sign, nf2, fpn, fmn, chunk=16):
                           qi[q0:q0 + chunk, 5:7].to(torch.float32)], dim=1)
         st += quad_fragments(qrow, zb_sign, rows, cols, sign, nf2, fpn, fmn)
     return st
+
+
+def lines_plain(ldata, bbox, active, zbuf, height, width):
+    """K6's plain version: lines_pallas's per-pixel closed-form DDA
+    inversion (raster_pallas.py:2621-2640), vectorised over pixels and
+    chunks of edges.
+
+    A pixel is lit iff some active edge's DDA pixel lands on it inside the
+    edge's bbox, inside 0 < row < h-1, 0 < col < w-1, and passes the strict
+    ``zbuf - z > 0`` test (no handedness sign: the reference hard-codes it).
+    Along the major axis the step is exactly -1 in x (right-to-left) or
+    +-1 in y, so the step index is k = floor(x0 - col) or the matching
+    ceil/floor in y, and the pixel is on the line iff the minor axis floors
+    to it. Returns (H, W) int32.
+    """
+    dev = zbuf.device
+    rows = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    cols = torch.arange(width, dtype=torch.float32, device=dev)[None]
+    inframe = (rows > 0) & (rows < height - 1) & (cols > 0) & (cols < width - 1)
+    keep = active.to(torch.bool)
+    ldata, bbox = ldata[keep], bbox[keep]
+    chunk = max(1, (1 << 24) // (height * width))    # edges per pass
+    lit_any = torch.zeros((height, width), dtype=torch.bool, device=dev)
+    for e0 in range(0, ldata.shape[0], chunk):
+        ld = ldata[e0:e0 + chunk, :, None, None]
+        bb = bbox[e0:e0 + chunk, :, None, None]
+        x0, y0, z0 = ld[:, 0], ld[:, 1], ld[:, 2]
+        sxv, syv, szv = ld[:, 3], ld[:, 4], ld[:, 5]
+        nst = ld[:, 6]
+        majx = ld[:, 7] > 0
+        k_x = torch.floor(x0 - cols)
+        k_y = torch.where(syv > 0, torch.ceil(rows - y0), torch.floor(y0 - rows))
+        kk = torch.where(majx, k_x, k_y)
+        other = torch.where(majx, torch.floor(y0 + kk * syv) - rows,
+                            torch.floor(x0 + kk * sxv) - cols)
+        inbox = ((cols >= bb[:, 0]) & (cols < bb[:, 1])
+                 & (rows >= bb[:, 2]) & (rows < bb[:, 3]))
+        lit = (other == 0) & (kk >= 0) & (kk < nst) & inbox
+        z = z0 + kk * szv
+        lit_any |= (lit & (zbuf - z > 0)).any(0)
+    return (lit_any & inframe).to(torch.int32)
 
 
 # ------------------------------------------------------------- wrappers
@@ -468,18 +634,65 @@ def stencil(qdata, qi, zb_sign, sign, nf2, fpn, fmn):
     return st
 
 
-class _Ops:
-    """The four per-frame raster operations render_core calls."""
+def gbuffer_slim(fdata, sdata, tid, layout):
+    """K5: the slim G-buffer (SLIM_CHANNELS[layout] planes) of each pixel's
+    winning face, zero on background. fdata (G, 34) float32 (pack_faces);
+    sdata (G, SLIM_COLS[layout]) float32 (pack_slim_attrs); tid (H, W)
+    int32; layout "flat", "gouraud" or "pbr"."""
+    if _on_cpu(fdata, sdata, tid):
+        return gbuffer_slim_plain(fdata, sdata, tid, layout)
+    g = fdata.shape[0]
+    height, width = tid.shape
+    _require(fdata, "fdata", torch.float32, (g, rp.F_COLS))
+    _require(sdata, "sdata", torch.float32, (g, SLIM_COLS[layout]))
+    _require(tid, "tid", torch.int32, (height, width))
+    gb = torch.empty((SLIM_CHANNELS[layout], height, width),
+                     dtype=torch.float32, device=tid.device)
+    _launch("gbuffer_slim", fdata.data_ptr(), sdata.data_ptr(),
+            tid.data_ptr(), SLIM_LAYOUT_ID[layout], height, width,
+            gb.data_ptr())
+    return gb
 
-    def __init__(self, visibility, gbuffer, sample_textures, stencil):
+
+def lines(ldata, bbox, active, zbuf, height, width):
+    """K6: the wireframe mask, (H, W) int32 (1 = lit; see lines_plain).
+
+    ldata (E, 8) float32 and bbox (E, 4) int32 from :func:`pack_lines`;
+    active (E,) bool; zbuf (H, W) float32, the real (not sign-space)
+    z-buffer.
+    """
+    if _on_cpu(ldata, bbox, active, zbuf):
+        return lines_plain(ldata, bbox, active, zbuf, height, width)
+    e = ldata.shape[0]
+    _require(ldata, "ldata", torch.float32, (e, L_COLS))
+    _require(bbox, "bbox", torch.int32, (e, 4))
+    _require(active, "active", torch.bool, (e,))
+    _require(zbuf, "zbuf", torch.float32, (height, width))
+    off, items = tile_bins(bbox, active, height, width)
+    mask = torch.empty((height, width), dtype=torch.int32, device=zbuf.device)
+    _launch("lines", ldata.data_ptr(), bbox.data_ptr(), off.data_ptr(),
+            items.data_ptr(), zbuf.data_ptr(), height, width,
+            -(-width // TILE), mask.data_ptr())
+    return mask
+
+
+class _Ops:
+    """The per-frame raster operations render_core and render_debug_frame
+    call."""
+
+    def __init__(self, visibility, gbuffer, sample_textures, stencil,
+                 gbuffer_slim, lines):
         self.visibility = visibility
         self.gbuffer = gbuffer
         self.sample_textures = sample_textures
         self.stencil = stencil
+        self.gbuffer_slim = gbuffer_slim
+        self.lines = lines
 
 
 #: The main path: kernels on CUDA tensors, plain versions on CPU tensors.
-KERNELS = _Ops(visibility, gbuffer, sample_textures, stencil)
+KERNELS = _Ops(visibility, gbuffer, sample_textures, stencil, gbuffer_slim,
+               lines)
 #: The plain versions on any device: the oracle a kernel run is held to.
 PLAIN = _Ops(visibility_plain, gbuffer_plain, sample_textures_plain,
-             stencil_plain)
+             stencil_plain, gbuffer_slim_plain, lines_plain)

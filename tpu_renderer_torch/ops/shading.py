@@ -1,13 +1,13 @@
-"""Deferred, pixel-parallel Blinn-Phong shading, in PyTorch.
+"""Deferred, pixel-parallel shading, in PyTorch.
 
-Counterpart of ``tpu_renderer/ops/shading.py`` (``shade_general`` and its
-helpers). Semantics follow the reference, quirks included: ambient-only
-shadowed result ``clip(0.05, 1)`` (triangular.py:145-147), diffuse intensity
-NOT clamped at zero (:169-170), spot cone smoothstep cos20°→cos10°
-(:157-161), and the specular factor arriving pre-scaled by 255
-(core.py:145-153).
-
-The flat, gouraud and PBR shaders are not ported yet.
+Counterpart of ``tpu_renderer/ops/shading.py``: the general Blinn-Phong
+shader and the flat, gouraud and Cook-Torrance PBR shaders, each term in
+the JAX package's expression order. Semantics follow the reference, quirks
+included: ambient-only shadowed result ``clip(0.05, 1)``
+(triangular.py:145-147), diffuse intensity NOT clamped at zero (:169-170),
+spot cone smoothstep cos20°→cos10° (:157-161), the specular factor arriving
+pre-scaled by 255 (core.py:145-153), and flat/gouraud writing a 0..255-scale
+intensity into the float frame (:174-182).
 """
 from __future__ import annotations
 
@@ -18,7 +18,10 @@ import torch
 from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.transforms import normalize
 
-__all__ = ["smoothstep", "shade_general"]
+__all__ = ["smoothstep", "mix", "shade_general", "shade_flat",
+           "shade_gouraud", "shade_gouraud_n", "fresnel_schlick",
+           "distribution_ggx", "geometry_schlick_ggx", "geometry_smith",
+           "shade_pbr"]
 
 _COS20 = math.cos(math.radians(20.0))
 _COS10 = math.cos(math.radians(10.0))
@@ -28,6 +31,11 @@ def smoothstep(edge0, edge1, x):
     """Hermite smoothstep (reference core.py:497-515)."""
     t = torch.clamp((x - edge0) / (edge1 - edge0), 0.0, 1.0)
     return t * t * (3 - 2 * t)
+
+
+def mix(x, y, a):
+    """Linear interpolation (reference triangular.py:391-395)."""
+    return x * (1 - a) + y * a
 
 
 def shade_general(pix, light, camera_position, *, shadows_mask=None):
@@ -76,3 +84,104 @@ def shade_general(pix, light, camera_position, *, shadows_mask=None):
     if shadows_mask is None:
         return lit_rgb
     return torch.where(shadows_mask[..., None], ambient_rgb, lit_rgb)
+
+
+def shade_flat(face_world_normal, light):
+    """Flat shading (reference triangular.py:174-177): the winning face's
+    (H, W, 3) world normal against the light direction, clipped to
+    [0.3, 1] and scaled to 0..255 like the reference."""
+    intensity = (face_world_normal * light["direction"]).sum(-1)
+    return torch.clamp(intensity, 0.3, 1.0)[..., None] * _full3(
+        255.0, intensity)
+
+
+def shade_gouraud(bar, normals, light):
+    """Gouraud shading (reference triangular.py:180-182): (H, W, 3) screen
+    barycentrics times (H, W, 3, 3) vertex normals."""
+    return shade_gouraud_n((bar[..., :, None] * normals).sum(-2), light)
+
+
+def shade_gouraud_n(n, light):
+    """Gouraud from a pre-interpolated (H, W, 3) vertex normal (the slim
+    G-buffer's channels 0-2)."""
+    intensity = torch.clamp((n * light["direction"]).sum(-1), 0, 1)
+    return intensity[..., None] * _full3(255.0, intensity)
+
+
+def _full3(value, like):
+    return torch.full((3,), value, dtype=torch.float32, device=like.device)
+
+
+# ----------------------------------------------------------------- PBR (GGX)
+
+def fresnel_schlick(cos_theta, F0):
+    """(reference triangular.py:185-187)"""
+    return F0 + (1.0 - F0) * ((1 - cos_theta[..., None]) ** 5)
+
+
+def distribution_ggx(N, H, roughness):
+    """(reference triangular.py:190-199)"""
+    a2 = (roughness * roughness) ** 2
+    ndoth = torch.clamp((N * H).sum(-1), min=0)
+    denom = ndoth * ndoth * (a2 - 1.0) + 1.0
+    return a2 / (math.pi * denom * denom)
+
+
+def geometry_schlick_ggx(ndotv, roughness):
+    """(reference triangular.py:202-208)"""
+    r = roughness + 1.0
+    k = (r * r) / 8.0
+    return ndotv / (ndotv * (1.0 - k) + k)
+
+
+def geometry_smith(N, V, L, roughness):
+    """(reference triangular.py:211-217)"""
+    ndotv = torch.clamp((N * V).sum(-1), min=0)
+    ndotl = torch.clamp((N * L).sum(-1), min=0)
+    return (geometry_schlick_ggx(ndotl, roughness)
+            * geometry_schlick_ggx(ndotv, roughness))
+
+
+def shade_pbr(pix, light, camera_position):
+    """Cook-Torrance PBR (reference triangular.py:220-266), with a Reinhard
+    tonemap and gamma 1/2.2.
+
+    pix: ``normal_raw`` (H, W, 3) normalized screen-barycentric vertex
+    normal, ``screen_pos`` (H, W, 3) interpolated (sx, sy, z_lin) — the
+    reference lights post-viewport positions — ``metallic`` (H, W, 1),
+    ``roughness`` (H, W) and ``ao`` (H, W, 3) material Pm, Pr, Ka. The
+    ranks matter: roughness meets (H, W) dot products, metallic broadcasts
+    against RGB.
+    """
+    albedo = 1.0
+    metallic = pix["metallic"]
+    roughness = pix["roughness"]
+    ao = pix["ao"]
+
+    N = pix["normal_raw"]
+    V = normalize(camera_position - pix["screen_pos"])
+    F0 = mix(_full3(0.04, N), albedo, metallic)
+
+    to_light = light["position"] - pix["screen_pos"]
+    L = normalize(to_light)
+    H = normalize(V + L)
+    distance = torch.linalg.vector_norm(to_light, dim=-1)
+    radiance = light["color"] * (1.0 / (distance * distance))[..., None]
+
+    ndf = distribution_ggx(N, H, roughness)[..., None]
+    g = geometry_smith(N, V, L, roughness)[..., None]
+    f = fresnel_schlick(torch.clamp((H * V).sum(-1), min=0), F0)
+
+    ks = f
+    kd = (1.0 - ks) * (1.0 - metallic)
+
+    numerator = ndf * g * f
+    denominator = (4.0 * torch.clamp((N * V).sum(-1), min=0) *
+                   torch.clamp((N * L).sum(-1), min=0) + 0.0001)
+    specular = numerator / denominator[..., None]
+
+    ndotl = torch.clamp((N * L).sum(-1), min=0)
+    lo = (kd * albedo / math.pi + specular) * radiance * ndotl[..., None]
+    color = albedo * ao + lo
+    color = color / (color + 1.0)
+    return color ** (1.0 / 2.2)
