@@ -8,12 +8,16 @@ exits non-zero without the final line):
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA and
    nvcc versions;
 2. build: compile ``tpu_renderer_torch/csrc/*.cu`` with nvcc for sm_90a;
-3. per kernel: K1-K6 (K5 in its flat, gouraud and pbr layouts) against
+3. per kernel: K1-K7 (K5 in its flat, gouraud and pbr layouts) against
    their plain PyTorch versions on the card, at the flagship frame's
    shapes, each timed with CUDA events (median of a few runs after a
-   warm-up), beside its bound: the larger of the bytes its function must
-   move in this run (``needed_bytes``) over 3.35 TB/s and a lower count of
-   its float operations over 67 TFLOP/s;
+   warm-up) and alone in a profile, beside its bound: the larger of the
+   bytes its function must move in this run (``needed_bytes``) over
+   3.35 TB/s and a lower count of its float operations over 67 TFLOP/s;
+   then the sharded modes on the inputs of rank 1 of phase 6's 1x2 (rows,
+   tris) mesh, the whole frame height and the second half of each model's
+   faces (``shard_inputs``): K1 z only, K7, and the owned ranges of K2, K5
+   (gouraud, pbr) and K3, each equal to its plain version;
 4. end to end, general shader: the flagship frame — a seeded procedural
    shadow-casting mesh of 4,992 faces with 1024² diffuse and tangent-space
    normal maps over a textured floor, point light, shadow volumes,
@@ -26,21 +30,40 @@ exits non-zero without the final line):
    over a seeded procedural cubemap skybox (6 × 512² faces); each render
    must launch the kernels of its path and match its plain-path render;
    each is timed against the general shader (without the skybox) as
-   interleaved orbits, general then variant, PAIRS times, and profiled.
+   interleaved orbits, general then variant, PAIRS times, and profiled;
+6. sharded: ``render_frame_sharded`` on 1x2 (general, gouraud, pbr) and
+   2x2 (general) meshes of ranks, started with torch.multiprocessing spawn
+   after the build, gloo through a FileStore, every rank on ``cuda:0`` (one
+   card cannot host two NCCL ranks); each rank builds the flagship from the
+   seed. Each frame must match the one-device ``Scene.render()`` frame
+   (frame >= 99.9%, stencil equal, zbuf within rtol 1e-6, tid >= 99.9%
+   after mapping global ids to one-device faces) and, on every rank, equal
+   its own render through the plain versions in all four buffers (every
+   kernel equals its plain version, and the merges are the same
+   collectives); every rank's launch counts must show the kernels of the
+   sharded path. Rank 0 prints ms/frame (host clock,
+   after a barrier) and the traced share of the merges (``tr.merge_*``).
+   The ranks share one card and gloo stages each collective through host
+   memory: these are not multi-card numbers.
 
 Before the last line it prints the card's ``name, power.limit`` line and
 one JSON object with the per-kernel records (each with its launches in
 the render of its path: K1-K4 from phase 4, each K5 layout from its
-shader's render, K6 from the wireframe render); the last line is
+shader's render, K6 from the wireframe render, the sharded modes from
+the 1x2 renders' rank whose inputs phase 3 took); the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX: the card's
 host runs the port alone.
 """
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -158,8 +181,9 @@ def orbit_position(t, radius=5.05, height=3.0):
 
 def kernel_inputs(scene):
     """Every kernel's inputs at the scene's shapes, keyed by case (K5 once
-    per layout): the stage calls of pipeline.render_core and
-    render_debug_frame, through the plain versions. Returns (inputs, zb_sign)."""
+    per layout), as (args, kwargs): the stage calls of pipeline.render_core
+    and render_debug_frame, through the plain versions, then the sharded
+    modes (``shard_inputs``). Returns (inputs, zb_sign)."""
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
     from tpu_renderer_torch.ops.shadow import prepare_quads
@@ -190,19 +214,85 @@ def kernel_inputs(scene):
     sx, sy, sz, _, valid = pl._debug_vertices(dyn, cam_m)
     inputs["lines"] = pl._wireframe_lines(sx, sy, sz, valid,
                                           zb_sign * cfg.system, h, w)
+    inputs = {case: (args, {}) for case, args in inputs.items()}
+    inputs.update(shard_inputs(cfg, dyn, zb_sign))
     return inputs, zb_sign
+
+
+#: The rank of a phase-6 mesh on whose inputs phase 3 holds the sharded
+#: modes to their plain versions, as ((n_rows, n_tris), (row_idx,
+#: tris_idx)): the second triangle shard of the 1x2 mesh, the whole frame
+#: height. Its launches in phase 6 go into their records.
+SHARD_RANK = ((1, 2), (0, 1))
+
+
+def shard_inputs(cfg, dyn, zb_sign, mesh=SHARD_RANK[0], at=SHARD_RANK[1]):
+    """The sharded modes' inputs on rank ``at`` = (row_idx, tris_idx) of a
+    ``mesh`` = (n_rows, n_tris) mesh, built in one process with the plain
+    versions: its block of rows of the one-device z-buffer (the MIN of the
+    shards' z-buffers is that buffer), the MAX over shards of their K7
+    claims as the merged tid, and the SUM over shards of their owned
+    G-buffers for K3's iu/iv. Keyed by case, as (args, kwargs). Raises
+    unless the rank's shard wins some pixels of its rows and another shard
+    wins others (on the flagship frame the second half of the faces wins
+    nothing in rows 512-1023)."""
+    import torch
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import raster_cuda as rc
+    from tpu_renderer_torch.parallel.sharded import (pad_models_for_tris,
+                                                     shard_dyn)
+
+    (n_rows, n_tris), (row_idx, tris_idx) = mesh, at
+    h, w = cfg.resolution
+    lh = h // n_rows
+    row0 = row_idx * lh
+    zb = zb_sign[row0:row0 + lh].contiguous()
+    cam_m = pl._cam_matrices(cfg, dyn["camera"], zb.device)
+    padded = pad_models_for_tris(dyn, n_tris)
+    shards = []
+    for t in range(n_tris):
+        d = shard_dyn(padded, n_tris, t)
+        faces, attrs = pl._build_face_batch(cfg, d, cam_m)
+        fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
+        shards.append((d, attrs, fdata, flags, t * fdata.shape[0]))
+    tid = torch.stack([rc.tidpass_plain(f, fl, zb, cfg.system, row0, g0)
+                       for _, _, f, fl, g0 in shards]).amax(0)
+    gb = sum(rc.gbuffer_plain(f, rc.pack_face_attrs(a), tid, row0, g0)
+             for _, a, f, _, g0 in shards)
+    d, attrs, fdata, flags, gid0 = shards[tris_idx]
+    owned = (tid >= gid0) & (tid < gid0 + fdata.shape[0])
+    if not (owned.any() and ((tid >= 0) & ~owned).any()):
+        raise AssertionError(f"rank {at} of {mesh}: degenerate shard inputs")
+    own = {"row0": row0, "gid0": gid0}
+    inputs = {
+        "visibility_z": ((fdata, flags, lh, w, cfg.system),
+                         {"row0": row0, "want_tid": False}),
+        "tidpass": ((fdata, flags, zb, cfg.system), own),
+        "gbuffer_owned": ((fdata, rc.pack_face_attrs(attrs), tid), own),
+        "sample_textures_owned": (
+            (tid, gb[rc.GB_IU].contiguous(), gb[rc.GB_IV].contiguous(),
+             *pl.texture_tables(cfg, d, attrs)), {"gid0": gid0}),
+    }
+    for layout in ("gouraud", "pbr"):
+        inputs[f"gbuffer_slim_{layout}_owned"] = (
+            (fdata, rc.pack_slim_attrs(attrs, layout), tid, layout), own)
+    return inputs
 
 
 def wrapper_of(case):
     """raster_cuda wrapper name of a kernel case."""
-    return "gbuffer_slim" if case.startswith("gbuffer_slim") else case
+    if case.startswith("gbuffer_slim"):
+        return "gbuffer_slim"
+    if case == "visibility_z":
+        return "visibility"
+    return case.removesuffix("_owned")
 
 
-def _tile_counts(bbox, active, h, w):
+def _tile_counts(bbox, active, h, w, row0=0):
     """Items per binning tile, as the wrapper's tile_bins lists them."""
     from tpu_renderer_torch.ops import raster_cuda as rc
 
-    off, _ = rc.tile_bins(bbox, active, h, w)
+    off, _ = rc.tile_bins(bbox, active, h, w, row0=row0)
     return (off[1:] - off[:-1]).double()
 
 
@@ -222,10 +312,11 @@ def _tile_sums(mask):
 
 #: Lower counts of float operations (multiply, add, compare, floor) per
 #: (pixel, listed item) visit of the tile-binned kernels — K1's coverage and
-#: depth test of one face in one pass; K4's first edge test, on geometry
-#: pixels only (it skips background); K6's bbox test, on interior pixels —
-#: and per foreground pixel of the per-pixel kernels (K3: per kind).
-OPS_PER_VISIT = {"visibility": 20, "stencil": 5, "lines": 4}
+#: depth test of one face in one pass (K7's claim test likewise); K4's first
+#: edge test, on geometry pixels only (it skips background); K6's bbox test,
+#: on interior pixels — and per computed pixel of the per-pixel kernels
+#: (K3: per kind).
+OPS_PER_VISIT = {"visibility": 20, "tidpass": 20, "stencil": 5, "lines": 4}
 OPS_PER_PIXEL = {"gbuffer": 100, "sample_textures": 45,
                  "gbuffer_slim_flat": 0, "gbuffer_slim_gouraud": 25,
                  "gbuffer_slim_pbr": 40}
@@ -239,24 +330,43 @@ WINNER_COLS = {"gbuffer": 9 + 42, "gbuffer_slim_flat": 3,
                "gbuffer_slim_gouraud": 6 + 9, "gbuffer_slim_pbr": 6 + 23}
 
 
-def needed_bytes(case, args, out):
+def _computed(case, args, kw):
+    """(pixels a per-pixel kernel computes: those whose tid is one of its
+    table's ids [gid0, gid0 + G); the table's local indices of their
+    faces)."""
+    import torch
+
+    if wrapper_of(case) == "sample_textures":
+        tid, table = args[0], args[3]
+    else:
+        tid, table = args[2], args[0]
+    gid0 = kw.get("gid0", 0)
+    own = (tid >= gid0) & (tid < gid0 + table.shape[0])
+    return own, torch.unique(tid[own] - gid0).long()
+
+
+def needed_bytes(case, args, kw, out):
     """Bytes the call's function must move in this run: each output written
     once, and of its inputs only what its outputs depend on, each read once
     — per-pixel planes where the function reads them, the table rows of the
-    faces that win a pixel (or of the valid faces, active quads and edges),
-    and the texels that some pixel samples."""
+    faces that win a computed pixel (or of the valid faces, active quads
+    and edges), and the texels that some pixel samples."""
     import torch
     from tpu_renderer_torch.ops import raster_cuda as rc
     from tpu_renderer_torch.ops import raster_plain as rp
 
-    outs = out if isinstance(out, tuple) else (out,)
+    outs = [t for t in (out if isinstance(out, tuple) else (out,))
+            if t is not None]
     n = sum(t.numel() * t.element_size() for t in outs)
-    if case == "visibility":
-        # Every valid face's row, every face's flag word.
+    kind = wrapper_of(case)
+    if kind in ("visibility", "tidpass"):
+        # Every valid face's row, every face's flag word; K7's zb where a
+        # face claims the pixel (a lower count: there the id depends on it).
         flags = args[1]
         valid = int(((flags & rp.FLAG_VALID) > 0).sum())
-        return n + valid * rp.F_COLS * 4 + flags.numel() * 4
-    if case == "stencil":
+        n += valid * rp.F_COLS * 4 + flags.numel() * 4
+        return n + (int((out >= 0).sum()) * 4 if kind == "tidpass" else 0)
+    if kind == "stencil":
         # The active quads' rows and every quad's flag; zb where the
         # stencil is nonzero (a lower count: there the output certainly
         # depends on it).
@@ -264,7 +374,7 @@ def needed_bytes(case, args, out):
         active = int((qi[:, 5] > 0).sum())
         return (n + active * (rc.Q_COLS + rc.QI_COLS) * 4 + qi.shape[0] * 4
                 + int((outs[0] != 0).sum()) * 4)
-    if case == "lines":
+    if kind == "lines":
         # The active edges' rows and every edge's flag; zbuf on the pixels
         # where some edge's DDA pixel lands (the mask with every z test
         # passed).
@@ -273,46 +383,59 @@ def needed_bytes(case, args, out):
                                torch.full_like(zbuf, float("inf")), h, w)
         return (n + int(active.sum()) * (rc.L_COLS + 4) * 4 + active.numel()
                 + int(reach.sum()) * 4)
-    tid = args[0] if case == "sample_textures" else args[2]
-    faces = torch.unique(tid[tid >= 0]).long()
-    if case != "sample_textures":
-        return n + tid.numel() * 4 + faces.numel() * WINNER_COLS[case] * 4
+    _, faces = _computed(case, args, kw)
+    if kind != "sample_textures":
+        return (n + args[2].numel() * 4
+                + faces.numel() * WINNER_COLS[case.removesuffix("_owned")] * 4)
     # K3: tid everywhere; iu and iv where some kind is sampled; the winning
     # faces' texture rows, the slots they name, and each sampled texel.
-    _, iu, iv, ftex, slots, _ = args
-    idx, hit = rc.texel_indices(tid, iu, iv, ftex, slots)
+    tid, iu, iv, ftex, slots, _ = args
+    idx, hit = rc.texel_indices(tid, iu, iv, ftex, slots, kw.get("gid0", 0))
     used = torch.unique(ftex[faces, :, 0])
     return (n + tid.numel() * 4 + int(hit.any(0).sum()) * 8
             + faces.numel() * ftex.shape[1] * 3 * 4 + int((used >= 0).sum()) * 8
             + torch.unique(idx[hit]).numel() * 4)
 
 
-def bound(case, args, out, zb_sign):
+def bound(case, args, kw, out, zb_sign):
     """(bound_ms, "bytes" or "operations", bytes, operations): the least time
     the card could take for this call, the larger of needed_bytes over
     PEAK_BYTES and its operations on these inputs over PEAK_F32."""
     import torch
     from tpu_renderer_torch.ops import raster_plain as rp
 
-    nbytes = needed_bytes(case, args, out)
-    h, w = zb_sign.shape
+    nbytes = needed_bytes(case, args, kw, out)
+    kind = wrapper_of(case)
     fg = zb_sign < 3e38
-    if case == "visibility":
+    if kind in ("visibility", "tidpass"):
         fdata, flags = args[0], args[1]
-        counts = _tile_counts(fdata[:, rp.F_BBOX:rp.F_BBOX + 4].to(torch.int32),
-                              (flags & rp.FLAG_VALID) > 0, h, w)
-        ops = counts @ _tile_sums(torch.ones_like(fg))
-    elif case == "stencil":
+        h, w = args[2:4] if kind == "visibility" else args[2].shape
+        lists = _tile_counts(fdata[:, rp.F_BBOX:rp.F_BBOX + 4].to(torch.int32),
+                             (flags & rp.FLAG_VALID) > 0, h, w,
+                             kw.get("row0", 0))
+        if kind == "visibility":
+            # One pass over every listed face (K1's z pass).
+            ops = lists @ _tile_sums(torch.ones((h, w), dtype=torch.bool,
+                                                device=fdata.device))
+        else:
+            # K7 stops at its claimer: one visit where a face claims the
+            # pixel, the tile's whole list where none does.
+            claimed = out >= 0
+            ops = claimed.double().sum() + lists @ _tile_sums(~claimed)
+    elif kind == "stencil":
+        h, w = zb_sign.shape
         qi = args[1]
         ops = _tile_counts(qi[:, 0:4], qi[:, 5] > 0, h, w) @ _tile_sums(fg)
-    elif case == "lines":
+    elif kind == "lines":
+        h, w = zb_sign.shape
         rows = torch.arange(h, device=fg.device)[:, None]
         cols = torch.arange(w, device=fg.device)[None]
         inner = (rows > 0) & (rows < h - 1) & (cols > 0) & (cols < w - 1)
         ops = _tile_counts(args[1], args[2], h, w) @ _tile_sums(inner)
     else:
-        ops = fg.double().sum()
-    per = OPS_PER_VISIT.get(case, OPS_PER_PIXEL.get(case))
+        ops = _computed(case, args, kw)[0].double().sum()
+    per = OPS_PER_VISIT.get(kind, OPS_PER_PIXEL.get(
+        case.removesuffix("_owned")))
     ops = float(ops) * per
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
@@ -336,15 +459,58 @@ def _time_ms(fn, runs=5):
     return statistics.median(times)
 
 
+#: The port's kernels as the profiler names them (csrc/*.cu).
+_OUR_KERNEL = re.compile(r"::(visibility|tidpass|gbuffer|gbuffer_slim|sample|"
+                         r"stencil|lines)_kernel[<(]")
+
+
+def _alone_ms(fn, runs=3):
+    """Device time per call of the port's kernels that ``fn`` launches,
+    without the wrapper's torch ops (binning, allocation): a profile of
+    ``runs`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and _OUR_KERNEL.search(e.name)) / 1e3 / runs
+
+
+def _same(a, b):
+    """Equal values (NaN where the other is NaN), shapes and types; None
+    only against None."""
+    import torch
+
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, tuple):
+        return all(_same(x, y) for x, y in zip(a, b))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+#: Cases held to their plain version exactly: K5, K6 and every sharded
+#: mode.
+EXACT = ("visibility_z", "tidpass", "gbuffer_owned", "sample_textures_owned",
+         "gbuffer_slim_gouraud_owned", "gbuffer_slim_pbr_owned")
+
+
 def _compare(name, got, ref):
     """(max_abs_err, verdict) against the kernel's stated tolerance; raises
     on disagreement."""
     import torch
 
-    if wrapper_of(name) in ("gbuffer_slim", "lines"):
-        if not torch.equal(got, ref):
-            err = (got.double() - ref.double()).abs().nan_to_num(0.0).max()
-            raise AssertionError(f"{name}: differs, max abs err {err.item()}")
+    if name in EXACT or wrapper_of(name) in ("gbuffer_slim", "lines"):
+        if not _same(got, ref):
+            raise AssertionError(f"{name}: differs from its plain version")
         return 0.0, "exact"
     if name == "visibility":
         (zk, tk), (zp, tp) = got, ref
@@ -406,7 +572,7 @@ def _profile(scene, n_frames=5):
     kernels = {n: sum(v for k, v in device.items()
                       if f"::{n}_kernel(" in k or f"::{n}_kernel<" in k)
                for n in ("visibility", "gbuffer", "sample", "stencil",
-                         "gbuffer_slim", "lines")}
+                         "gbuffer_slim", "lines", "tidpass")}
     kernels = {k: v for k, v in kernels.items() if v > 0}
     r = lambda d: {k[:60]: round(v, 4) for k, v in d}
     return {"wall": wall_ms, "busy": busy, "busy_share": busy / wall_ms,
@@ -427,6 +593,16 @@ SOURCES = {
                      "tpu_renderer/ops/raster_pallas.py:1294"),
     "lines": ("tpu_renderer_torch/csrc/lines.cu",
               "tpu_renderer/ops/raster_pallas.py:2561"),
+    "tidpass": ("tpu_renderer_torch/csrc/tidpass.cu",
+                "tpu_renderer/ops/raster_pallas.py:2676"),
+}
+#: The TPU kernel a sharded mode replaces, where its wrapper's differs.
+REPLACES = {
+    "visibility_z": "tpu_renderer/ops/raster_pallas.py:602",
+    "gbuffer_owned": "tpu_renderer/ops/raster_pallas.py:2776",
+    "gbuffer_slim_gouraud_owned": "tpu_renderer/ops/raster_pallas.py:2776",
+    "gbuffer_slim_pbr_owned": "tpu_renderer/ops/raster_pallas.py:2776",
+    "sample_textures_owned": "tpu_renderer/ops/raster_pallas.py:2262",
 }
 
 #: The kernels each render path launches (flagship frame, shadows on).
@@ -434,6 +610,9 @@ PATH_KERNELS = {
     "general": ("visibility", "gbuffer", "sample_textures", "stencil"),
     "slim": ("visibility", "gbuffer_slim", "stencil"),
     "wireframe": ("visibility", "gbuffer_slim", "stencil", "lines"),
+    "sharded": ("visibility_z", "tidpass", "gbuffer", "sample_textures",
+                "stencil"),
+    "sharded_slim": ("visibility_z", "tidpass", "gbuffer_slim", "stencil"),
 }
 
 
@@ -485,6 +664,214 @@ def _orbit_ms(scene, n_frames):
     return (time.perf_counter() - t0) / n_frames * 1e3
 
 
+#: Phase 6's renders, (shader, (n_rows, n_tris)), by world size: one spawn
+#: of ranks each. Frames timed per render, and seconds a spawn may take
+#: before its ranks are killed.
+SHARDED_RUNS = {2: (("general", (1, 2)), ("gouraud", (1, 2)),
+                    ("pbr", (1, 2))),
+                4: (("general", (2, 2)),)}
+SHARD_FRAMES = 5
+RANK_DEADLINE = 300
+
+
+def one_device_ids(cfg, n_tris, chunk=8):
+    """The one-device face index of each shard-major global id (-1 for the
+    faces sharding pads in): ids count a shard's slice of each model in
+    model order, models padded as parallel.sharded.pad_models_for_tris."""
+    padded = [mc.num_faces for mc in cfg.models]
+    per_shard = [(p + (-p) % (n_tris * chunk)) // n_tris if n_tris > 1
+                 else p for p in padded]
+    base = np.cumsum([0] + padded[:-1])
+    table = [np.where(f < p, b + f, -1)
+             for s in range(n_tris)
+             for p, b, n in zip(padded, base, per_shard)
+             for f in [s * n + np.arange(n)]]
+    return np.concatenate(table)
+
+
+def _merge_share(render, n_frames=2):
+    """A CPU profile of ``n_frames`` renders: traced ms per frame and the
+    host time of each ``tr.merge_*`` range per frame (a collective's range
+    includes its wait for the slowest rank)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_frames):
+            render()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_frames
+    merges = {}
+    for e in prof.events():
+        if e.name.startswith("tr.merge_"):
+            key = e.name[len("tr.merge_"):]
+            merges[key] = (merges.get(key, 0.0)
+                           + e.time_range.elapsed_us() / 1e3 / n_frames)
+    return {"traced_ms": wall, "merge_ms": merges,
+            "merge_share": sum(merges.values()) / wall}
+
+
+def _sharded_rank(rank, world, tmp, runs):
+    """One rank of phase 6: for each run, the sharded frame through the
+    kernels (launch counts reset just before it, read just after) and
+    through the plain versions, then SHARD_FRAMES timed frames and a
+    profile. Rank 0 saves each frame's buffers; every rank its report."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import tpu_renderer_torch as tr
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=RANK_DEADLINE))
+    try:
+        scene = build_flagship(tr, "cuda")
+        report = {}
+        for shader, (n_rows, n_tris) in runs:
+            scene.shader = shader
+            cfg, dyn = scene._prepare()
+            mesh = tr.make_render_mesh(n_tris, "cuda")
+            render = lambda ops=rc.KERNELS: tr.render_frame_sharded(
+                cfg, dyn, mesh, ops)
+            rc.reset_launches()
+            out = render()
+            torch.cuda.synchronize()
+            launches = dict(rc.LAUNCHES)
+            plain = render(rc.PLAIN)
+            differ = [n for n, a, b in zip(("frame", "zbuf", "tid",
+                                            "stencil"), out, plain)
+                      if not _same(a, b)]
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(SHARD_FRAMES):
+                render()
+            torch.cuda.synchronize()
+            dist.barrier()
+            ms = (time.perf_counter() - t0) / SHARD_FRAMES * 1e3
+            key = f"{shader}_{n_rows}x{n_tris}"
+            report[key] = {
+                "launches": launches, "ms": ms,
+                "row0": mesh.get_local_rank("rows") * (cfg.resolution[0]
+                                                       // n_rows),
+                "plain_differs": differ, **_merge_share(render)}
+            if rank == 0:
+                np.savez(os.path.join(tmp, key),
+                         *[t.cpu().numpy() for t in out])
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(world, tmp, runs):
+    """Phase 6's ranks; a rank's exception fails the phase, and ranks still
+    running after RANK_DEADLINE seconds are killed and fail it."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.spawn(_sharded_rank, args=(world, tmp, runs), nprocs=world,
+                   join=False)
+    deadline = time.monotonic() + RANK_DEADLINE
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{world} ranks still running after "
+                                     f"{RANK_DEADLINE} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def _sharded_phase(scene, start, records):
+    """Phase 6: every SHARDED_RUNS render against the one-device frame of
+    ``scene`` at the camera ``start`` and against its plain-path render;
+    puts the SHARD_RANK rank's launches into the sharded modes' records."""
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        for world, runs in SHARDED_RUNS.items():
+            sub = os.path.join(tmp, f"world{world}")
+            os.makedirs(sub)
+            _spawn_ranks(world, sub, runs)
+            reports = []
+            for r in range(world):
+                with open(os.path.join(sub, f"rank{r}.json")) as f:
+                    reports.append(json.load(f))
+            for shader, shape in runs:
+                key = f"{shader}_{shape[0]}x{shape[1]}"
+                saved = np.load(os.path.join(sub, f"{key}.npz"))
+                frame, zbuf, tid, stencil = (saved[f"arr_{i}"]
+                                             for i in range(4))
+                scene.shader = shader
+                scene.camera.set_position(start)
+                want = scene.render()
+                torch.cuda.synchronize()
+                cfg, _ = scene._prepare()
+                ids = one_device_ids(cfg, shape[1])
+                tid = np.where(tid >= 0, ids[np.maximum(tid, 0)], -1)
+                tid_match = float((tid == scene.last_tid.cpu().numpy()).mean())
+                frame_match = float((frame == want).all(-1).mean())
+                st_equal = np.array_equal(stencil,
+                                          scene.last_stencil.cpu().numpy())
+                zb_close = np.allclose(zbuf, scene.last_zbuf.cpu().numpy(),
+                                       rtol=1e-6, atol=0)
+                if not (tid_match >= 0.999 and frame_match >= 0.999
+                        and st_equal and zb_close):
+                    raise AssertionError(
+                        f"sharded {key} vs one device: tid {tid_match}, "
+                        f"frame {frame_match}, stencil equal {st_equal}, "
+                        f"zbuf close {zb_close}")
+                path = PATH_KERNELS["sharded" if shader == "general"
+                                    else "sharded_slim"]
+                for r, rep in enumerate(reports):
+                    got = rep[key]
+                    if (min(got["launches"][k] for k in path) < 1
+                            or got["plain_differs"]):
+                        raise AssertionError(f"sharded {key}, rank {r}: {got}")
+                row0s = [rep[key]["row0"] for rep in reports]
+                if shape[0] > 1 and max(row0s) == 0:
+                    raise AssertionError(f"sharded {key}: no rank at row0 > 0")
+                lead = reports[0][key]
+                if shape == SHARD_RANK[0]:
+                    row_idx, tris_idx = SHARD_RANK[1]
+                    launched = reports[row_idx * shape[1]
+                                       + tris_idx][key]["launches"]
+                    if shader == "general":
+                        for case, k in (("visibility_z", "visibility_z"),
+                                        ("tidpass", "tidpass"),
+                                        ("gbuffer_owned", "gbuffer"),
+                                        ("sample_textures_owned",
+                                         "sample_textures")):
+                            records[case]["launches"] = launched[k]
+                    else:
+                        records[f"gbuffer_slim_{shader}_owned"]["launches"] = \
+                            launched["gbuffer_slim"]
+                merge = {k: round(v, 3) for k, v in lead["merge_ms"].items()}
+                counts = [{k: rep[key]["launches"][k] for k in path}
+                          for rep in reports]
+                print(f"[6 sharded {key}] {world} ranks on one card: vs one "
+                      f"device tid {tid_match:.6f} (ids mapped), frame "
+                      f"{frame_match:.6f}, stencil equal, zbuf rtol 1e-6; frame, "
+                      f"zbuf, tid and stencil equal to the plain path on "
+                      f"every rank; launches per rank {counts}; "
+                      f"row0 per rank {row0s}; rank 0: {lead['ms']:.2f} "
+                      f"ms/frame (host clock, {SHARD_FRAMES} frames after a "
+                      f"barrier), traced {lead['traced_ms']:.2f} ms/frame of "
+                      f"which merges {lead['merge_share']:.3f} {merge}. The "
+                      f"ranks share one card and gloo stages each collective "
+                      f"through host memory: not a multi-card figure.",
+                      flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -520,26 +907,29 @@ def main():
     start = scene.camera.position.copy()
     inputs, zb_sign = kernel_inputs(scene)
     records = {}
-    for name, args in inputs.items():
+    for name, (args, kw) in inputs.items():
         kern = getattr(rc, wrapper_of(name))
         plain = getattr(rc, f"{wrapper_of(name)}_plain")
-        got = kern(*args)
+        got = kern(*args, **kw)
         torch.cuda.synchronize()
-        ref = plain(*args)
+        ref = plain(*args, **kw)
         err, verdict = _compare(name, got, ref)
-        ms = _time_ms(lambda: kern(*args))
-        plain_ms = _time_ms(lambda: plain(*args), runs=3)
-        bound_ms, bound_by, nbytes, ops = bound(name, args, got, zb_sign)
-        records[name] = {"name": name, "route": "cuda",
-                         "source": SOURCES[wrapper_of(name)][0],
-                         "replaces": SOURCES[wrapper_of(name)][1],
-                         "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None}
-        print(f"[3 kernel] {name}: {verdict}; max_abs_err {err:.3g}; "
-              f"kernel {ms:.4f} ms (its wrapper, binning included), plain "
-              f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} Mop)", flush=True)
+        ms = _time_ms(lambda: kern(*args, **kw))
+        alone = _alone_ms(lambda: kern(*args, **kw))
+        plain_ms = _time_ms(lambda: plain(*args, **kw), runs=3)
+        bound_ms, bound_by, nbytes, ops = bound(name, args, kw, got, zb_sign)
+        source, replaces = SOURCES[wrapper_of(name)]
+        records[name] = {"name": name, "route": "cuda", "source": source,
+                         "replaces": REPLACES.get(name, replaces),
+                         "launches": None, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None}
+        mode = f" {kw}" if kw else ""
+        print(f"[3 kernel] {name}{mode}: {verdict}; max_abs_err {err:.3g}; "
+              f"kernel {ms:.4f} ms (its wrapper, binning included), alone "
+              f"{alone:.4f} ms, plain {plain_ms:.2f} ms; bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e6:.2f} Mop)", flush=True)
     del inputs
 
     # 4. end to end through Scene.render()
@@ -627,6 +1017,10 @@ def main():
               f"{prof['wall']:.2f}, device busy {prof['busy']:.3f} ms/frame;"
               f" leading host stages {lead}; kernels {prof['kernels']}",
               flush=True)
+
+    # 6. sharded frames on meshes of ranks that share the card
+    scene.skybox = None
+    _sharded_phase(scene, start, records)
 
     unread = [n for n, r in records.items() if not r["launches"]]
     if unread:

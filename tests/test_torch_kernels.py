@@ -10,7 +10,10 @@ This file imports no JAX, so it also runs on the card's host:
 - on a CUDA card (marker ``cuda``, skipped elsewhere) each kernel (K5 in
   its three layouts) is bit-identical to its plain version on the same
   tensors, and a Scene rendered on the card matches the CPU render under
-  every shader.
+  every shader;
+- the same holds for the sharded modes, on the inputs of rank (1, 1) of a
+  2x2 (rows, tris) mesh (``chip_smoke.shard_inputs``, at a row0 > 0): K1 z
+  only, K7, the owned ranges of K2, K5 and K3, and K4.
 
 ``build_scene`` is the shared procedural test scene: test_torch_slice.py
 and test_torch_modules.py build the same scene in the JAX package.
@@ -22,6 +25,8 @@ import torch
 import tpu_renderer_torch as tt
 from tpu_renderer_torch.models import gizmos as gz_torch
 from tpu_renderer_torch.ops import raster_cuda as rc
+
+from chip_smoke import shard_inputs
 
 RES = (64, 128)
 
@@ -36,7 +41,7 @@ def textures(seed=0):
     return q(rng.random((16, 16, 3))), nm, q(rng.random((32, 48, 3)))
 
 
-def build_scene(pkg, gizmos, **scene_kw):
+def build_scene(pkg, gizmos, resolution=RES, **scene_kw):
     """The cube-over-floor scene in either package (``pkg`` is
     tpu_renderer or tpu_renderer_torch)."""
     cube_kd, cube_nm, floor_kd = textures()
@@ -52,25 +57,45 @@ def build_scene(pkg, gizmos, **scene_kw):
                    backface_culling=True),
         pkg.Light((3, 4, 2), light_type=pkg.Lightning.POINT_LIGHTNING,
                   ambient_strength=0.1),
-        shadows=True, resolution=RES, system=pkg.SYSTEM.LH,
+        shadows=True, resolution=resolution, system=pkg.SYSTEM.LH,
         subsystem=pkg.SUBSYSTEM.OPENGL, **scene_kw)
     scene.add_model(cube)
     scene.add_model(floor)
     return scene
 
 
-#: Kernel cases: case id -> wrapper name in raster_cuda (K5 once per layout).
-CASES = {"visibility": "visibility", "gbuffer": "gbuffer",
-         "sample_textures": "sample_textures", "stencil": "stencil",
-         "gbuffer_slim-flat": "gbuffer_slim",
-         "gbuffer_slim-gouraud": "gbuffer_slim",
-         "gbuffer_slim-pbr": "gbuffer_slim", "lines": "lines"}
+#: Kernel cases: case id -> (wrapper name in raster_cuda, the LAUNCHES key
+#: its launch counts under); K5 once per layout, and the sharded modes.
+CASES = {"visibility": ("visibility", "visibility"),
+         "gbuffer": ("gbuffer", "gbuffer"),
+         "sample_textures": ("sample_textures", "sample_textures"),
+         "stencil": ("stencil", "stencil"),
+         "gbuffer_slim-flat": ("gbuffer_slim", "gbuffer_slim"),
+         "gbuffer_slim-gouraud": ("gbuffer_slim", "gbuffer_slim"),
+         "gbuffer_slim-pbr": ("gbuffer_slim", "gbuffer_slim"),
+         "lines": ("lines", "lines"),
+         "visibility_z-shard": ("visibility", "visibility_z"),
+         "tidpass-shard": ("tidpass", "tidpass"),
+         "gbuffer-owned": ("gbuffer", "gbuffer"),
+         "gbuffer_slim-gouraud-owned": ("gbuffer_slim", "gbuffer_slim"),
+         "gbuffer_slim-pbr-owned": ("gbuffer_slim", "gbuffer_slim"),
+         "sample_textures-owned": ("sample_textures", "sample_textures"),
+         "stencil-row0": ("stencil", "stencil")}
+
+
+#: chip_smoke.shard_inputs' case names -> the sharded cases' ids here.
+SHARD_CASES = {"visibility_z": "visibility_z-shard",
+               "tidpass": "tidpass-shard",
+               "gbuffer_owned": "gbuffer-owned",
+               "gbuffer_slim_gouraud_owned": "gbuffer_slim-gouraud-owned",
+               "gbuffer_slim_pbr_owned": "gbuffer_slim-pbr-owned",
+               "sample_textures_owned": "sample_textures-owned"}
 
 
 @pytest.fixture(scope="module")
 def stage_inputs():
     """The kernels' inputs for the test_torch_slice scene (CPU), keyed by
-    case id."""
+    case id, as (args, kwargs)."""
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops.shadow import prepare_quads
 
@@ -100,38 +125,48 @@ def stage_inputs():
     for layout in rc.SLIM_CHANNELS:
         inputs[f"gbuffer_slim-{layout}"] = (
             fdata, rc.pack_slim_attrs(attrs, layout), tid, layout)
+    inputs = {case: (args, {}) for case, args in inputs.items()}
+    shard = shard_inputs(cfg, dyn, zb, mesh=(2, 2), at=(1, 1))
+    for case, args_kw in shard.items():
+        inputs[SHARD_CASES[case]] = args_kw
+    (_, _, zb_rows, _), kw = shard["tidpass"]
+    inputs["stencil-row0"] = ((qdata, qi, zb_rows, cfg.system, *zc),
+                              {"row0": kw["row0"]})
     return inputs
 
 
 def _equal(a, b):
+    if a is None or b is None:
+        return a is b
     if isinstance(a, tuple):
         return all(_equal(x, y) for x, y in zip(a, b))
     return torch.equal(a, b)
 
 
 def test_cases_cover_every_wrapper():
-    assert set(CASES.values()) == set(rc.LAUNCHES)
+    assert {key for _, key in CASES.values()} == set(rc.LAUNCHES)
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_wrapper_on_cpu_runs_plain_version(stage_inputs, name):
     rc.reset_launches()
-    args = stage_inputs[name]
-    fn = CASES[name]
-    got = getattr(rc, fn)(*args)
-    want = getattr(rc, f"{fn}_plain")(*args)
+    args, kw = stage_inputs[name]
+    fn, key = CASES[name]
+    got = getattr(rc, fn)(*args, **kw)
+    want = getattr(rc, f"{fn}_plain")(*args, **kw)
     assert _equal(got, want)
-    assert rc.LAUNCHES[fn] == 0
+    assert rc.LAUNCHES[key] == 0
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_wrapper_refuses_other_devices(stage_inputs, name):
     """No silent path: tensors on a device that is neither the CPU nor CUDA
     (here PyTorch's shape-only 'meta' device) raise."""
+    args, kw = stage_inputs[name]
     args = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
-                 for a in stage_inputs[name])
+                 for a in args)
     with pytest.raises(RuntimeError):
-        getattr(rc, CASES[name])(*args)
+        getattr(rc, CASES[name][0])(*args, **kw)
 
 
 def test_stage_inputs_are_not_degenerate(stage_inputs):
@@ -139,10 +174,26 @@ def test_stage_inputs_are_not_degenerate(stage_inputs):
     of the scene (edges of faces behind the visible surface pass the LH
     z test)."""
     for layout in rc.SLIM_CHANNELS:
-        gb = rc.gbuffer_slim(*stage_inputs[f"gbuffer_slim-{layout}"])
+        gb = rc.gbuffer_slim(*stage_inputs[f"gbuffer_slim-{layout}"][0])
         assert gb.shape == (rc.SLIM_CHANNELS[layout], *RES)
         assert (gb != 0).any()
-    assert rc.lines(*stage_inputs["lines"]).sum() > 0
+    assert rc.lines(*stage_inputs["lines"][0]).sum() > 0
+
+
+def test_shard_inputs_are_not_degenerate(stage_inputs):
+    """The sharded cases' shard owns some foreground of its block of rows,
+    the other shard owns some too, its owned planes are zero elsewhere, and
+    its quads shadow some of its rows."""
+    call = lambda name, fn: fn(*stage_inputs[name][0], **stage_inputs[name][1])
+    (fdata, _, tid), kw = stage_inputs["gbuffer-owned"]
+    own = (tid >= kw["gid0"]) & (tid < kw["gid0"] + fdata.shape[0])
+    assert kw["row0"] > 0 and kw["gid0"] > 0
+    assert own.any() and ((tid >= 0) & ~own).any()
+    gb = call("gbuffer-owned", rc.gbuffer)
+    assert (gb[:, own] != 0).any() and (gb[:, ~own] == 0).all()
+    samp, mask = call("sample_textures-owned", rc.sample_textures)
+    assert (mask[own] != 0).any() and (mask[~own] == 0).all()
+    assert (call("stencil-row0", rc.stencil) != 0).any()
 
 
 def test_tile_bins_list_every_overlap_in_order():
@@ -170,8 +221,9 @@ def test_tile_bins_list_every_overlap_in_order():
 def cuda_inputs(stage_inputs):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the card)")
-    return {name: tuple(a.cuda() if isinstance(a, torch.Tensor) else a
-                        for a in args) for name, args in stage_inputs.items()}
+    return {name: (tuple(a.cuda() if isinstance(a, torch.Tensor) else a
+                         for a in args), kw)
+            for name, (args, kw) in stage_inputs.items()}
 
 
 @pytest.mark.cuda
@@ -180,12 +232,12 @@ def test_kernel_matches_plain_on_card(cuda_inputs, name):
     """The hand-written kernel against its plain version on the same CUDA
     tensors: bit-identical (both round op by op)."""
     rc.reset_launches()
-    args = cuda_inputs[name]
-    fn = CASES[name]
-    got = getattr(rc, fn)(*args)
+    args, kw = cuda_inputs[name]
+    fn, key = CASES[name]
+    got = getattr(rc, fn)(*args, **kw)
     torch.cuda.synchronize()
-    assert rc.LAUNCHES[fn] == 1
-    want = getattr(rc, f"{fn}_plain")(*args)
+    assert rc.LAUNCHES[key] == 1
+    want = getattr(rc, f"{fn}_plain")(*args, **kw)
     assert _equal(got, want)
 
 

@@ -32,7 +32,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, tpu_renderer_torch, tpu_renderer_torch.interop, "
-            "tpu_renderer_torch.ops.pipeline, tpu_renderer_torch.ops.cubemap\n"
+            "tpu_renderer_torch.ops.pipeline, tpu_renderer_torch.ops.cubemap, "
+            "tpu_renderer_torch.parallel.mesh, "
+            "tpu_renderer_torch.parallel.sharded\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'tpu_renderer.')) or m == 'tpu_renderer']\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

@@ -2,12 +2,14 @@
 
 The JAX package ``tpu_renderer`` is the reference this port is held to.
 This package imports torch and numpy, never JAX and never ``tpu_renderer``.
-It renders on one device: textured, normal-mapped, shadowed scenes with the
-general Blinn-Phong shader, the flat, gouraud, PBR, wireframe and points
-shaders, over a color or a cubemap skybox (``CubeMap``). On a CUDA device
-(the default) it runs six hand-written CUDA kernels (``ops/raster_cuda.py``,
+It renders textured, normal-mapped, shadowed scenes with the general
+Blinn-Phong shader, the flat, gouraud, PBR, wireframe and points shaders,
+over a color or a cubemap skybox (``CubeMap``). On a CUDA device (the
+default) it runs seven hand-written CUDA kernels (``ops/raster_cuda.py``,
 sources in ``csrc/``, built at first use); with ``device="cpu"`` it runs
-their plain PyTorch versions.
+their plain PyTorch versions. ``render_frame_sharded`` splits one frame
+over a ``(rows, tris)`` mesh of torch.distributed ranks
+(``make_render_mesh``).
 
     import tpu_renderer_torch as tr
     from tpu_renderer_torch.models.gizmos import make_floor
@@ -47,13 +49,16 @@ from tpu_renderer_torch.ops.pipeline import (SHADER_FLAT,  # noqa: E402
                                              SHADER_WIREFRAME)
 from tpu_renderer_torch.ops.transforms import (rotate, rotate_xyz,  # noqa: E402
                                                scale, translation)
+from tpu_renderer_torch.parallel.mesh import make_render_mesh  # noqa: E402
+from tpu_renderer_torch.parallel.sharded import (  # noqa: E402
+    render_frame_sharded)
 
 __all__ = [
     "Model", "Camera", "Light", "Scene", "CubeMap", "Lightning", "Errors",
     "scale", "translation", "rotate", "rotate_xyz",
     "SYSTEM", "SUBSYSTEM", "PROJECTION_TYPE", "SHADER_GENERAL", "SHADER_FLAT",
     "SHADER_GOURAUD", "SHADER_PBR", "SHADER_WIREFRAME", "SHADER_POINTS",
-    "constants",
+    "constants", "make_render_mesh", "render_frame_sharded",
 ]
 
 __version__ = "0.1.0"

@@ -11,6 +11,13 @@
 // _gb_interp_face's expressions term for term. Background pixels get zero,
 // as the Pallas kernel's zero-filled blocks do.
 //
+// Owned range (gbuffer_pallas, raster_pallas.py:2776): a triangle shard holds
+// the faces with global ids [gid0, gid0 + g_local) and writes only the
+// pixels whose merged tid lies in that range (face tid - gid0); every other
+// pixel is zero, so the shards' partial buffers SUM to the whole one. Rows
+// start at row0, in global pixel coordinates. One device: gid0 = 0,
+// g_local = G, row0 = 0.
+//
 // What bounds it on the H100: memory — 128 bytes of output per pixel
 // (32 MiB at 1024^2) against ~100 flops; the face rows (76 floats) are
 // gathered per pixel but neighbouring pixels share faces, so they hit L1/L2.
@@ -26,21 +33,22 @@ namespace {
 __global__ void gbuffer_kernel(const float* __restrict__ fdata,
                                const float* __restrict__ adata,
                                const int* __restrict__ tid, int height,
-                               int width, float* __restrict__ gb) {
+                               int width, int row0, int gid0, int g_local,
+                               float* __restrict__ gb) {
     const int row = blockIdx.y * TILE + threadIdx.y;
     const int col = blockIdx.x * TILE + threadIdx.x;
     if (row >= height || col >= width) return;
     const size_t plane = (size_t)height * width;
     const size_t p = (size_t)row * width + col;
-    const int t = tid[p];
+    const int t = tid[p] - gid0;
     float out[GB_CHANNELS];
-    if (t < 0) {
+    if (t < 0 || t >= g_local) {
         for (int ch = 0; ch < GB_CHANNELS; ++ch) gb[ch * plane + p] = 0.0f;
         return;
     }
     const float* f = fdata + (size_t)t * F_COLS;
     const float* a = adata + (size_t)t * A_COLS;
-    const float r = static_cast<float>(row);
+    const float r = static_cast<float>(row0 + row);
     const float c = static_cast<float>(col);
 
     const float v = f[0] * c + f[1] * r + f[2];
@@ -96,11 +104,12 @@ __global__ void gbuffer_kernel(const float* __restrict__ fdata,
 }  // namespace
 
 TR_EXPORT int tr_gbuffer(const float* fdata, const float* adata,
-                         const int* tid, int height, int width,
-                         float* gbuffer, void* stream) {
+                         const int* tid, int height, int width, int row0,
+                         int gid0, int g_local, float* gbuffer,
+                         void* stream) {
     const dim3 block(TILE, TILE);
     const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE);
     gbuffer_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        fdata, adata, tid, height, width, gbuffer);
+        fdata, adata, tid, height, width, row0, gid0, g_local, gbuffer);
     return (int)cudaGetLastError();
 }

@@ -13,6 +13,9 @@
 //           reference's gouraud and pbr shaders use ``bar``;
 //   pbr     (23 -> 11): that normal, interpolated (sx, sy, z_lin), Pm, Pr, Ka.
 // Background pixels get zero, as the Pallas kernel's zero-filled blocks do.
+// A triangle shard writes only the pixels its own faces won, ids in
+// [gid0, gid0 + g_local), and zero elsewhere, rows from row0 in global
+// coordinates (gbuffer_pallas; see gbuffer.cu).
 //
 // What bounds it on the H100: memory — 12 or 44 bytes written per pixel
 // (12.6 or 46 MB at 1024^2) against at most ~60 flops; the face rows are
@@ -34,7 +37,8 @@ template <int LAYOUT>
 __global__ void gbuffer_slim_kernel(const float* __restrict__ fdata,
                                     const float* __restrict__ sdata,
                                     const int* __restrict__ tid, int height,
-                                    int width, float* __restrict__ gb) {
+                                    int width, int row0, int gid0,
+                                    int g_local, float* __restrict__ gb) {
     constexpr int NCH = LAYOUT == SLIM_PBR ? 11 : 3;
     constexpr int SCOLS =
         LAYOUT == SLIM_FLAT ? 3 : (LAYOUT == SLIM_GOURAUD ? 9 : 23);
@@ -43,8 +47,8 @@ __global__ void gbuffer_slim_kernel(const float* __restrict__ fdata,
     if (row >= height || col >= width) return;
     const size_t plane = (size_t)height * width;
     const size_t p = (size_t)row * width + col;
-    const int t = tid[p];
-    if (t < 0) {
+    const int t = tid[p] - gid0;
+    if (t < 0 || t >= g_local) {
         for (int ch = 0; ch < NCH; ++ch) gb[ch * plane + p] = 0.0f;
         return;
     }
@@ -54,7 +58,7 @@ __global__ void gbuffer_slim_kernel(const float* __restrict__ fdata,
         for (int ci = 0; ci < 3; ++ci) out[ci] = s[ci];
     } else {
         const float* f = fdata + (size_t)t * F_COLS;
-        const float r = static_cast<float>(row);
+        const float r = static_cast<float>(row0 + row);
         const float c = static_cast<float>(col);
         const float v = f[0] * c + f[1] * r + f[2];
         const float w = f[3] * c + f[4] * r + f[5];
@@ -80,22 +84,26 @@ __global__ void gbuffer_slim_kernel(const float* __restrict__ fdata,
 
 TR_EXPORT int tr_gbuffer_slim(const float* fdata, const float* sdata,
                               const int* tid, int layout, int height,
-                              int width, float* gbuffer, void* stream) {
+                              int width, int row0, int gid0, int g_local,
+                              float* gbuffer, void* stream) {
     const dim3 block(TILE, TILE);
     const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE);
     cudaStream_t st = (cudaStream_t)stream;
     switch (layout) {
         case SLIM_FLAT:
             gbuffer_slim_kernel<SLIM_FLAT><<<grid, block, 0, st>>>(
-                fdata, sdata, tid, height, width, gbuffer);
+                fdata, sdata, tid, height, width, row0, gid0, g_local,
+                gbuffer);
             break;
         case SLIM_GOURAUD:
             gbuffer_slim_kernel<SLIM_GOURAUD><<<grid, block, 0, st>>>(
-                fdata, sdata, tid, height, width, gbuffer);
+                fdata, sdata, tid, height, width, row0, gid0, g_local,
+                gbuffer);
             break;
         case SLIM_PBR:
             gbuffer_slim_kernel<SLIM_PBR><<<grid, block, 0, st>>>(
-                fdata, sdata, tid, height, width, gbuffer);
+                fdata, sdata, tid, height, width, row0, gid0, g_local,
+                gbuffer);
             break;
         default:
             return (int)cudaErrorInvalidValue;

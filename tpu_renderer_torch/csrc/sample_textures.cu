@@ -10,6 +10,11 @@
 // truncates toward zero, so the wrap is i - dim*floor(i/dim) in float), then
 // clamped into the texture (no read can leave it; NaN lands on 0). The
 // packed RGB texel lands in samp[k] and bit k in mask; other entries are 0.
+// A triangle shard samples only the pixels its own faces won, ids in
+// [gid0, gid0 + g_local) (ftex holds its faces' rows), so the shards'
+// partial samp and mask planes SUM to the whole ones
+// (sample_textures_pallas :2262, standalone form). One device: gid0 = 0,
+// g_local = G.
 //
 // What bounds it on the H100: the texel gathers — up to three random 4-byte
 // reads per pixel from a pool of a few tens of MiB, which sits in the 50 MB
@@ -38,14 +43,16 @@ __global__ void sample_kernel(const int* __restrict__ tid,
                               const int* __restrict__ slots,
                               const int* __restrict__ pool, int n_kinds,
                               int n_slots, int pool_size, int height,
-                              int width, int* __restrict__ samp,
+                              int width, int gid0, int g_local,
+                              int* __restrict__ samp,
                               int* __restrict__ mask_out) {
     const int row = blockIdx.y * TILE + threadIdx.y;
     const int col = blockIdx.x * TILE + threadIdx.x;
     if (row >= height || col >= width) return;
     const size_t plane = (size_t)height * width;
     const size_t p = (size_t)row * width + col;
-    const int t = tid[p];
+    const int t = tid[p] - gid0;
+    const bool owned = t >= 0 && t < g_local;
     int mask = 0;
     const float iu = iu_plane[p], iv = iv_plane[p];
     // torch.clamp(max=1) semantics: NaN stays NaN.
@@ -53,7 +60,7 @@ __global__ void sample_kernel(const int* __restrict__ tid,
     const float civ = (iv > 1.0f) ? 1.0f : iv;
     for (int k = 0; k < n_kinds; ++k) {
         int texel = 0;
-        if (t >= 0) {
+        if (owned) {
             const int* ft = ftex + ((size_t)t * n_kinds + k) * 3;
             const int slot = ft[0];
             if (slot >= 0 && slot < n_slots) {
@@ -81,11 +88,12 @@ TR_EXPORT int tr_sample_textures(const int* tid, const float* iu,
                                  const int* slots, const int* pool,
                                  int n_kinds, int n_slots,
                                  int pool_size, int height, int width,
-                                 int* samp, int* mask, void* stream) {
+                                 int gid0, int g_local, int* samp, int* mask,
+                                 void* stream) {
     const dim3 block(TILE, TILE);
     const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE);
     sample_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         tid, iu, iv, ftex, slots, pool, n_kinds, n_slots, pool_size, height,
-        width, samp, mask);
+        width, gid0, g_local, samp, mask);
     return (int)cudaGetLastError();
 }

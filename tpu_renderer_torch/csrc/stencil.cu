@@ -18,7 +18,9 @@
 // lists from torch (raster_cuda.tile_bins over the ok quads); a thread
 // leaves the edge loop at the first edge that fails and skips background
 // pixels outright. Op-by-op rounding (-fmad=false) keeps it bit-identical
-// to the plain version (shadow.quad_fragments).
+// to the plain version (shadow.quad_fragments). The rows start at row0 (a
+// block of frame rows, pixel math in global coordinates), and so do the
+// quads' tile lists.
 #include "common.cuh"
 
 namespace {
@@ -28,7 +30,8 @@ __global__ void stencil_kernel(const float* __restrict__ qdata,
                                const int* __restrict__ tile_off,
                                const int* __restrict__ tile_items,
                                const float* __restrict__ zb_sign, int height,
-                               int width, int tiles_x, float sign_nf2,
+                               int width, int tiles_x, int row0,
+                               float sign_nf2,
                                float fpn, float fmn, int* __restrict__ out) {
     const int row = blockIdx.y * TILE + threadIdx.y;
     const int col = blockIdx.x * TILE + threadIdx.x;
@@ -37,7 +40,7 @@ __global__ void stencil_kernel(const float* __restrict__ qdata,
     const float zb = zb_sign[p];
     int acc = 0;
     if (zb < 3e38f) {
-        const float r = static_cast<float>(row);
+        const float r = static_cast<float>(row0 + row);
         const float c = static_cast<float>(col);
         const int tile = blockIdx.y * tiles_x + blockIdx.x;
         for (int k = tile_off[tile]; k < tile_off[tile + 1]; ++k) {
@@ -69,12 +72,12 @@ __global__ void stencil_kernel(const float* __restrict__ qdata,
 TR_EXPORT int tr_stencil(const float* qdata, const int* qi,
                          const int* tile_off, const int* tile_items,
                          const float* zb_sign, int height,
-                         int width, int tiles_x, float sign_nf2, float fpn,
-                         float fmn, int* stencil, void* stream) {
+                         int width, int tiles_x, int row0, float sign_nf2,
+                         float fpn, float fmn, int* stencil, void* stream) {
     const dim3 block(TILE, TILE);
     const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE);
     stencil_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         qdata, qi, tile_off, tile_items, zb_sign, height, width, tiles_x,
-        sign_nf2, fpn, fmn, stencil);
+        row0, sign_nf2, fpn, fmn, stencil);
     return (int)cudaGetLastError();
 }

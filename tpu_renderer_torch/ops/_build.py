@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``tpu_renderer_torch/csrc/*.cu``).
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded through ``ctypes`` — no PyTorch headers, so a build takes
-seconds. The library is built at first use into ``tpu_renderer_torch/build/``
-(listed in ``.gitignore``) under a name that hashes the sources and flags, so
-an edited source rebuilds and an unchanged one is reused.
+Each source compiles with its own ``nvcc`` process, all started together,
+and the objects link into one shared library with a plain C interface,
+loaded through ``ctypes`` — no PyTorch headers, so a build takes seconds. The
+library is built at first use into ``tpu_renderer_torch/build/`` (listed in
+``.gitignore``) under a name that hashes the sources and flags, so an edited
+source rebuilds and an unchanged one is reused.
 
 Flags: ``-fmad=false`` keeps nvcc from contracting ``a*b + c`` into a fused
 multiply-add. The kernels then round every product and sum separately, as
@@ -28,27 +29,31 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
 #: C signatures of the exported launchers (every one returns cudaError_t).
 _SIGNATURES = {
-    # fdata, flags, tile_off, tile_items, H, W, tiles_x, sign, zb_sign, tid,
-    # stream
-    "tr_visibility": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
-    # fdata, adata, tid, H, W, gbuffer, stream
-    "tr_gbuffer": [_P, _P, _P, _I, _I, _P, _P],
+    # fdata, flags, tile_off, tile_items, H, W, tiles_x, row0, sign,
+    # want_tid, zb_sign, tid, stream
+    "tr_visibility": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P],
+    # fdata, flags, tile_off, tile_items, zb_sign, H, W, tiles_x, row0, gid0,
+    # sign, tid, stream
+    "tr_tidpass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
+    # fdata, adata, tid, H, W, row0, gid0, g_local, gbuffer, stream
+    "tr_gbuffer": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # tid, iu, iv, ftex, slots, pool, n_kinds, n_slots, pool_size, H, W,
-    # samp, mask, stream
-    "tr_sample_textures": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _P, _P, _P],
-    # qdata, qi, tile_off, tile_items, zb_sign, H, W, tiles_x, sign_nf2, fpn,
-    # fmn, stencil, stream
-    "tr_stencil": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P],
-    # fdata, sdata, tid, layout, H, W, gbuffer, stream
-    "tr_gbuffer_slim": [_P, _P, _P, _I, _I, _I, _P, _P],
+    # gid0, g_local, samp, mask, stream
+    "tr_sample_textures": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _P, _P, _P],
+    # qdata, qi, tile_off, tile_items, zb_sign, H, W, tiles_x, row0,
+    # sign_nf2, fpn, fmn, stencil, stream
+    "tr_stencil": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
+    # fdata, sdata, tid, layout, H, W, row0, gid0, g_local, gbuffer, stream
+    "tr_gbuffer_slim": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # ldata, lbbox, tile_off, tile_items, zbuf, H, W, tiles_x, mask, stream
     "tr_lines": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
@@ -89,26 +94,50 @@ def _digest():
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands at once; returns the log of all of them, and raises
+    with it if one failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    log, failed = "", False
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log += " ".join(cmd) + "\n" + out
+        failed |= proc.returncode != 0
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    return log
+
+
 def build():
     """Compile the kernels unless an up-to-date library exists; returns its
-    path. Writes to a temporary name first, so a cut build leaves nothing
-    that looks complete."""
+    path. One nvcc per source runs at once, then one links the objects.
+    Everything is written under names of this process first, so a cut build
+    leaves nothing that looks complete."""
     out = os.path.join(BUILD_DIR, f"libtpu_renderer_kernels_{_digest()}.so")
     if os.path.exists(out):
         last_build.update(seconds=0.0, path=out)
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = nvcc_path()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                        for src, obj in zip(_sources(), objs)])
+        tmp = f"{out}.{tag}"
+        log += _run_all([[nvcc, *_ARCH, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)
     last_build.update(seconds=time.perf_counter() - t0, log=log, path=out)
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + log)
+        f.write(log)
     return out
 
 

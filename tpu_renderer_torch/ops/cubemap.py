@@ -134,9 +134,10 @@ def sample_cubemap_packed(packed, vectors):
     return torch.stack([r, g, b], dim=-1) / 255.0
 
 
-def _corner_barycentric(corners_xy, height, width, device):
+def _corner_barycentric(corners_xy, height, width, device, row0=0):
     """Screen barycentric of every pixel w.r.t. an int-cast NDC triangle
-    (cube_map.py:89's ``barycentric(*test[XY].astype(int), p)``).
+    (cube_map.py:89's ``barycentric(*test[XY].astype(int), p)``), for the
+    ``height`` frame rows from ``row0``.
 
     corners_xy: (3, 2) float32 host tensor. Returns (bar (H, W, 3),
     cover (H, W) bool) on ``device``.
@@ -153,7 +154,8 @@ def _corner_barycentric(corners_xy, height, width, device):
     ax, ay, v0x, v0y, v1x, v1y, d00, d01, d11, inv_denom = map(
         float, (ax, ay, v0x, v0y, v1x, v1y, d00, d01, d11, inv_denom))
     cols = torch.arange(width, dtype=torch.float32, device=device)[None, :]
-    rows = torch.arange(height, dtype=torch.float32, device=device)[:, None]
+    rows = torch.arange(row0, row0 + height, dtype=torch.float32,
+                        device=device)[:, None]
     v2x = cols - ax
     v2y = rows - ay
     d20 = v2x * v0x + v2y * v0y
@@ -165,8 +167,9 @@ def _corner_barycentric(corners_xy, height, width, device):
     return bar, (bar >= 0).all(dim=-1)
 
 
-def fill_frame_from_skybox(skybox, cam_host, resolution, device):
-    """Full-frame skybox background (reference cube_map.py:83-101).
+def fill_frame_from_skybox(skybox, cam_host, resolution, device, row0=0):
+    """Full-frame skybox background (reference cube_map.py:83-101), or the
+    block of ``resolution[0]`` frame rows from ``row0``.
 
     skybox: dict with ``packed`` (6, T, T) int32 texels on ``device``;
     cam_host: the camera matrices on the host
@@ -187,7 +190,8 @@ def fill_frame_from_skybox(skybox, cam_host, resolution, device):
     for i in range(2):
         face = torch.from_numpy(NDC_FACES[i])
         screen = matmul(face, cam_host["viewport"])
-        bar, cover = _corner_barycentric(screen[:, :2], height, width, device)
+        bar, cover = _corner_barycentric(screen[:, :2], height, width, device,
+                                         row0)
         rays = matmul(face, inv_vp)
         rays = (rays / rays[:, 3:4])[:, :3].to(device)
         dirs.append(bar[..., 0:1] * rays[0] + bar[..., 1:2] * rays[1]

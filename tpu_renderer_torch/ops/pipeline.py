@@ -20,6 +20,16 @@ path for the z-buffer, re-run the vertex stage over every face, and draw
 edges through K6 (``raster_cuda.lines``) or vertex splats through a
 scatter-max.
 
+Sharded (``parallel/sharded.py``, the JAX package's shard_map branches
+:688-852 and :878-924): ``render_core`` renders a block of rows from
+``row0`` on every path. With a triangle shard (``tris_group``) it runs
+
+    K1 z only -> MIN of zb -> K7 tidpass -> MAX of tid
+    -> K2 / K5 owned range -> SUM -> K3 owned range -> SUM of samp, mask
+    -> the shard's quads -> K4 -> SUM of stencil -> shade
+
+each merge under a ``tr.merge_<what>`` range (parallel/mesh.py).
+
 PyTorch runs eagerly, so there is no compiled program: ``SceneConfig``
 holds the static facts of a scene (resolution, handedness, per-model flags)
 and ``dyn`` the tensors. The kernels run where the tensors lie: on a CUDA
@@ -42,6 +52,7 @@ from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.shadow import _cross, prepare_quads
 from tpu_renderer_torch.ops.transforms import normalize
 from tpu_renderer_torch.ops.vertex import gather_faces, transform_vertices
+from tpu_renderer_torch.parallel.mesh import all_reduce
 
 __all__ = ["SceneConfig", "ModelConfig", "render_core", "render_frame",
            "render_debug_frame", "texture_tables", "SHADER_GENERAL",
@@ -203,13 +214,15 @@ def _light(cfg: SceneConfig, dyn):
     return light
 
 
-def _background(cfg: SceneConfig, dyn, cam_host, height, width, device):
-    """The frame's fill where no face won (pipeline._background :506): the
-    background color, or the cubemap skybox through the camera's rays."""
+def _background(cfg: SceneConfig, dyn, cam_host, height, width, device,
+                row0=0):
+    """The fill of ``height`` frame rows from ``row0`` where no face won
+    (pipeline._background :506): the background color, or the cubemap
+    skybox through the camera's rays."""
     if cfg.background == "color":
         return dyn["background_color"].expand(height, width, 3)
     return fill_frame_from_skybox(dyn["skybox"], cam_host, (height, width),
-                                  device)
+                                  device, row0)
 
 
 def _shade_gbuffer(cfg: SceneConfig, dyn, tid, stencil, gb, samp, samp_mask,
@@ -283,7 +296,8 @@ def _span(stage):
     return torch.profiler.record_function(f"tr.{stage}")
 
 
-def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS):
+def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS, *, local_height=None,
+                row0=0, tris_group=None, tris_idx=0):
     """Render the frame BEFORE flip/quantize, for the general, flat,
     gouraud or pbr shader.
 
@@ -292,8 +306,16 @@ def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS):
     ``raster_cuda.PLAIN`` runs the plain versions on any device — the oracle
     a kernel run is compared with. Returns (frame (H, W, 3) float32, zbuf,
     tid, stencil).
+
+    Sharded: the ``local_height`` frame rows from ``row0``; with a process
+    ``tris_group``, ``dyn`` is shard ``tris_idx`` of the faces
+    (parallel.sharded.shard_dyn) and the buffers merge over the group (see
+    the module docstring). Every rank of the group takes the same branches,
+    so all call the same collectives in the same order.
     """
     height, width = cfg.resolution
+    if local_height is None:
+        local_height = height
     sign = cfg.system
     device = dyn["light"]["position"].device
     slim = cfg.shader in SLIM_SHADERS
@@ -301,53 +323,78 @@ def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS):
         raise ValueError(f"render_core draws no {cfg.shader!r} frames "
                          "(render_debug_frame does)")
     cam_host = _cam_matrices(cfg, dyn["camera"], "cpu")
+    shape = (local_height, width)
     if not cfg.models:
         # Empty scene: background only (the reference renders its fill).
-        frame = _background(cfg, dyn, cam_host, height, width, device)
-        zbuf = torch.full((height, width), float("inf") * sign, device=device)
-        tid = torch.full((height, width), -1, dtype=torch.int32, device=device)
+        frame = _background(cfg, dyn, cam_host, *shape, device, row0)
+        zbuf = torch.full(shape, float("inf") * sign, device=device)
+        tid = torch.full(shape, -1, dtype=torch.int32, device=device)
         return frame, zbuf, tid, torch.zeros_like(tid)
     with _span("vertex"):
         cam_m = {k: v.to(device) for k, v in cam_host.items()}
         faces, attrs = _build_face_batch(cfg, dyn, cam_m)
         fdata = rc.pack_faces(faces)
         flags = rc.face_flags(faces)
+        # Global face ids are shard-major: gid0 + the local index
+        # (pipeline.py:236-237 of the JAX package).
+        gid0 = tris_idx * fdata.shape[0]
         if slim:
             sdata = rc.pack_slim_attrs(attrs, cfg.shader)
         else:
             adata = rc.pack_face_attrs(attrs)
-    with _span("visibility"):
-        zb_sign, tid = ops.visibility(fdata, flags, height, width, sign)
-    samp = samp_mask = None
-    if slim:
-        with _span("gbuffer"):
-            gb = ops.gbuffer_slim(fdata, sdata, tid, cfg.shader)
+    if tris_group is None:
+        with _span("visibility"):
+            zb_sign, tid = ops.visibility(fdata, flags, *shape, sign,
+                                          row0=row0)
     else:
-        with _span("gbuffer"):
-            gb = ops.gbuffer(fdata, adata, tid)
+        # A shard's own winners mean nothing before its z-buffer meets the
+        # others': z alone, MIN, then every shard claims against the merged
+        # buffer and the highest global id wins.
+        with _span("visibility"):
+            zb_sign, _ = ops.visibility(fdata, flags, *shape, sign, row0=row0,
+                                        want_tid=False)
+        zb_sign = all_reduce(zb_sign, "min", tris_group, "zb")
+        with _span("tidpass"):
+            tid = ops.tidpass(fdata, flags, zb_sign, sign, row0=row0,
+                              gid0=gid0)
+        tid = all_reduce(tid, "max", tris_group, "tid")
+    with _span("gbuffer"):
+        if slim:
+            gb = ops.gbuffer_slim(fdata, sdata, tid, cfg.shader, row0=row0,
+                                  gid0=gid0)
+        else:
+            gb = ops.gbuffer(fdata, adata, tid, row0=row0, gid0=gid0)
+    gb = all_reduce(gb, "sum", tris_group, "gbuffer")
+    samp = samp_mask = None
+    if not slim:
         with _span("sample_textures"):
             tables = texture_tables(cfg, dyn, attrs)
             if tables is not None:
                 samp, samp_mask = ops.sample_textures(
-                    tid, gb[rc.GB_IU], gb[rc.GB_IV], *tables)
+                    tid, gb[rc.GB_IU], gb[rc.GB_IV], *tables, gid0=gid0)
+        if tables is not None:
+            samp = all_reduce(samp, "sum", tris_group, "samples")
+            samp_mask = all_reduce(samp_mask, "sum", tris_group, "samples")
 
-    stencil = torch.zeros((height, width), dtype=torch.int32, device=device)
+    stencil = torch.zeros(shape, dtype=torch.int32, device=device)
     if cfg.shadows:
         # Computed for every shader and returned; the slim shaders do not
         # read it (pipeline.py:878-939 of the JAX package).
         with _span("shadow_quads"):
-            prepared = prepare_quads(cfg, dyn, cam_m)
+            prepared = prepare_quads(cfg, dyn, cam_m, tris_group, tris_idx)
             if prepared is not None:
                 qdata, qi = rc.pack_quads(*prepared, height, width)
         if prepared is not None:
             zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])
             with _span("stencil"):
-                stencil = ops.stencil(qdata, qi, zb_sign, sign, *zc)
+                stencil = ops.stencil(qdata, qi, zb_sign, sign, *zc,
+                                      row0=row0)
+            stencil = all_reduce(stencil, "sum", tris_group, "stencil")
 
     with _span("shade"):
         cam_pos = torch.as_tensor(dyn["camera"]["position"],
                                   dtype=torch.float32, device=device)
-        background = _background(cfg, dyn, cam_host, height, width, device)
+        background = _background(cfg, dyn, cam_host, *shape, device, row0)
         if slim:
             frame = _shade_slim(cfg, dyn, tid, gb, cam_pos, background)
         else:

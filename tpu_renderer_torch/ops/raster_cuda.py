@@ -5,12 +5,25 @@ Counterpart of ``tpu_renderer/ops/raster_pallas.py``:
 
 | wrapper             | kernel source          | replaces (Pallas)                       |
 |---------------------|------------------------|-----------------------------------------|
-| ``visibility``      | csrc/visibility.cu     | visibility_gbuffer_pallas phase 0       |
-| ``gbuffer``         | csrc/gbuffer.cu        | visibility_gbuffer_pallas phase 1       |
-| ``sample_textures`` | csrc/sample_textures.cu| the in-kernel windowed texture sampler  |
+| ``visibility``      | csrc/visibility.cu     | visibility_gbuffer_pallas phase 0;      |
+|                     |                        | visibility_pallas (z only: want_tid)    |
+| ``gbuffer``         | csrc/gbuffer.cu        | visibility_gbuffer_pallas phase 1;      |
+|                     |                        | gbuffer_pallas (owned range)            |
+| ``sample_textures`` | csrc/sample_textures.cu| the in-kernel windowed texture sampler; |
+|                     |                        | sample_textures_pallas (owned range)    |
 | ``stencil``         | csrc/stencil.cu        | stencil_pallas                          |
 | ``gbuffer_slim``    | csrc/gbuffer_slim.cu   | phase 1, slim layouts (_slim_interp_face)|
+|                     |                        | and gbuffer_pallas's (owned range)      |
 | ``lines``           | csrc/lines.cu          | lines_pallas                            |
+| ``tidpass``         | csrc/tidpass.cu        | tidpass_pallas                          |
+
+Sharded rendering (parallel/sharded.py) gives the raster kernels a block of
+frame rows from ``row0`` (pixel math stays in global coordinates) and a
+triangle shard's faces, whose global ids are ``gid0`` + the local index.
+The G-buffer and sampler kernels then write only the pixels whose merged
+tid lies in the shard's own range ``[gid0, gid0 + G_local)`` and zero
+elsewhere, so the shards' partial planes sum to the whole. With the
+defaults (``row0 = gid0 = 0``) every wrapper computes the one-device frame.
 
 Each wrapper runs its plain version for tensors on the CPU, and only
 there. For CUDA tensors it checks device, dtype, shape and contiguity,
@@ -30,15 +43,18 @@ __all__ = [
     "face_flags", "pack_faces", "pack_face_attrs", "pack_quads",
     "pack_slim_attrs", "pack_lines", "stencil_scalars", "tile_bins",
     "visibility", "gbuffer", "sample_textures", "stencil", "gbuffer_slim",
-    "lines", "visibility_plain", "gbuffer_plain", "sample_textures_plain",
-    "stencil_plain", "gbuffer_slim_plain", "lines_plain", "texel_indices",
+    "lines", "tidpass", "visibility_plain", "gbuffer_plain",
+    "sample_textures_plain", "stencil_plain", "gbuffer_slim_plain",
+    "lines_plain", "tidpass_plain", "texel_indices",
     "LAUNCHES", "reset_launches", "KERNELS", "PLAIN", "GB_CHANNELS", "SLIM_CHANNELS",
     "N_KINDS", "KINDS", "TILE",
 ]
 
-#: Kernel launches per wrapper since the last :func:`reset_launches`.
-LAUNCHES = {"visibility": 0, "gbuffer": 0, "sample_textures": 0,
-            "stencil": 0, "gbuffer_slim": 0, "lines": 0}
+#: Kernel launches per wrapper since the last :func:`reset_launches`; K1's
+#: z-only launches count as ``visibility_z``.
+LAUNCHES = {"visibility": 0, "visibility_z": 0, "gbuffer": 0,
+            "sample_textures": 0, "stencil": 0, "gbuffer_slim": 0,
+            "lines": 0, "tidpass": 0}
 
 
 def reset_launches():
@@ -266,18 +282,20 @@ def stencil_scalars(near, far):
     return (float(2.0 * near * far), float(far + near), float(far - near))
 
 
-def tile_bins(bbox, active, height, width, tile=TILE):
+def tile_bins(bbox, active, height, width, tile=TILE, row0=0):
     """Per-tile primitive lists in primitive order (a plain counterpart of
     raster_pallas.face_bins / _bin_quads, by bounding box only).
 
-    bbox: (N, 4) int [x0, x1, y0, y1) windows; active: (N,) bool.
-    Returns (offsets (T + 1,) int32, items (M,) int32): tile t =
-    ty * tiles_x + tx lists items[offsets[t]:offsets[t + 1]], ascending.
+    bbox: (N, 4) int [x0, x1, y0, y1) windows in frame coordinates;
+    active: (N,) bool; the tiles cover ``height`` rows from ``row0``
+    (bin_primitives :153-160). Returns (offsets (T + 1,) int32, items (M,)
+    int32): tile t = ty * tiles_x + tx lists items[offsets[t]:offsets[t +
+    1]], ascending.
     """
     dev = bbox.device
     n_ty = -(-height // tile)
     n_tx = -(-width // tile)
-    ty = torch.arange(n_ty, device=dev)[:, None] * tile
+    ty = torch.arange(n_ty, device=dev)[:, None] * tile + row0
     tx = torch.arange(n_tx, device=dev)[:, None] * tile
     b = bbox.to(torch.int64)
     ov_x = (b[None, :, 0] < tx + tile) & (b[None, :, 1] > tx)    # (Tx, N)
@@ -293,23 +311,40 @@ def tile_bins(bbox, active, height, width, tile=TILE):
 
 # ------------------------------------------------------------- plain versions
 
-def visibility_plain(fdata, flags, height, width, sign):
+def visibility_plain(fdata, flags, height, width, sign, row0=0,
+                     want_tid=True):
     """K1's plain version: raster_plain's z pass then id pass.
-    Returns (zb_sign (H, W) float32, tid (H, W) int32)."""
-    return rp.render_visibility(fdata, flags, height, width, sign)
+    Returns (zb_sign (H, W) float32, tid (H, W) int32), or (zb_sign, None)
+    with ``want_tid=False``."""
+    return rp.render_visibility(fdata, flags, height, width, sign, row0=row0,
+                                want_tid=want_tid)
 
 
-def gbuffer_plain(fdata, adata, tid):
+def tidpass_plain(fdata, flags, zb_sign, sign, row0=0, gid0=0):
+    """K7's plain version: raster_plain's id pass against the given final
+    z-buffer. Returns tid (H, W) int32, gid0 + face index or -1."""
+    height, width = zb_sign.shape
+    return rp.visibility_pass(fdata, flags, zb_sign, height, width, sign,
+                              row0=row0, gid0=gid0)
+
+
+def _owned(tid, gid0, g_local):
+    """(face index (H, W) int64, 0 where not owned; owned (H, W) bool): the
+    pixels whose id lies in ``[gid0, gid0 + g_local)``."""
+    own = (tid >= gid0) & (tid < gid0 + g_local)
+    return torch.where(own, tid - gid0, torch.zeros_like(tid)).long(), own
+
+
+def gbuffer_plain(fdata, adata, tid, row0=0, gid0=0):
     """K2's plain version: a per-pixel gather of the winning face's rows,
     then _gb_interp_face's expressions term for term (raster_pallas.py:
-    1322-1397), zero on background. Returns (32, H, W) float32."""
+    1322-1397), zero where the pixel's id is not one of this table's
+    ``[gid0, gid0 + G)``. Returns (32, H, W) float32."""
     height, width = tid.shape
-    fid = torch.clamp(tid, min=0).long()
+    fid, own = _owned(tid, gid0, fdata.shape[0])
     f = fdata[fid]                                     # (H, W, 34)
     a = adata[fid]                                     # (H, W, 42)
-    rows = torch.arange(height, dtype=torch.float32,
-                        device=tid.device)[:, None]
-    cols = torch.arange(width, dtype=torch.float32, device=tid.device)[None]
+    rows, cols = rp._grid(height, width, tid.device, row0)
     co = lambda c: f[..., c]
     at = lambda c: a[..., c]
     v = co(0) * cols + co(1) * rows + co(2)
@@ -358,27 +393,25 @@ def gbuffer_plain(fdata, adata, tid):
         out[GB_KD_SLOT + off] = at(31 + off)
     out[GB_MODEL] = at(41)
     gb = torch.stack(out)
-    return torch.where(tid[None] >= 0, gb, torch.zeros_like(gb))
+    return torch.where(own[None], gb, torch.zeros_like(gb))
 
 
-def gbuffer_slim_plain(fdata, sdata, tid, layout):
+def gbuffer_slim_plain(fdata, sdata, tid, layout, row0=0, gid0=0):
     """K5's plain version: a per-pixel gather of the winning face's rows,
     then _slim_interp_face's expressions term for term (raster_pallas.py:
     1294-1319) with RAW screen barycentrics u = 1 - v - w (no perspective
-    correction, as the reference's flat/gouraud/pbr shaders), zero on
-    background. Returns (SLIM_CHANNELS[layout], H, W) float32."""
+    correction, as the reference's flat/gouraud/pbr shaders), zero where
+    the pixel's id is not one of ``[gid0, gid0 + G)``. Returns
+    (SLIM_CHANNELS[layout], H, W) float32."""
     height, width = tid.shape
-    fid = torch.clamp(tid, min=0).long()
+    fid, own = _owned(tid, gid0, fdata.shape[0])
     s = sdata[fid]                                     # (H, W, SLIM_COLS)
     at = lambda c: s[..., c]
     if layout == "flat":
         out = [at(ci) for ci in range(3)]
     else:
         f = fdata[fid]                                 # (H, W, 34)
-        rows = torch.arange(height, dtype=torch.float32,
-                            device=tid.device)[:, None]
-        cols = torch.arange(width, dtype=torch.float32,
-                            device=tid.device)[None]
+        rows, cols = rp._grid(height, width, tid.device, row0)
         co = lambda c: f[..., c]
         v = co(0) * cols + co(1) * rows + co(2)
         w = co(3) * cols + co(4) * rows + co(5)
@@ -394,7 +427,7 @@ def gbuffer_slim_plain(fdata, sdata, tid, layout):
                 out.append(interp(at(b), at(b + 1), at(b + 2)))
             out += [at(18), at(19)] + [at(20 + ci) for ci in range(3)]
     gb = torch.stack(out)
-    return torch.where(tid[None] >= 0, gb, torch.zeros_like(gb))
+    return torch.where(own[None], gb, torch.zeros_like(gb))
 
 
 def _wrap_clamped(x, dim):
@@ -408,8 +441,9 @@ def _wrap_clamped(x, dim):
     return wrapped.to(torch.int64)
 
 
-def sample_textures_plain(tid, iu, iv, ftex, slots, pool):
-    """K3's plain version: for each winning pixel and texture kind, the
+def sample_textures_plain(tid, iu, iv, ftex, slots, pool, gid0=0):
+    """K3's plain version: for each pixel won by one of ftex's faces (ids
+    ``[gid0, gid0 + G)``) and each texture kind, the
     nearest texel at col = clip(iu, max=1)·(TW−1), row = (1 − clip(iv,
     max=1))·(TH−1), truncated and floor-mod wrapped (reference get_UV,
     core.py:138-143), gathered from the scene-wide texel pool.
@@ -419,7 +453,7 @@ def sample_textures_plain(tid, iu, iv, ftex, slots, pool):
     RGB texels. Returns (samp (N_KINDS, H, W) int32, mask (H, W) int32 with
     bit k set where kind k was sampled).
     """
-    idx, hit = texel_indices(tid, iu, iv, ftex, slots)
+    idx, hit = texel_indices(tid, iu, iv, ftex, slots, gid0)
     samp = []
     mask = torch.zeros(tid.shape, dtype=torch.int32, device=tid.device)
     for k in range(ftex.shape[1]):
@@ -429,12 +463,11 @@ def sample_textures_plain(tid, iu, iv, ftex, slots, pool):
     return torch.stack(samp).to(torch.int32), mask
 
 
-def texel_indices(tid, iu, iv, ftex, slots):
+def texel_indices(tid, iu, iv, ftex, slots, gid0=0):
     """The pool index each pixel samples per kind, and where it samples
     (see sample_textures_plain). Returns (idx (N_KINDS, H, W) int64, 0
     where nothing is sampled; hit (N_KINDS, H, W) bool)."""
-    win = tid >= 0
-    fid = torch.clamp(tid, min=0).long()
+    fid, win = _owned(tid, gid0, ftex.shape[0])
     ciu = torch.clamp(iu, max=1.0)
     civ = torch.clamp(iv, max=1.0)
     idxs, hits = [], []
@@ -453,13 +486,13 @@ def texel_indices(tid, iu, iv, ftex, slots):
     return torch.stack(idxs), torch.stack(hits)
 
 
-def stencil_plain(qdata, qi, zb_sign, sign, nf2, fpn, fmn, chunk=16):
+def stencil_plain(qdata, qi, zb_sign, sign, nf2, fpn, fmn, row0=0, chunk=16):
     """K4's plain version: the JAX package's _quad_fragments summed over all
-    quads (see shadow.quad_fragments). Returns (H, W) int32."""
+    quads (see shadow.quad_fragments), on the rows from ``row0``. Returns
+    (H, W) int32."""
     height, width = zb_sign.shape
     dev = zb_sign.device
-    rows = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
-    cols = torch.arange(width, dtype=torch.float32, device=dev)[None]
+    rows, cols = rp._grid(height, width, dev, row0)
     st = torch.zeros((height, width), dtype=torch.int32, device=dev)
     keep = qi[:, 5] > 0                  # quads without ok contribute 0
     qdata, qi = qdata[keep], qi[keep]
@@ -536,7 +569,9 @@ def _require(t, name, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(name, *args):
+def _launch(name, *args, counter=None):
+    """Launch ``tr_<name>`` on the current stream; raise if the launch
+    fails, else add one to ``LAUNCHES[counter or name]``."""
     from tpu_renderer_torch.ops import _build
 
     stream = torch.cuda.current_stream().cuda_stream
@@ -544,36 +579,70 @@ def _launch(name, *args):
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[counter or name] += 1
 
 
-def visibility(fdata, flags, height, width, sign):
-    """K1: final sign-space z-buffer and winning face id per pixel.
+def _face_bins(fdata, flags, height, width, row0):
+    """tile_bins of the valid faces' bboxes over the rows from ``row0``."""
+    bbox = fdata[:, rp.F_BBOX:rp.F_BBOX + 4].to(torch.int32)
+    return tile_bins(bbox, (flags & rp.FLAG_VALID) > 0, height, width,
+                     row0=row0)
+
+
+def visibility(fdata, flags, height, width, sign, row0=0, want_tid=True):
+    """K1: final sign-space z-buffer and winning face index per pixel, for
+    ``height`` rows from ``row0``.
 
     fdata: (G, 34) float32 (pack_faces); flags: (G,) int32 (face_flags).
-    Returns (zb_sign (H, W) float32, tid (H, W) int32, -1 = background).
+    Returns (zb_sign (H, W) float32, tid (H, W) int32, -1 = background), or
+    (zb_sign, None) with ``want_tid=False`` (z-only mode, counted as
+    ``visibility_z``).
     """
     if _on_cpu(fdata, flags):
-        return visibility_plain(fdata, flags, height, width, sign)
+        return visibility_plain(fdata, flags, height, width, sign, row0,
+                                want_tid)
     g = fdata.shape[0]
     _require(fdata, "fdata", torch.float32, (g, rp.F_COLS))
     _require(flags, "flags", torch.int32, (g,))
-    bbox = fdata[:, rp.F_BBOX:rp.F_BBOX + 4].to(torch.int32)
-    off, items = tile_bins(bbox, (flags & rp.FLAG_VALID) > 0, height, width)
+    off, items = _face_bins(fdata, flags, height, width, row0)
     zb = torch.empty((height, width), dtype=torch.float32,
                      device=fdata.device)
-    tid = torch.empty((height, width), dtype=torch.int32, device=fdata.device)
+    tid = (torch.empty((height, width), dtype=torch.int32,
+                       device=fdata.device) if want_tid else None)
     _launch("visibility", fdata.data_ptr(), flags.data_ptr(), off.data_ptr(),
-            items.data_ptr(), height, width, -(-width // TILE), float(sign),
-            zb.data_ptr(), tid.data_ptr())
+            items.data_ptr(), height, width, -(-width // TILE), row0,
+            float(sign), int(want_tid), zb.data_ptr(),
+            tid.data_ptr() if want_tid else None,
+            counter="visibility" if want_tid else "visibility_z")
     return zb, tid
 
 
-def gbuffer(fdata, adata, tid):
-    """K2: the 32-channel G-buffer of each pixel's winning face, zero on
-    background. fdata (G, 34), adata (G, 42) float32; tid (H, W) int32."""
+def tidpass(fdata, flags, zb_sign, sign, row0=0, gid0=0):
+    """K7: winning face ids against the given final z-buffer ``zb_sign``
+    (H, W) float32, for its rows from ``row0``: gid0 + the last face index
+    that covers the pixel and passes ``zb >= z * sign``, -1 elsewhere.
+    fdata, flags as for :func:`visibility`. Returns (H, W) int32."""
+    if _on_cpu(fdata, flags, zb_sign):
+        return tidpass_plain(fdata, flags, zb_sign, sign, row0, gid0)
+    g = fdata.shape[0]
+    height, width = zb_sign.shape
+    _require(fdata, "fdata", torch.float32, (g, rp.F_COLS))
+    _require(flags, "flags", torch.int32, (g,))
+    _require(zb_sign, "zb_sign", torch.float32, (height, width))
+    off, items = _face_bins(fdata, flags, height, width, row0)
+    tid = torch.empty((height, width), dtype=torch.int32, device=fdata.device)
+    _launch("tidpass", fdata.data_ptr(), flags.data_ptr(), off.data_ptr(),
+            items.data_ptr(), zb_sign.data_ptr(), height, width,
+            -(-width // TILE), row0, gid0, float(sign), tid.data_ptr())
+    return tid
+
+
+def gbuffer(fdata, adata, tid, row0=0, gid0=0):
+    """K2: the 32-channel G-buffer of each pixel won by one of the table's
+    faces (ids ``[gid0, gid0 + G)``), zero elsewhere, rows from ``row0``.
+    fdata (G, 34), adata (G, 42) float32; tid (H, W) int32."""
     if _on_cpu(fdata, adata, tid):
-        return gbuffer_plain(fdata, adata, tid)
+        return gbuffer_plain(fdata, adata, tid, row0, gid0)
     g = fdata.shape[0]
     height, width = tid.shape
     _require(fdata, "fdata", torch.float32, (g, rp.F_COLS))
@@ -582,15 +651,16 @@ def gbuffer(fdata, adata, tid):
     gb = torch.empty((GB_CHANNELS, height, width), dtype=torch.float32,
                      device=tid.device)
     _launch("gbuffer", fdata.data_ptr(), adata.data_ptr(), tid.data_ptr(),
-            height, width, gb.data_ptr())
+            height, width, row0, gid0, g, gb.data_ptr())
     return gb
 
 
-def sample_textures(tid, iu, iv, ftex, slots, pool):
-    """K3: nearest-texel samples per kind and the sampled-kind bitmask (see
-    sample_textures_plain for the arguments)."""
+def sample_textures(tid, iu, iv, ftex, slots, pool, gid0=0):
+    """K3: nearest-texel samples per kind and the sampled-kind bitmask of
+    the pixels won by ftex's faces (see sample_textures_plain for the
+    arguments)."""
     if _on_cpu(tid, iu, iv, ftex, slots, pool):
-        return sample_textures_plain(tid, iu, iv, ftex, slots, pool)
+        return sample_textures_plain(tid, iu, iv, ftex, slots, pool, gid0)
     height, width = tid.shape
     g, n_kinds = ftex.shape[0], ftex.shape[1]
     _require(tid, "tid", torch.int32, (height, width))
@@ -606,41 +676,44 @@ def sample_textures(tid, iu, iv, ftex, slots, pool):
     mask = torch.empty((height, width), dtype=torch.int32, device=tid.device)
     _launch("sample_textures", tid.data_ptr(), iu.data_ptr(), iv.data_ptr(),
             ftex.data_ptr(), slots.data_ptr(), pool.data_ptr(), n_kinds,
-            slots.shape[0], pool.numel(), height, width, samp.data_ptr(),
-            mask.data_ptr())
+            slots.shape[0], pool.numel(), height, width, gid0, g,
+            samp.data_ptr(), mask.data_ptr())
     return samp, mask
 
 
-def stencil(qdata, qi, zb_sign, sign, nf2, fpn, fmn):
+def stencil(qdata, qi, zb_sign, sign, nf2, fpn, fmn, row0=0):
     """K4: signed shadow-volume stencil against the final z-buffer.
 
     qdata (E, 44) float32, qi (E, 8) int32 (pack_quads); zb_sign (H, W)
-    float32; sign ±1; nf2, fpn, fmn from :func:`stencil_scalars`.
-    Returns (H, W) int32.
+    float32, the rows from ``row0``; sign ±1; nf2, fpn, fmn from
+    :func:`stencil_scalars`. Returns (H, W) int32.
     """
     if _on_cpu(qdata, qi, zb_sign):
-        return stencil_plain(qdata, qi, zb_sign, sign, nf2, fpn, fmn)
+        return stencil_plain(qdata, qi, zb_sign, sign, nf2, fpn, fmn, row0)
     e = qdata.shape[0]
     height, width = zb_sign.shape
     _require(qdata, "qdata", torch.float32, (e, Q_COLS))
     _require(qi, "qi", torch.int32, (e, QI_COLS))
     _require(zb_sign, "zb_sign", torch.float32, (height, width))
-    off, items = tile_bins(qi[:, 0:4], qi[:, 5] > 0, height, width)
+    off, items = tile_bins(qi[:, 0:4], qi[:, 5] > 0, height, width,
+                           row0=row0)
     st = torch.empty((height, width), dtype=torch.int32,
                      device=zb_sign.device)
     _launch("stencil", qdata.data_ptr(), qi.data_ptr(), off.data_ptr(),
             items.data_ptr(), zb_sign.data_ptr(), height, width,
-            -(-width // TILE), float(sign * nf2), fpn, fmn, st.data_ptr())
+            -(-width // TILE), row0, float(sign * nf2), fpn, fmn,
+            st.data_ptr())
     return st
 
 
-def gbuffer_slim(fdata, sdata, tid, layout):
-    """K5: the slim G-buffer (SLIM_CHANNELS[layout] planes) of each pixel's
-    winning face, zero on background. fdata (G, 34) float32 (pack_faces);
+def gbuffer_slim(fdata, sdata, tid, layout, row0=0, gid0=0):
+    """K5: the slim G-buffer (SLIM_CHANNELS[layout] planes) of each pixel
+    won by one of the table's faces (ids ``[gid0, gid0 + G)``), zero
+    elsewhere, rows from ``row0``. fdata (G, 34) float32 (pack_faces);
     sdata (G, SLIM_COLS[layout]) float32 (pack_slim_attrs); tid (H, W)
     int32; layout "flat", "gouraud" or "pbr"."""
     if _on_cpu(fdata, sdata, tid):
-        return gbuffer_slim_plain(fdata, sdata, tid, layout)
+        return gbuffer_slim_plain(fdata, sdata, tid, layout, row0, gid0)
     g = fdata.shape[0]
     height, width = tid.shape
     _require(fdata, "fdata", torch.float32, (g, rp.F_COLS))
@@ -649,8 +722,8 @@ def gbuffer_slim(fdata, sdata, tid, layout):
     gb = torch.empty((SLIM_CHANNELS[layout], height, width),
                      dtype=torch.float32, device=tid.device)
     _launch("gbuffer_slim", fdata.data_ptr(), sdata.data_ptr(),
-            tid.data_ptr(), SLIM_LAYOUT_ID[layout], height, width,
-            gb.data_ptr())
+            tid.data_ptr(), SLIM_LAYOUT_ID[layout], height, width, row0, gid0,
+            g, gb.data_ptr())
     return gb
 
 
@@ -681,18 +754,19 @@ class _Ops:
     call."""
 
     def __init__(self, visibility, gbuffer, sample_textures, stencil,
-                 gbuffer_slim, lines):
+                 gbuffer_slim, lines, tidpass):
         self.visibility = visibility
         self.gbuffer = gbuffer
         self.sample_textures = sample_textures
         self.stencil = stencil
         self.gbuffer_slim = gbuffer_slim
         self.lines = lines
+        self.tidpass = tidpass
 
 
 #: The main path: kernels on CUDA tensors, plain versions on CPU tensors.
 KERNELS = _Ops(visibility, gbuffer, sample_textures, stencil, gbuffer_slim,
-               lines)
+               lines, tidpass)
 #: The plain versions on any device: the oracle a kernel run is held to.
 PLAIN = _Ops(visibility_plain, gbuffer_plain, sample_textures_plain,
-             stencil_plain, gbuffer_slim_plain, lines_plain)
+             stencil_plain, gbuffer_slim_plain, lines_plain, tidpass_plain)

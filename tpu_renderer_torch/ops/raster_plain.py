@@ -15,6 +15,9 @@ passes over the packed face table (``raster_cuda.pack_faces``):
 
 Both reductions are exact, so the result equals the JAX package's in-order
 scan; only the evaluation is vectorized over ``chunk`` faces at a time.
+For sharded rendering the frame is a block of rows starting at ``row0``
+(pixel math in global coordinates), and the id pass can write ``gid0`` +
+the local face index (a triangle shard's shard-major global ids).
 Brute force O(F·H·W): it exists for CPU tests and as the reference the
 CUDA kernel is held to on the card.
 """
@@ -41,8 +44,10 @@ FLAG_ZWRITE = 4
 FLAG_PPC = 8     # clip-enabled and not wholly inside: per-pixel clip test
 
 
-def _grid(height, width, device):
-    rows = torch.arange(height, dtype=torch.float32, device=device)[:, None]
+def _grid(height, width, device, row0=0):
+    """Pixel rows (H, 1) from ``row0`` and columns (1, W), as float32."""
+    rows = torch.arange(row0, row0 + height, dtype=torch.float32,
+                        device=device)[:, None]
     cols = torch.arange(width, dtype=torch.float32, device=device)[None, :]
     return rows, cols
 
@@ -82,10 +87,10 @@ def face_fragments(fdata, flags, rows, cols):
     return cov, z
 
 
-def zbuffer_pass(fdata, flags, height, width, sign, chunk=16):
+def zbuffer_pass(fdata, flags, height, width, sign, chunk=16, row0=0):
     """Final z-buffer in sign space (z * sign, min-combine) over z-writing
     faces (reference triangular.py:117-118)."""
-    rows, cols = _grid(height, width, fdata.device)
+    rows, cols = _grid(height, width, fdata.device, row0)
     zb = torch.full((height, width), float("inf"), dtype=torch.float32,
                     device=fdata.device)
     inf = torch.tensor(float("inf"), device=fdata.device)
@@ -98,11 +103,12 @@ def zbuffer_pass(fdata, flags, height, width, sign, chunk=16):
     return zb
 
 
-def visibility_pass(fdata, flags, zb_sign, height, width, sign, chunk=16):
-    """Winning face id per pixel against the FINAL z-buffer: the highest
-    face id that covers the pixel and passes ``zb >= z * sign``; -1 where no
-    face claims it."""
-    rows, cols = _grid(height, width, fdata.device)
+def visibility_pass(fdata, flags, zb_sign, height, width, sign, chunk=16,
+                    row0=0, gid0=0):
+    """Winning face id per pixel against the FINAL z-buffer: ``gid0`` + the
+    highest face index that covers the pixel and passes ``zb >= z * sign``;
+    -1 where no face claims it."""
+    rows, cols = _grid(height, width, fdata.device, row0)
     tid = torch.full((height, width), -1, dtype=torch.int32,
                      device=fdata.device)
     none = torch.tensor(-1, dtype=torch.int32, device=fdata.device)
@@ -110,14 +116,19 @@ def visibility_pass(fdata, flags, zb_sign, height, width, sign, chunk=16):
         fd, fl = fdata[c0:c0 + chunk], flags[c0:c0 + chunk]
         cov, z = face_fragments(fd, fl, rows, cols)
         claim = cov & (zb_sign >= z * sign)
-        gid = torch.arange(c0, c0 + fd.shape[0], dtype=torch.int32,
+        gid = torch.arange(gid0 + c0, gid0 + c0 + fd.shape[0],
+                           dtype=torch.int32,
                            device=fdata.device)[:, None, None]
         tid = torch.maximum(tid, torch.where(claim, gid, none).amax(0))
     return tid
 
 
-def render_visibility(fdata, flags, height, width, sign, chunk=16):
-    """Full visibility resolve: (z-buffer in sign space, tid)."""
-    zb_sign = zbuffer_pass(fdata, flags, height, width, sign, chunk)
+def render_visibility(fdata, flags, height, width, sign, chunk=16, row0=0,
+                      want_tid=True):
+    """Full visibility resolve: (z-buffer in sign space, tid), or
+    (z-buffer, None) with ``want_tid=False``."""
+    zb_sign = zbuffer_pass(fdata, flags, height, width, sign, chunk, row0)
+    if not want_tid:
+        return zb_sign, None
     return zb_sign, visibility_pass(fdata, flags, zb_sign, height, width,
-                                    sign, chunk)
+                                    sign, chunk, row0)

@@ -20,15 +20,23 @@ Quads are prepared through the JAX package's uncompacted path
 (``prepare_quads``'s ``_prep``, shadow.py:262-287 there) at every scene size:
 its silhouette compaction and cap ladder exist to save TPU work, and the
 quads they skip have ``ok`` false, so the stencil comes out the same.
+
+Under triangle sharding (a process ``group`` over the ``tris`` axis) each
+rank holds a slice of the faces and their edge incidences: the parity
+counts SUM and the last light-facing incidence MAXes over the group, so
+every rank sees the global silhouette; each rank then clips and projects
+an even slice of the global edge list, and the partial stencils SUM.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from tpu_renderer_torch.ops.frustum import clip_polygon
 from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.transforms import normalize
 from tpu_renderer_torch.ops.vertex import _rowvec
+from tpu_renderer_torch.parallel.mesh import all_reduce
 
 __all__ = ["silhouette_edges", "extrude_quads", "quad_edge_coeffs",
            "prepare_quads", "shadow_stencil", "QUAD_PMAX"]
@@ -49,12 +57,19 @@ def _dot3(a, b):
 
 
 def silhouette_edges(verts, vid, pad_valid, inc_edge, inc_dir, inc_valid,
-                     light_position, num_edges):
+                     light_position, num_edges, group=None, inc_order_base=0):
     """Per-edge silhouette mask + directed vertex ids.
 
     verts: (V, 4); vid: (Fp, 3); pad_valid: (Fp,); inc_edge / inc_dir /
     inc_valid: (3Fp,) / (3Fp, 2) / (3Fp,) incidence tensors.
     Returns (silhouette (E,) bool, a_vid (E,), b_vid (E,)).
+
+    With a process ``group`` the faces and incidences are this rank's slice,
+    whose first incidence has the global index ``inc_order_base``: parity
+    SUMs and the last light-facing incidence MAXes over the group, and the
+    rank that holds that incidence gives its vertex pair (a MAX over the
+    others' -1), so every rank returns the global silhouette (JAX
+    shadow.py:46-97).
     """
     world = verts[vid.long()][..., :3]
     n = _cross(world[:, 1] - world[:, 0], world[:, 2] - world[:, 0])
@@ -65,13 +80,20 @@ def silhouette_edges(verts, vid, pad_valid, inc_edge, inc_dir, inc_valid,
     parity = torch.zeros(num_edges, dtype=torch.int32, device=verts.device)
     parity.index_add_(0, edge, inc_lf.to(torch.int32))
     order = torch.where(
-        inc_lf, torch.arange(inc_lf.shape[0], device=verts.device),
-        torch.full_like(edge, -1))
+        inc_lf, torch.arange(inc_lf.shape[0], device=verts.device)
+        + inc_order_base, torch.full_like(edge, -1))
     last = torch.full((num_edges,), -1, dtype=torch.int64, device=verts.device)
     last.scatter_reduce_(0, edge, order, reduce="amax", include_self=True)
+    parity = all_reduce(parity, "sum", group, "silhouette")
+    last = all_reduce(last, "max", group, "silhouette")
 
     silhouette = (parity & 1) == 1
-    ab = inc_dir.long()[torch.clamp(last, min=0)]
+    local = last - inc_order_base
+    ab = inc_dir.long()[torch.clamp(local, 0, inc_dir.shape[0] - 1)]
+    if group is not None:
+        owns = (local >= 0) & (local < inc_dir.shape[0])
+        ab = all_reduce(torch.where(owns[:, None], ab, -1), "max", group,
+                        "silhouette")
     return silhouette, ab[:, 0], ab[:, 1]
 
 
@@ -138,11 +160,14 @@ def quad_fragments(qrow, zb_sign, rows, cols, sign, nf2, fpn, fmn):
     return torch.where(mask, contrib, 0).sum(0, dtype=torch.int32)
 
 
-def prepare_quads(cfg, dyn, cam_m):
+def prepare_quads(cfg, dyn, cam_m, group=None, shard_idx=0):
     """Silhouette -> extruded quads -> world clip -> screen projection.
 
     Returns (screen (E, QUAD_PMAX, 4), counts (E,) int32, ok (E,) bool), or
-    None when no model casts shadows.
+    None when no model casts shadows. With a process ``group`` (triangle
+    sharding, ``dyn`` this rank's shard) the global edge list is padded to
+    a multiple of the group's size and only this rank's slice ``shard_idx``
+    is clipped and projected (JAX shadow.py:289-305).
     """
     light = dyn["light"]
     quads, flags = [], []
@@ -151,7 +176,8 @@ def prepare_quads(cfg, dyn, cam_m):
             continue
         sil, a_vid, b_vid = silhouette_edges(
             md["verts"], md["vid"], md["pad_valid"], md["inc_edge"],
-            md["inc_dir"], md["inc_valid"], light["position"], mc.num_edges)
+            md["inc_dir"], md["inc_valid"], light["position"], mc.num_edges,
+            group, shard_idx * md["inc_edge"].shape[0])
         quads.append(extrude_quads(md["verts"], a_vid, b_vid, light,
                                    cfg.light_type))
         flags.append(sil)
@@ -159,6 +185,14 @@ def prepare_quads(cfg, dyn, cam_m):
         return None
     quad = torch.cat(quads, dim=0)
     sil = torch.cat(flags, dim=0)
+    if group is not None:
+        n = dist.get_world_size(group)
+        fs = -(-quad.shape[0] // n)
+        pad = fs * n - quad.shape[0]
+        quad = torch.cat([quad, quad.new_zeros((pad, 4, 4))])
+        sil = torch.cat([sil, sil.new_zeros(pad)])
+        quad = quad[shard_idx * fs:(shard_idx + 1) * fs]
+        sil = sil[shard_idx * fs:(shard_idx + 1) * fs]
 
     padded = torch.zeros((quad.shape[0], QUAD_PMAX, 4), dtype=torch.float32,
                          device=quad.device)
