@@ -14,10 +14,13 @@ exits non-zero without the final line):
    warm-up) and alone in a profile, beside its bound: the larger of the
    bytes its function must move in this run (``needed_bytes``) over
    3.35 TB/s and a lower count of its float operations over 67 TFLOP/s;
-   then the sharded modes on the inputs of rank 1 of phase 6's 1x2 (rows,
-   tris) mesh, the whole frame height and the second half of each model's
-   faces (``shard_inputs``): K1 z only, K7, and the owned ranges of K2, K5
-   (gouraud, pbr) and K3, each equal to its plain version;
+   K1's and K4's coarse lists (csrc/bins.cu) must equal their plain
+   version, their wrappers must run under torch's sync debug mode "error"
+   (no wait for the device), and their lines show the lists' scratch
+   bytes; then the sharded modes on the inputs of rank 1 of phase 6's 1x2
+   (rows, tris) mesh, the whole frame height and the second half of each
+   model's faces (``shard_inputs``): K1 z only, K7, and the owned ranges of
+   K2, K5 (gouraud, pbr) and K3, each equal to its plain version;
 4. end to end, general shader: the flagship frame — a seeded procedural
    shadow-casting mesh of 4,992 faces with 1024² diffuse and tangent-space
    normal maps over a textured floor, point light, shadow volumes,
@@ -32,8 +35,8 @@ exits non-zero without the final line):
    each is timed against the general shader (without the skybox) as
    interleaved orbits, general then variant, PAIRS times, and profiled;
 6. sharded: ``render_frame_sharded`` on 1x2 (general, gouraud, pbr) and
-   2x2 (general) meshes of ranks, started with torch.multiprocessing spawn
-   after the build, gloo through a FileStore, every rank on ``cuda:0`` (one
+   2x2 (general) meshes of ranks, one python3 subprocess each, started
+   after the build and killed and waited for before the phase ends, gloo through a FileStore, every rank on ``cuda:0`` (one
    card cannot host two NCCL ranks); each rank builds the flagship from the
    seed. Each frame must match the one-device ``Scene.render()`` frame
    (frame >= 99.9%, stencil equal, zbuf within rtol 1e-6, tid >= 99.9%
@@ -461,24 +464,43 @@ def _time_ms(fn, runs=5):
 
 #: The port's kernels as the profiler names them (csrc/*.cu).
 _OUR_KERNEL = re.compile(r"::(visibility|tidpass|gbuffer|gbuffer_slim|sample|"
-                         r"stencil|lines)_kernel[<(]")
+                         r"stencil|lines|coarse_bins)_kernel[<(]")
+#: The kernels (``_OUR_KERNEL``'s names) each wrapper launches once per call
+#: where they are not just the wrapper's name: K1 and K4 bin first with
+#: csrc/bins.cu.
+_WRAPPER_KERNELS = {"visibility": ("coarse_bins", "visibility"),
+                    "stencil": ("coarse_bins", "stencil"),
+                    "sample_textures": ("sample",)}
 
 
-def _alone_ms(fn, runs=3):
-    """Device time per call of the port's kernels that ``fn`` launches,
-    without the wrapper's torch ops (binning, allocation): a profile of
-    ``runs`` calls."""
+def _alone_ms(fn, wrapper, runs=3, tries=3):
+    """Device time per call of the kernels that ``wrapper`` launches through
+    ``fn``, without the wrapper's torch ops (allocation, torch binning): a
+    profile of ``runs`` calls, summed over the wrapper's kernels of each
+    one's mean time. A trace can come back short of some events: then the
+    profile is taken again until every kernel of the wrapper has exactly
+    ``runs`` events; after ``tries`` short traces it raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and _OUR_KERNEL.search(e.name)) / 1e3 / runs
+    names = _WRAPPER_KERNELS.get(wrapper, (wrapper,))
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        times = {name: [] for name in names}
+        for e in prof.events():
+            m = (_OUR_KERNEL.search(e.name)
+                 if e.device_type == DeviceType.CUDA else None)
+            if m and m.group(1) in times:
+                times[m.group(1)].append(e.time_range.elapsed_us())
+        if all(len(t) == runs for t in times.values()):
+            return sum(statistics.mean(t) for t in times.values()) / 1e3
+    raise RuntimeError(f"{wrapper}: {tries} profiles short of {runs} events "
+                       f"of each of {names}: "
+                       f"{ {k: len(v) for k, v in times.items()} }")
 
 
 def _same(a, b):
@@ -537,6 +559,70 @@ def _compare(name, got, ref):
     return 0.0, "exact"
 
 
+def _check_coarse_bins(case, args, kw):
+    """K1's or K4's coarse lists for this call, built by csrc/bins.cu on
+    the card, against ``coarse_bins_plain``; raises if they differ. Returns
+    (the wrapper's scratch bytes, the longest coarse list, entries in all,
+    the longest list of a 16x16 tile before the kernel's refinement)."""
+    import torch
+    from tpu_renderer_torch.ops import _build
+    from tpu_renderer_torch.ops import raster_cuda as rc
+    from tpu_renderer_torch.ops import raster_plain as rp
+
+    row0 = kw.get("row0", 0)
+    if wrapper_of(case) == "visibility":
+        fdata, words, h, w = args[:4]
+        kind, bbox = 0, fdata[:, rp.F_BBOX:rp.F_BBOX + 4]
+        active = (words & rp.FLAG_VALID) > 0
+    else:
+        fdata, words = None, args[1]
+        h, w = args[2].shape
+        kind, bbox, active = 1, words[:, 0:4], words[:, 5] > 0
+    n = words.shape[0]
+    tiles = rc._coarse_tiles(h, w)
+    counts = torch.empty(tiles, dtype=torch.int32, device=words.device)
+    items = torch.empty((tiles, max(n, 1)), dtype=torch.int32,
+                        device=words.device)
+    code = _build.load().tr_coarse_bins(
+        kind, None if fdata is None else fdata.data_ptr(), words.data_ptr(),
+        n, h, w, row0, counts.data_ptr(), items.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"{case}: coarse_bins failed: cudaError {code}")
+    want_counts, want_items = rc.coarse_bins_plain(bbox, active, h, w, row0)
+    keep = torch.arange(n, device=words.device)[None] < want_counts[:, None]
+    if not (torch.equal(counts, want_counts)
+            and torch.equal(items[:, :n][keep], want_items[keep])):
+        raise AssertionError(f"{case}: coarse lists differ from plain")
+    return (rc.bin_scratch_bytes(n, h, w), int(want_counts.max()),
+            int(want_counts.sum()),
+            int(_tile_counts(bbox.to(torch.int32), active, h, w, row0).max()))
+
+
+def _assert_no_sync(fn):
+    """Run ``fn`` under torch's sync debug mode "error", which raises on any
+    op that waits for the device; first show that the mode is armed here
+    (tile_bins' nonzero raises under it)."""
+    import torch
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    box = torch.zeros((4, 4), dtype=torch.int32, device="cuda")
+    active = torch.ones(4, dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:
+            rc.tile_bins(box, active, 32, 32)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("sync debug mode did not catch nonzero")
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
 def _profile(scene, n_frames=5):
     """Where a frame's time goes: torch.profiler over a few Scene.render()
     calls, all per frame in ms. ``busy`` sums the device's kernel and copy
@@ -572,7 +658,7 @@ def _profile(scene, n_frames=5):
     kernels = {n: sum(v for k, v in device.items()
                       if f"::{n}_kernel(" in k or f"::{n}_kernel<" in k)
                for n in ("visibility", "gbuffer", "sample", "stencil",
-                         "gbuffer_slim", "lines", "tidpass")}
+                         "gbuffer_slim", "lines", "tidpass", "coarse_bins")}
     kernels = {k: v for k, v in kernels.items() if v > 0}
     r = lambda d: {k[:60]: round(v, 4) for k, v in d}
     return {"wall": wall_ms, "busy": busy, "busy_share": busy / wall_ms,
@@ -770,22 +856,45 @@ def _sharded_rank(rank, world, tmp, runs):
 
 
 def _spawn_ranks(world, tmp, runs):
-    """Phase 6's ranks; a rank's exception fails the phase, and ranks still
-    running after RANK_DEADLINE seconds are killed and fail it."""
-    import torch.multiprocessing as mp
-
-    ctx = mp.spawn(_sharded_rank, args=(world, tmp, runs), nprocs=world,
-                   join=False)
+    """Phase 6's ranks, one ``python3`` process each running
+    ``_sharded_rank`` (stdout to this script's stderr). A rank that exits
+    non-zero fails the phase, and so do ranks still running after
+    RANK_DEADLINE seconds. Before this returns or raises, every rank still
+    running is killed and every rank waited for; a rank is also killed by
+    the kernel if this script dies first (PR_SET_PDEATHSIG). So no process
+    of the phase outlives it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import ctypes, json, signal, sys; "
+            "ctypes.CDLL(None).prctl(1, signal.SIGKILL); "
+            "sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke._sharded_rank(int(sys.argv[2]), int(sys.argv[3]), "
+            "sys.argv[4], json.loads(sys.argv[5]))")
+    procs = []
     deadline = time.monotonic() + RANK_DEADLINE
     try:
-        while not ctx.join(timeout=1):
+        for rank in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, here, str(rank), str(world), tmp,
+                 json.dumps(runs)], stdout=sys.stderr))
+        while any(p.poll() is None for p in procs):
+            failed = [(r, p.returncode) for r, p in enumerate(procs)
+                      if p.returncode not in (None, 0)]
+            if failed:
+                raise AssertionError(f"{world} ranks: (rank, exit code) "
+                                     f"{failed}")
             if time.monotonic() > deadline:
                 raise AssertionError(f"{world} ranks still running after "
                                      f"{RANK_DEADLINE} s")
+            time.sleep(0.5)
+        failed = [(r, p.returncode) for r, p in enumerate(procs)
+                  if p.returncode != 0]
+        if failed:
+            raise AssertionError(f"{world} ranks: (rank, exit code) {failed}")
     finally:
-        for p in ctx.processes:
-            if p.is_alive():
+        for p in procs:
+            if p.poll() is None:
                 p.kill()
+            p.wait()
 
 
 def _sharded_phase(scene, start, records):
@@ -914,8 +1023,16 @@ def main():
         torch.cuda.synchronize()
         ref = plain(*args, **kw)
         err, verdict = _compare(name, got, ref)
+        bins = ""
+        if wrapper_of(name) in ("visibility", "stencil"):
+            _assert_no_sync(lambda: kern(*args, **kw))
+            scratch, longest, entries, fine = _check_coarse_bins(name, args,
+                                                                 kw)
+            bins = (f"; no host sync; coarse lists equal plain, scratch "
+                    f"{scratch} B, longest {longest}, entries {entries}; "
+                    f"longest 16x16 bbox list {fine}")
         ms = _time_ms(lambda: kern(*args, **kw))
-        alone = _alone_ms(lambda: kern(*args, **kw))
+        alone = _alone_ms(lambda: kern(*args, **kw), wrapper_of(name))
         plain_ms = _time_ms(lambda: plain(*args, **kw), runs=3)
         bound_ms, bound_by, nbytes, ops = bound(name, args, kw, got, zb_sign)
         source, replaces = SOURCES[wrapper_of(name)]
@@ -929,7 +1046,7 @@ def main():
               f"kernel {ms:.4f} ms (its wrapper, binning included), alone "
               f"{alone:.4f} ms, plain {plain_ms:.2f} ms; bound "
               f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
-              f"{ops / 1e6:.2f} Mop)", flush=True)
+              f"{ops / 1e6:.2f} Mop){bins}", flush=True)
     del inputs
 
     # 4. end to end through Scene.render()

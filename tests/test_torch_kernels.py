@@ -13,7 +13,14 @@ This file imports no JAX, so it also runs on the card's host:
   every shader;
 - the same holds for the sharded modes, on the inputs of rank (1, 1) of a
   2x2 (rows, tris) mesh (``chip_smoke.shard_inputs``, at a row0 > 0): K1 z
-  only, K7, the owned ranges of K2, K5 and K3, and K4.
+  only, K7, the owned ranges of K2, K5 and K3, and K4;
+- and for inputs built to break K1's and K4's staged, binned design
+  (``long_face_list``, ``long_quad_list``): tile lists longer than two
+  staging chunks, exact z ties, faces that do not write z, NaN and inf
+  depths, an all-background tile beside geometry, quad edges through a
+  tile's corner pixel centre, non-finite edge coefficients, row0 > 0; on
+  the card, K1's and K4's coarse lists (csrc/bins.cu) equal
+  ``coarse_bins_plain`` and their wrappers never synchronise with the host.
 
 ``build_scene`` is the shared procedural test scene: test_torch_slice.py
 and test_torch_modules.py build the same scene in the JAX package.
@@ -26,6 +33,7 @@ import tpu_renderer_torch as tt
 from tpu_renderer_torch.models import gizmos as gz_torch
 from tpu_renderer_torch.ops import raster_cuda as rc
 
+import chip_smoke
 from chip_smoke import shard_inputs
 
 RES = (64, 128)
@@ -64,8 +72,183 @@ def build_scene(pkg, gizmos, resolution=RES, **scene_kw):
     return scene
 
 
+# ------------------------------------------------------------- adversarial
+#: Rows staged per chunk by K1 and K4 (csrc/common.cuh BLOCK).
+CHUNK = rc.TILE * rc.TILE
+#: The frame of the adversarial cases, and the fine tile their long lists
+#: crowd (pixels [16, 32) in x and y, from row0).
+ADV_RES = (48, 96)
+CROWDED = (16, 32)
+
+
+def _triangle_rows(p):
+    """(g, 3, 2) float64 screen triangles -> their affine barycentric
+    coefficients (g, 6) [av bv cv aw bw cw], v and w of pixel (c, r)."""
+    x, y = p[..., 0], p[..., 1]
+    d = (x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0]) \
+        - (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0])
+    d = np.where(np.abs(d) < 1e-3, 1e-3, d)
+    av, bv = (y[:, 2] - y[:, 0]) / d, -(x[:, 2] - x[:, 0]) / d
+    aw, bw = -(y[:, 1] - y[:, 0]) / d, (x[:, 1] - x[:, 0]) / d
+    cv = -(av * x[:, 0] + bv * y[:, 0])
+    cw = -(aw * x[:, 0] + bw * y[:, 0])
+    return np.stack([av, bv, cv, aw, bw, cw], 1)
+
+
+def random_faces(rng, g, box, frame):
+    """Seeded packed faces (pack_faces layout) for K1: g triangles around
+    ``box`` = (x0, x1, y0, y1) in frame coordinates, a third with integer
+    vertices (edges through pixel centres) and a quarter covering their
+    whole bbox. Depths: constants from nine values (exact ties), or
+    gradients, or, on 6% with a small bbox, NaN / +inf / -inf; about 30%
+    do not write z, 10% are invalid, 15% take the per-pixel clip test with
+    some negative planes.
+    ``frame`` = (x_max, y_max) clamps the bboxes. Returns (fdata (g, 34)
+    float32, flags (g,) int32) as torch tensors."""
+    from tpu_renderer_torch.ops import raster_plain as rp
+
+    x0, x1, y0, y1 = box
+    p = rng.uniform([x0 - 6, y0 - 6], [x1 + 6, y1 + 6], size=(g, 3, 2))
+    p = np.where(rng.random((g, 1, 1)) < 0.35, np.round(p), p)
+    aff = _triangle_rows(p)
+    full = rng.random(g) < 0.25
+    aff[full] = [0, 0, 0.25, 0, 0, 0.25]
+    z = np.zeros((g, 3))
+    kind = rng.integers(0, 50, g)
+    z[:, 2] = rng.choice(np.linspace(0.1, 0.9, 9), g)
+    grad = kind < 20
+    z[grad] = rng.uniform(-0.01, 0.01, (grad.sum(), 3))
+    z[grad, 2] += 0.5
+    odd_z = kind == 48
+    z[odd_z, 2] = rng.choice([np.nan, np.inf, -np.inf], odd_z.sum())
+    z[kind == 49, 0] = np.inf            # NaN at column 0, inf elsewhere
+    lo = np.ceil(p.min(1))
+    hi = np.ceil(p.max(1))
+    bbox = np.stack([np.clip(lo[:, 0], 0, frame[0]),
+                     np.clip(hi[:, 0], 0, frame[0]),
+                     np.clip(lo[:, 1], 0, frame[1]),
+                     np.clip(hi[:, 1], 0, frame[1])], 1)
+    bbox[full] = [x0, x1, y0, y1]
+    odd = kind >= 47
+    bbox[odd, 1] = np.minimum(bbox[odd, 0] + 4, frame[0])
+    bbox[odd, 3] = np.minimum(bbox[odd, 2] + 4, frame[1])
+    clip = rng.uniform(0.2, 1.0, (g, 18))
+    clip[rng.random((g, 18)) < 0.05] *= -1
+    fdata = np.concatenate([aff, z, rng.uniform(0.5, 2.0, (g, 3)), bbox,
+                            clip], 1).astype(np.float32)
+    assert fdata.shape[1] == rp.F_COLS
+    ppc = rng.random(g) < 0.15
+    flags = ((rng.random(g) < 0.9) * rp.FLAG_VALID
+             | ppc * (rp.FLAG_CLIP | rp.FLAG_PPC)
+             | (rng.random(g) < 0.7) * rp.FLAG_ZWRITE)
+    return torch.from_numpy(fdata), torch.from_numpy(flags.astype(np.int32))
+
+
+def long_face_list(seed=0, row0=0):
+    """K1's adversarial table on ADV_RES rows from ``row0``: 700 faces
+    crowd one tile (a list longer than two staging chunks), 150 more spread
+    over the frame. Returns (fdata, flags, h, w)."""
+    rng = np.random.default_rng(seed)
+    h, w = ADV_RES
+    lo, hi = CROWDED
+    crowd = random_faces(rng, 700, (lo, hi, row0 + lo, row0 + hi),
+                         (w, row0 + h))
+    spread = random_faces(rng, 150, (0, w, row0, row0 + h), (w, row0 + h))
+    order = torch.from_numpy(rng.permutation(850))
+    fdata = torch.cat([crowd[0], spread[0]])[order].contiguous()
+    flags = torch.cat([crowd[1], spread[1]])[order].contiguous()
+    return fdata, flags, h, w
+
+
+def _corner_quads(corners, rng):
+    """Triangles with an edge through the given pixel centres, at random
+    orientations, integer vertices: the edge value there is exactly 0."""
+    out = []
+    for cx, cy in corners:
+        for dx, dy in ((1, 1), (1, -1), (-1, 1), (-1, -1), (1, 0), (0, 1)):
+            k = int(rng.integers(3, 9))
+            a = (cx - k * dx, cy - k * dy)
+            b = (cx + k * dx, cy + k * dy)
+            side = 1 if rng.random() < 0.5 else -1
+            c = (cx - side * k * dy + k * dx, cy + side * k * dx + k * dy)
+            out.append([a, b, c])
+    return np.asarray(out, np.float64).reshape(-1, 3, 2)
+
+
+def random_quads(rng, e, box, frame_h, frame_w, corners=()):
+    """Seeded clipped shadow polygons around ``box`` packed by pack_quads:
+    3-8 vertices on an ellipse, a third snapped to integer and a sixth to
+    half-integer positions, z in [-1, 1] on a plane; triangles with an edge
+    through each of ``corners``' pixel centres; ok on 90%. Then a few
+    quads' active edge coefficients are made huge, ±inf or NaN, and their
+    bbox the whole frame (the bbox no longer bounds what such edges
+    accept). Returns (qdata, qi) for a frame of ``frame_h`` x ``frame_w``
+    pixels."""
+    from tpu_renderer_torch.ops.shadow import QUAD_PMAX
+
+    x0, x1, y0, y1 = box
+    n = rng.integers(3, 9, e)
+    ctr = rng.uniform([x0, y0], [x1, y1], size=(e, 2))
+    rad = rng.uniform(2, 30, (e, 2))
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (e, QUAD_PMAX)), 1)
+    xy = ctr[:, None] + rad[:, None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+    snap = rng.random(e)
+    xy = np.where((snap < 0.33)[:, None, None], np.round(xy), xy)
+    xy = np.where(((snap >= 0.33) & (snap < 0.5))[:, None, None],
+                  np.round(xy * 2) / 2, xy)
+    tri = _corner_quads(corners, rng)
+    xy = np.concatenate([xy, np.zeros((len(tri), QUAD_PMAX, 2))])
+    xy[e:, :3] = tri
+    n = np.concatenate([n, np.full(len(tri), 3)])
+    m = len(n)
+    plane = rng.uniform(-0.01, 0.01, (m, 2))
+    z = (plane[:, None, 0] * xy[..., 0] + plane[:, None, 1] * xy[..., 1]
+         + rng.uniform(-0.9, 0.9, (m, 1)))
+    screen = np.concatenate([xy, z[..., None], np.ones((m, QUAD_PMAX, 1))], -1)
+    ok = rng.random(m) < 0.9
+    from tpu_renderer_torch.ops import raster_cuda
+    qdata, qi = raster_cuda.pack_quads(
+        torch.from_numpy(screen.astype(np.float32)),
+        torch.from_numpy(n.astype(np.int32)), torch.from_numpy(ok),
+        frame_h, frame_w)
+    bad = rng.choice(e, 12, replace=False)
+    vals = [np.inf, -np.inf, np.nan, 3e38, -3e38]
+    for i, q in enumerate(bad):
+        slot = int(rng.integers(0, int(n[q])))
+        col = [0, 12, 24][i % 3] + slot
+        qdata[q, col] = float(vals[i % len(vals)])
+        qi[q, 0:4] = torch.tensor([0, frame_w, 0, frame_h])
+        qdata[q, 40:44] = qi[q, 0:4].to(torch.float32)
+    return qdata, qi
+
+
+def long_quad_list(seed=0, row0=0):
+    """K4's adversarial inputs on ADV_RES rows from ``row0``: 800 quads
+    crowd one tile (a list longer than two staging chunks), 100 more spread
+    over the frame, edges through the crowded tile's and its neighbours'
+    corner pixel centres; the tile left of the crowded one is all
+    background, every other tile holds geometry at seeded depths and some
+    background pixels. Returns (qdata, qi, zb_sign, sign, nf2, fpn, fmn)."""
+    rng = np.random.default_rng(seed)
+    h, w = ADV_RES
+    lo, hi = CROWDED
+    corners = [(x, row0 + y) for x in (lo - 1, lo, hi - 1, hi)
+               for y in (lo - 1, lo, hi - 1, hi)]
+    crowd = random_quads(rng, 800, (lo, hi, row0 + lo, row0 + hi),
+                         row0 + h, w, corners)
+    spread = random_quads(rng, 100, (0, w, row0, row0 + h), row0 + h, w)
+    qdata = torch.cat([crowd[0], spread[0]]).contiguous()
+    qi = torch.cat([crowd[1], spread[1]]).contiguous()
+    zb = rng.uniform(0.1, 50.0, (h, w))
+    zb[rng.random((h, w)) < 0.1] = np.inf
+    zb[lo:hi, 0:lo] = np.inf
+    return (qdata, qi, torch.from_numpy(zb.astype(np.float32)), 1,
+            *rc.stencil_scalars(0.1, 50.0))
+
+
 #: Kernel cases: case id -> (wrapper name in raster_cuda, the LAUNCHES key
-#: its launch counts under); K5 once per layout, and the sharded modes.
+#: its launch counts under); K5 once per layout, the sharded modes, and the
+#: adversarial inputs of K1 (claim, and z only at row0 > 0) and K4.
 CASES = {"visibility": ("visibility", "visibility"),
          "gbuffer": ("gbuffer", "gbuffer"),
          "sample_textures": ("sample_textures", "sample_textures"),
@@ -80,7 +263,14 @@ CASES = {"visibility": ("visibility", "visibility"),
          "gbuffer_slim-gouraud-owned": ("gbuffer_slim", "gbuffer_slim"),
          "gbuffer_slim-pbr-owned": ("gbuffer_slim", "gbuffer_slim"),
          "sample_textures-owned": ("sample_textures", "sample_textures"),
-         "stencil-row0": ("stencil", "stencil")}
+         "stencil-row0": ("stencil", "stencil"),
+         "visibility-long": ("visibility", "visibility"),
+         "visibility_z-long-row0": ("visibility", "visibility_z"),
+         "stencil-long": ("stencil", "stencil"),
+         "stencil-long-row0": ("stencil", "stencil")}
+
+#: row0 of the adversarial ``-row0`` cases.
+ADV_ROW0 = 40
 
 
 #: chip_smoke.shard_inputs' case names -> the sharded cases' ids here.
@@ -132,6 +322,13 @@ def stage_inputs():
     (_, _, zb_rows, _), kw = shard["tidpass"]
     inputs["stencil-row0"] = ((qdata, qi, zb_rows, cfg.system, *zc),
                               {"row0": kw["row0"]})
+    inputs["visibility-long"] = ((*long_face_list(1), -1), {})
+    inputs["visibility_z-long-row0"] = (
+        (*long_face_list(2, ADV_ROW0), 1),
+        {"row0": ADV_ROW0, "want_tid": False})
+    inputs["stencil-long"] = (long_quad_list(3), {})
+    inputs["stencil-long-row0"] = (long_quad_list(4, ADV_ROW0),
+                                   {"row0": ADV_ROW0})
     return inputs
 
 
@@ -196,6 +393,33 @@ def test_shard_inputs_are_not_degenerate(stage_inputs):
     assert (call("stencil-row0", rc.stencil) != 0).any()
 
 
+def test_adversarial_inputs_are_not_degenerate(stage_inputs):
+    """The crowded tile's lists are longer than two staging chunks, its
+    faces tie in z and claim pixels, and the quads shadow some pixels of
+    it while the all-background tile stays 0."""
+    from tpu_renderer_torch.ops import raster_plain as rp
+
+    lo, hi = CROWDED
+    t = (lo // rc.TILE) * (ADV_RES[1] // rc.TILE) + lo // rc.TILE
+    for name in ("visibility-long", "visibility_z-long-row0"):
+        (fdata, flags, h, w, _), kw = stage_inputs[name]
+        off, _ = rc.tile_bins(fdata[:, rp.F_BBOX:rp.F_BBOX + 4].int(),
+                              (flags & rp.FLAG_VALID) > 0, h, w,
+                              row0=kw.get("row0", 0))
+        assert off[t + 1] - off[t] > 2 * CHUNK
+    zb, tid = rc.visibility(*stage_inputs["visibility-long"][0])
+    assert len(torch.unique(tid[lo:hi, lo:hi])) > 8
+    assert (tid >= 0).float().mean() > 0.5
+    for name in ("stencil-long", "stencil-long-row0"):
+        (qdata, qi, zb, *_), kw = stage_inputs[name]
+        off, _ = rc.tile_bins(qi[:, 0:4], qi[:, 5] > 0, *ADV_RES,
+                              row0=kw.get("row0", 0))
+        assert off[t + 1] - off[t] > 2 * CHUNK
+        st = rc.stencil(*stage_inputs[name][0], **kw)
+        assert (st[lo:hi, lo:hi] != 0).any()
+        assert (zb[lo:hi, :lo] >= 3e38).all() and (st[lo:hi, :lo] == 0).all()
+
+
 def test_tile_bins_list_every_overlap_in_order():
     rng = np.random.default_rng(3)
     x0 = rng.integers(0, 60, 200)
@@ -239,6 +463,29 @@ def test_kernel_matches_plain_on_card(cuda_inputs, name):
     assert rc.LAUNCHES[key] == 1
     want = getattr(rc, f"{fn}_plain")(*args, **kw)
     assert _equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["visibility-long", "visibility_z-long-row0",
+                                  "stencil-long", "stencil-long-row0",
+                                  "visibility", "stencil"])
+def test_coarse_bins_match_plain_on_card(cuda_inputs, name):
+    """csrc/bins.cu's coarse lists (K1's faces, K4's quads) list exactly
+    coarse_bins_plain's primitives, in table order."""
+    args, kw = cuda_inputs[name]
+    chip_smoke._check_coarse_bins(CASES[name][0], args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["visibility", "visibility-long",
+                                  "visibility_z-shard", "stencil",
+                                  "stencil-row0", "stencil-long"])
+def test_binned_wrappers_do_not_sync_on_card(cuda_inputs, name):
+    """K1's and K4's wrappers never wait for the device: they run under
+    torch's sync debug mode "error", which raises on tile_bins' nonzero."""
+    args, kw = cuda_inputs[name]
+    fn = getattr(rc, CASES[name][0])
+    chip_smoke._assert_no_sync(lambda: fn(*args, **kw))
 
 
 @pytest.mark.cuda

@@ -17,6 +17,12 @@
 // Pixel tile edge: one block of TILE x TILE threads per binning tile
 // (raster_cuda.TILE).
 constexpr int TILE = 16;
+// Threads of a raster block, and rows staged per chunk by K1 and K4.
+constexpr int BLOCK = TILE * TILE;
+// Edge of K1's and K4's coarse binning tiles (csrc/bins.cu), a multiple of
+// TILE (raster_cuda.COARSE mirrors it).
+constexpr int COARSE = 128;
+static_assert(COARSE % TILE == 0, "a coarse tile holds whole fine tiles");
 
 // Packed face table (raster_cuda.pack_faces).
 constexpr int F_AFF = 0;     // av bv cv aw bw cw az bz cz
@@ -63,11 +69,94 @@ __device__ __forceinline__ bool face_cover(const float* __restrict__ f,
     return true;
 }
 
+// Bbox overlap of a tile whose first pixel is (x0, y0) and whose edge is
+// `edge` px: tile_bins' test. A face's bbox is its packed float window
+// (integer-valued; compared as floats, the tile's edges are exact), so a
+// face that face_cover accepts at some pixel of the tile always passes; it
+// must be valid too. A quad's bbox is qi[0:4], and it must be active.
+__device__ __forceinline__ bool face_overlaps(const float* __restrict__ f,
+                                              int flags, int x0, int y0,
+                                              int edge) {
+    const float b0 = f[F_BBOX], b1 = f[F_BBOX + 1], b2 = f[F_BBOX + 2],
+                b3 = f[F_BBOX + 3];
+    return (flags & FLAG_VALID) && b0 < (float)(x0 + edge) &&
+           b1 > (float)x0 && b2 < (float)(y0 + edge) && b3 > (float)y0;
+}
+
+__device__ __forceinline__ bool quad_overlaps(const int* __restrict__ q,
+                                              int x0, int y0, int edge) {
+    return q[5] > 0 && q[0] < x0 + edge && q[1] > x0 && q[2] < y0 + edge &&
+           q[3] > y0;
+}
+
+// Block-wide ordered compaction: this thread's rank among the threads of
+// the block whose `flag` is set, in thread order, and their number in
+// *total. `t` is the thread's linear index; every thread of the block (a
+// multiple of 32, NWARPS warps) must call it. A warp ballot gives the rank
+// inside the warp, a prefix over the per-warp counts in shared memory the
+// warp's base. The second barrier lets the caller reuse `warp_counts` and
+// write what the previous call's ranks addressed.
+template <int NWARPS>
+__device__ __forceinline__ int block_rank(bool flag, int t, int* warp_counts,
+                                          int* total) {
+    const int lane = t & 31, warp = t >> 5;
+    const unsigned ballot = __ballot_sync(0xffffffffu, flag);
+    if (lane == 0) warp_counts[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, sum = 0;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+        const int c = warp_counts[w];
+        before += w < warp ? c : 0;
+        sum += c;
+    }
+    __syncthreads();
+    *total = sum;
+    return before + __popc(ballot & ((1u << lane) - 1u));
+}
+
+// cp.async (sm_80 and later): a copy of BYTES (8 or 16, both addresses
+// aligned to it) from global to shared memory that takes no register and
+// does not stall the thread; all of a thread's copies complete at
+// cp_async_wait_all(), and a barrier after it publishes them to the block.
+// K1 and K4 stage rows with it, so a thread keeps every load of its share
+// of a chunk in flight at once.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+    static_assert(BYTES == 8 || BYTES == 16, "cp.async copies 8 or 16 bytes");
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(gmem), "n"(BYTES));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Coarse binning on the card (csrc/bins.cu): kind BIN_FACES bins the
+// packed face table `fdata` by its valid flag word `words` (flags), kind
+// BIN_QUADS the quads by `words` = qi, over tiles of COARSE x COARSE
+// pixels: every raster block of a coarse tile refines its list to its own
+// TILE x TILE tile. Tile t of the grid over `height` rows from row0 lists
+// items[t*n : t*n + counts[t]], ascending; the capacity n per tile means no
+// overlap is ever dropped. Returns the launch's cudaError_t.
+enum BinKind { BIN_FACES = 0, BIN_QUADS = 1 };
+int launch_coarse_bins(int kind, const float* fdata, const int* words, int n,
+                       int height, int width, int row0, int* counts,
+                       int* items, cudaStream_t stream);
+
+// The coarse tile of a raster block of TILE x TILE pixels.
+__device__ __forceinline__ int coarse_tile_of_block(int width) {
+    constexpr int per = COARSE / TILE;
+    return (blockIdx.y / per) * ((width + COARSE - 1) / COARSE) +
+           blockIdx.x / per;
+}
+
 // The claim against a final z-buffer value zb (sign space): the LAST face of
 // the tile's list items[k0:k1] (face order) that covers pixel (r, c) and
 // passes zb >= z*sign, or -1 (reference pass 3, triangular.py:99-109). The
-// list is walked backwards and the walk stops at the first claimer. K1's
-// claim pass and K7 share it.
+// list is walked backwards and the walk stops at the first claimer. K7
+// (tidpass.cu) uses it; K1 claims in its one forward walk.
 __device__ __forceinline__ int claim_last(const float* __restrict__ fdata,
                                           const int* __restrict__ flags,
                                           const int* __restrict__ items,

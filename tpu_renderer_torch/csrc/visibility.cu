@@ -15,78 +15,149 @@
 // the shards' z-buffers are merged, and K7 (tidpass.cu) claims against the
 // merged one.
 //
+// One walk instead of two. Each thread keeps a running minimum m (start
+// +inf) and a candidate c (start -1); for each covering face in face order,
+// with zs = z*sign:
+//     if (zs <= m) { c = face; if (face writes z) m = zs; }
+// m is pass 1's recurrence, so it ends as the final buffer Z. c ends as the
+// LAST face with zs <= Z, pass 2's answer:
+// - Z is never above the running m, so every face with zs <= Z passes
+//   zs <= m when the walk reaches it; in particular the last one, L, does.
+// - A face f that passes zs <= m but has zs > Z: then Z < +inf is some
+//   z-writing face g's zs (a minimum of finitely many values), and g comes
+//   after f (had it come before, m <= Z < zs at f). g passes zs <= m
+//   (nothing is below Z) and zs <= Z, so a face passing both comes after
+//   f, and the walk's last passer is never such an f: it is L.
+// - NaN zs fails both tests (and never lowers m), as it fails both passes;
+//   ties stay "later face wins" because the test is <=.
+//
 // Sharding: the block grid covers a block of frame rows starting at row0,
 // and the pixel math runs in global coordinates (row0 + local row, exact as
 // a float below 2^24), so a shard's rows are bit-identical to the same rows
 // of a one-device frame. The id written is the face's index in the table
 // (K7 writes a shard's global ids).
 //
-// What bounds it on the H100: per-(pixel, face) arithmetic and the face-list
-// walk — each visit reads a 34-float face row (the same row for the whole
-// block, served from L1) and does ~10 flops, ~40 with the clip test. Design:
-// one thread per pixel, one 16x16 block per tile; the face lists per tile
-// are built in torch (raster_cuda.tile_bins, face order kept), so a thread
-// visits only faces whose bbox touches its tile. Pass 2 walks the list
-// backwards and stops at the first claimer, which is the last in face order.
-// Arithmetic rounds op by op (-fmad=false), bit-identical to the plain
-// version (raster_plain.py).
+// What bounds it on the H100: neither bytes (2.7 us of needed bytes at
+// 1024^2) nor the card's arithmetic rate, but latency, in three parts: the
+// binning (csrc/bins.cu, a few dependent steps per chunk of the table), the
+// chunk loop (list entry, flag word and bbox per candidate, then the rows'
+// copy, each a round trip to L2), and the walk, which dominates: every
+// thread of a block tests every face staged for its tile in turn, so the
+// tiles with the longest lists set the kernel's time. Before this design
+// every (pixel, face) visit was itself a chain of dependent global loads,
+// the list was built in torch with a host sync, and claims walked it twice.
+// Design: the lists come from csrc/bins.cu (coarse tiles, on the card, no
+// host sync). One 16x16 block per tile, one thread per pixel, walks its
+// coarse tile's list in chunks of BLOCK faces: each thread tests one face's
+// bbox against the fine tile (the test of tile_bins, so nothing face_cover
+// could accept is lost; the z-only mode also drops faces that do not write
+// z), the faces that pass are ballot-compacted in face order, and the block
+// copies their flag words and rows into shared memory (cp.async, every
+// copy of a chunk in flight at once, 34.8 KB a chunk). Every thread then
+// walks the staged faces from shared memory; the walk only goes forward, so
+// one staged chunk serves the whole block.
+// Tensor cores do not apply: the per-(pixel, face) work is f32 compares and
+// sums that must round op by op (-fmad=false) to stay bit-identical to the
+// plain version (raster_plain.py), with no matrix product for wgmma.
 #include "common.cuh"
 
 namespace {
 
 template <bool WANT_TID>
-__global__ void visibility_kernel(const float* __restrict__ fdata,
-                                  const int* __restrict__ flags,
-                                  const int* __restrict__ tile_off,
-                                  const int* __restrict__ tile_items,
-                                  int height, int width, int tiles_x,
-                                  int row0, float sign,
-                                  float* __restrict__ zb_out,
-                                  int* __restrict__ tid_out) {
+__global__ void __launch_bounds__(BLOCK)
+    visibility_kernel(const float* __restrict__ fdata,
+                      const int* __restrict__ flags,
+                      const int* __restrict__ bin_counts,
+                      const int* __restrict__ bin_items, int n_faces,
+                      int height, int width, int row0, float sign,
+                      float* __restrict__ zb_out, int* __restrict__ tid_out) {
+    __shared__ __align__(16) float s_rows[BLOCK * F_COLS];
+    __shared__ int s_face[BLOCK];
+    __shared__ int s_flag[BLOCK];
+    __shared__ int s_warp[BLOCK / 32];
+    const int t = threadIdx.y * TILE + threadIdx.x;
     const int row = blockIdx.y * TILE + threadIdx.y;
     const int col = blockIdx.x * TILE + threadIdx.x;
-    if (row >= height || col >= width) return;
+    const int tx0 = blockIdx.x * TILE;
+    const int ty0 = row0 + blockIdx.y * TILE;
     const float r = static_cast<float>(row0 + row);
     const float c = static_cast<float>(col);
-    const int tile = blockIdx.y * tiles_x + blockIdx.x;
-    const int k0 = tile_off[tile];
-    const int k1 = tile_off[tile + 1];
+    const int ct = coarse_tile_of_block(width);
+    const int count = bin_counts[ct];
+    const int* list = bin_items + (size_t)ct * n_faces;
 
-    float zb = INFINITY;
-    for (int k = k0; k < k1; ++k) {
-        const int face = tile_items[k];
-        const int fl = flags[face];
-        if (!(fl & FLAG_ZWRITE)) continue;
-        float z;
-        if (face_cover(fdata + (size_t)face * F_COLS, fl, r, c, &z)) {
-            const float zs = z * sign;
-            if (zb >= zs) zb = zs;
+    float m = INFINITY;
+    int cand = -1;
+    // No thread leaves before the last barrier: threads outside the frame
+    // stage faces like the others and only skip the write.
+    for (int k0 = 0; k0 < count; k0 += BLOCK) {
+        const int k = k0 + t;
+        int face = 0, fl = 0;
+        bool hit = false;
+        if (k < count) {
+            face = list[k];
+            fl = flags[face];
+            hit = face_overlaps(fdata + (size_t)face * F_COLS, fl, tx0, ty0,
+                                TILE) &&
+                  (WANT_TID || (fl & FLAG_ZWRITE));
+        }
+        int staged;
+        // block_rank's barriers also end the previous chunk's walk.
+        const int pos = block_rank<BLOCK / 32>(hit, t, s_warp, &staged);
+        if (hit) {
+            s_face[pos] = face;
+            s_flag[pos] = fl;
+        }
+        __syncthreads();
+        // Rows are 136 bytes, 8-byte aligned (the wrapper checks the base):
+        // 17 copies of 8 bytes each.
+        constexpr int PAIRS = F_COLS / 2;
+        for (int e = t; e < staged * PAIRS; e += BLOCK) {
+            const int j = e / PAIRS;
+            const int off = 2 * (e - j * PAIRS);
+            cp_async<8>(s_rows + j * F_COLS + off,
+                        fdata + (size_t)s_face[j] * F_COLS + off);
+        }
+        cp_async_wait_all();
+        __syncthreads();
+        for (int j = 0; j < staged; ++j) {
+            const int fj = s_flag[j];
+            float z;
+            if (face_cover(s_rows + j * F_COLS, fj, r, c, &z)) {
+                const float zs = z * sign;
+                if (zs <= m) {
+                    cand = s_face[j];
+                    if (fj & FLAG_ZWRITE) m = zs;
+                }
+            }
         }
     }
-    const size_t p = (size_t)row * width + col;
-    zb_out[p] = zb;
-    if constexpr (WANT_TID)
-        tid_out[p] =
-            claim_last(fdata, flags, tile_items, k0, k1, r, c, zb, sign);
+    if (row < height && col < width) {
+        const size_t p = (size_t)row * width + col;
+        zb_out[p] = m;
+        if constexpr (WANT_TID) tid_out[p] = cand;
+    }
 }
 
 }  // namespace
 
-TR_EXPORT int tr_visibility(const float* fdata, const int* flags,
-                            const int* tile_off, const int* tile_items,
-                            int height, int width, int tiles_x, int row0,
-                            float sign, int want_tid,
+TR_EXPORT int tr_visibility(const float* fdata, const int* flags, int n_faces,
+                            int* bin_counts, int* bin_items, int height,
+                            int width, int row0, float sign, int want_tid,
                             float* zb_sign, int* tid, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    const int rc = launch_coarse_bins(BIN_FACES, fdata, flags, n_faces, height,
+                                      width, row0, bin_counts, bin_items, st);
+    if (rc != 0) return rc;
     const dim3 block(TILE, TILE);
     const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE);
-    cudaStream_t st = (cudaStream_t)stream;
     if (want_tid)
         visibility_kernel<true><<<grid, block, 0, st>>>(
-            fdata, flags, tile_off, tile_items, height, width, tiles_x, row0,
+            fdata, flags, bin_counts, bin_items, n_faces, height, width, row0,
             sign, zb_sign, tid);
     else
         visibility_kernel<false><<<grid, block, 0, st>>>(
-            fdata, flags, tile_off, tile_items, height, width, tiles_x, row0,
+            fdata, flags, bin_counts, bin_items, n_faces, height, width, row0,
             sign, zb_sign, tid);
     return (int)cudaGetLastError();
 }

@@ -37,9 +37,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
 #: C signatures of the exported launchers (every one returns cudaError_t).
 _SIGNATURES = {
-    # fdata, flags, tile_off, tile_items, H, W, tiles_x, row0, sign,
+    # fdata, flags, n_faces, bin_counts, bin_items, H, W, row0, sign,
     # want_tid, zb_sign, tid, stream
-    "tr_visibility": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P],
+    "tr_visibility": [_P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     # fdata, flags, tile_off, tile_items, zb_sign, H, W, tiles_x, row0, gid0,
     # sign, tid, stream
     "tr_tidpass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
@@ -49,9 +49,12 @@ _SIGNATURES = {
     # gid0, g_local, samp, mask, stream
     "tr_sample_textures": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _P, _P, _P],
-    # qdata, qi, tile_off, tile_items, zb_sign, H, W, tiles_x, row0,
+    # qdata, qi, n_quads, bin_counts, bin_items, zb_sign, H, W, row0,
     # sign_nf2, fpn, fmn, stencil, stream
-    "tr_stencil": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
+    "tr_stencil": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P],
+    # kind (0 faces, 1 quads), fdata, flags or qi, n, H, W, row0,
+    # bin_counts, bin_items, stream
+    "tr_coarse_bins": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # fdata, sdata, tid, layout, H, W, row0, gid0, g_local, gbuffer, stream
     "tr_gbuffer_slim": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # ldata, lbbox, tile_off, tile_items, zbuf, H, W, tiles_x, mask, stream

@@ -5,13 +5,14 @@ Counterpart of ``tpu_renderer/ops/raster_pallas.py``:
 
 | wrapper             | kernel source          | replaces (Pallas)                       |
 |---------------------|------------------------|-----------------------------------------|
-| ``visibility``      | csrc/visibility.cu     | visibility_gbuffer_pallas phase 0;      |
-|                     |                        | visibility_pallas (z only: want_tid)    |
+| ``visibility``      | csrc/visibility.cu,    | visibility_gbuffer_pallas phase 0;      |
+|                     | csrc/bins.cu           | visibility_pallas (z only: want_tid)    |
 | ``gbuffer``         | csrc/gbuffer.cu        | visibility_gbuffer_pallas phase 1;      |
 |                     |                        | gbuffer_pallas (owned range)            |
 | ``sample_textures`` | csrc/sample_textures.cu| the in-kernel windowed texture sampler; |
 |                     |                        | sample_textures_pallas (owned range)    |
-| ``stencil``         | csrc/stencil.cu        | stencil_pallas                          |
+| ``stencil``         | csrc/stencil.cu,       | stencil_pallas                          |
+|                     | csrc/bins.cu           |                                         |
 | ``gbuffer_slim``    | csrc/gbuffer_slim.cu   | phase 1, slim layouts (_slim_interp_face)|
 |                     |                        | and gbuffer_pallas's (owned range)      |
 | ``lines``           | csrc/lines.cu          | lines_pallas                            |
@@ -30,6 +31,11 @@ there. For CUDA tensors it checks device, dtype, shape and contiguity,
 allocates the outputs, launches the kernel on the current stream, raises if
 the launch reports an error, and adds one to its entry in :data:`LAUNCHES`.
 There is no fallback from the kernel: any other device raises.
+
+K1 and K4 bin on the card (csrc/bins.cu, :func:`coarse_bins_plain`), into
+scratch sized from what the host knows (table rows, frame size, COARSE),
+so their wrappers never wait for the device. K6 and K7 still bin with
+:func:`tile_bins`, whose ``nonzero`` does.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from tpu_renderer_torch.ops.shadow import QUAD_PMAX, quad_edge_coeffs, \
 __all__ = [
     "face_flags", "pack_faces", "pack_face_attrs", "pack_quads",
     "pack_slim_attrs", "pack_lines", "stencil_scalars", "tile_bins",
+    "coarse_bins_plain", "bin_scratch_bytes", "COARSE", "MAX_BIN_SCRATCH",
     "visibility", "gbuffer", "sample_textures", "stencil", "gbuffer_slim",
     "lines", "tidpass", "visibility_plain", "gbuffer_plain",
     "sample_textures_plain", "stencil_plain", "gbuffer_slim_plain",
@@ -64,6 +71,12 @@ def reset_launches():
 
 #: Pixel tile edge of the binning grid; each CUDA block shades one tile.
 TILE = 16
+#: Edge of K1's and K4's coarse binning tiles; mirrors ``COARSE`` in
+#: csrc/common.cuh, where the kernels fix it.
+COARSE = 128
+#: Largest coarse-list scratch (bytes) K1's and K4's wrappers allocate:
+#: :func:`bin_scratch_bytes` grows with frame area times table rows.
+MAX_BIN_SCRATCH = 2 ** 31
 
 # ------------------------------------------------------------- G-buffer
 #: Channel layout of the forward-interpolated G-buffer (general shader),
@@ -307,6 +320,57 @@ def tile_bins(bbox, active, height, width, tile=TILE, row0=0):
     offsets[1:] = torch.cumsum(counts, 0)
     items = torch.nonzero(ov)[:, 1]          # row-major: tile, then order
     return offsets.to(torch.int32), items.to(torch.int32).contiguous()
+
+
+def coarse_bins_plain(bbox, active, height, width, row0=0):
+    """The coarse lists csrc/bins.cu builds for K1 and K4: for each COARSE
+    tile over ``height`` rows from ``row0`` (row-major), the active
+    primitives whose bbox overlaps it, in table order.
+
+    bbox: (N, 4) [x0, x1, y0, y1) windows, compared in their own type (K1's
+    packed float windows as floats, K4's int32 ones as integers); active:
+    (N,) bool. Returns (counts (T,) int32, items (T, N) int32, -1 past each
+    tile's count).
+    """
+    dev = bbox.device
+    n = bbox.shape[0]
+    b = bbox if bbox.is_floating_point() else bbox.to(torch.int64)
+    ty = torch.arange(-(-height // COARSE), device=dev,
+                      dtype=b.dtype)[:, None] * COARSE + row0
+    tx = torch.arange(-(-width // COARSE), device=dev,
+                      dtype=b.dtype)[:, None] * COARSE
+    ov_x = (b[None, :, 0] < tx + COARSE) & (b[None, :, 1] > tx)
+    ov_y = (b[None, :, 2] < ty + COARSE) & (b[None, :, 3] > ty)
+    ov = (ov_y[:, None, :] & ov_x[None, :, :] & active[None, None, :])
+    ov = ov.reshape(-1, n)
+    order = torch.arange(n, device=dev).expand_as(ov)
+    items = torch.where(ov, order, n).sort(1).values
+    items = torch.where(items < n, items, -1)
+    return ov.sum(1).to(torch.int32), items.to(torch.int32)
+
+
+def bin_scratch_bytes(n, height, width):
+    """Bytes of the coarse lists K1's and K4's wrappers allocate for a table
+    of ``n`` rows: a count and room for every row per COARSE tile."""
+    return _coarse_tiles(height, width) * (max(n, 1) + 1) * 4
+
+
+def _coarse_tiles(height, width):
+    return -(-height // COARSE) * -(-width // COARSE)
+
+
+def _bin_scratch(n, height, width, device):
+    """(counts, items) int32 buffers for csrc/bins.cu, sized on the host.
+    Raises ValueError above MAX_BIN_SCRATCH bytes."""
+    need = bin_scratch_bytes(n, height, width)
+    if need > MAX_BIN_SCRATCH:
+        raise ValueError(
+            f"coarse binning of {n} rows at {height}x{width} needs {need} "
+            f"bytes of scratch ((H/{COARSE}) * (W/{COARSE}) * (rows + 1) * 4),"
+            f" above MAX_BIN_SCRATCH = {MAX_BIN_SCRATCH}")
+    tiles = _coarse_tiles(height, width)
+    return (torch.empty(tiles, dtype=torch.int32, device=device),
+            torch.empty(tiles * max(n, 1), dtype=torch.int32, device=device))
 
 
 # ------------------------------------------------------------- plain versions
@@ -569,6 +633,12 @@ def _require(t, name, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _require_aligned(t, name, align):
+    """The kernel stages rows of ``t`` with ``align``-byte copies."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: must start on a {align}-byte boundary")
+
+
 def _launch(name, *args, counter=None):
     """Launch ``tr_<name>`` on the current stream; raise if the launch
     fails, else add one to ``LAUNCHES[counter or name]``."""
@@ -604,13 +674,14 @@ def visibility(fdata, flags, height, width, sign, row0=0, want_tid=True):
     g = fdata.shape[0]
     _require(fdata, "fdata", torch.float32, (g, rp.F_COLS))
     _require(flags, "flags", torch.int32, (g,))
-    off, items = _face_bins(fdata, flags, height, width, row0)
+    _require_aligned(fdata, "fdata", 8)
+    counts, items = _bin_scratch(g, height, width, fdata.device)
     zb = torch.empty((height, width), dtype=torch.float32,
                      device=fdata.device)
     tid = (torch.empty((height, width), dtype=torch.int32,
                        device=fdata.device) if want_tid else None)
-    _launch("visibility", fdata.data_ptr(), flags.data_ptr(), off.data_ptr(),
-            items.data_ptr(), height, width, -(-width // TILE), row0,
+    _launch("visibility", fdata.data_ptr(), flags.data_ptr(), g,
+            counts.data_ptr(), items.data_ptr(), height, width, row0,
             float(sign), int(want_tid), zb.data_ptr(),
             tid.data_ptr() if want_tid else None,
             counter="visibility" if want_tid else "visibility_z")
@@ -695,14 +766,13 @@ def stencil(qdata, qi, zb_sign, sign, nf2, fpn, fmn, row0=0):
     _require(qdata, "qdata", torch.float32, (e, Q_COLS))
     _require(qi, "qi", torch.int32, (e, QI_COLS))
     _require(zb_sign, "zb_sign", torch.float32, (height, width))
-    off, items = tile_bins(qi[:, 0:4], qi[:, 5] > 0, height, width,
-                           row0=row0)
+    _require_aligned(qdata, "qdata", 16)
+    counts, items = _bin_scratch(e, height, width, zb_sign.device)
     st = torch.empty((height, width), dtype=torch.int32,
                      device=zb_sign.device)
-    _launch("stencil", qdata.data_ptr(), qi.data_ptr(), off.data_ptr(),
-            items.data_ptr(), zb_sign.data_ptr(), height, width,
-            -(-width // TILE), row0, float(sign * nf2), fpn, fmn,
-            st.data_ptr())
+    _launch("stencil", qdata.data_ptr(), qi.data_ptr(), e, counts.data_ptr(),
+            items.data_ptr(), zb_sign.data_ptr(), height, width, row0,
+            float(sign * nf2), fpn, fmn, st.data_ptr())
     return st
 
 
