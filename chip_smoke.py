@@ -14,13 +14,14 @@ exits non-zero without the final line):
    warm-up) and alone in a profile, beside its bound: the larger of the
    bytes its function must move in this run (``needed_bytes``) over
    3.35 TB/s and a lower count of its float operations over 67 TFLOP/s;
-   K1's and K4's coarse lists (csrc/bins.cu) must equal their plain
-   version, their wrappers must run under torch's sync debug mode "error"
-   (no wait for the device), and their lines show the lists' scratch
-   bytes; then the sharded modes on the inputs of rank 1 of phase 6's 1x2
-   (rows, tris) mesh, the whole frame height and the second half of each
-   model's faces (``shard_inputs``): K1 z only, K7, and the owned ranges of
-   K2, K5 (gouraud, pbr) and K3, each equal to its plain version;
+   the wrappers of K1, K4, K6 and K7 must run under torch's sync debug
+   mode "error" (no wait for the device), and K1's, K4's and K7's coarse
+   lists (csrc/bins.cu) must equal their plain version, their lines
+   showing the lists' scratch bytes; then the sharded modes on the inputs
+   of rank 1 of phase 6's 1x2 (rows, tris) mesh, the whole frame height
+   and the second half of each model's faces (``shard_inputs``): K1 z
+   only, K7, and the owned ranges of K2, K5 (gouraud, pbr) and K3, each
+   equal to its plain version;
 4. end to end, general shader: the flagship frame — a seeded procedural
    shadow-casting mesh of 4,992 faces with 1024² diffuse and tangent-space
    normal maps over a textured floor, point light, shadow volumes,
@@ -33,7 +34,8 @@ exits non-zero without the final line):
    over a seeded procedural cubemap skybox (6 × 512² faces); each render
    must launch the kernels of its path and match its plain-path render;
    each is timed against the general shader (without the skybox) as
-   interleaved orbits, general then variant, PAIRS times, and profiled;
+   interleaved orbits, general then variant, PAIRS times, and profiled
+   (wireframe also prints K6's ``tr.lines`` host range);
 6. sharded: ``render_frame_sharded`` on 1x2 (general, gouraud, pbr) and
    2x2 (general) meshes of ranks, one python3 subprocess each, started
    after the build and killed and waited for before the phase ends, gloo through a FileStore, every rank on ``cuda:0`` (one
@@ -45,7 +47,8 @@ exits non-zero without the final line):
    kernel equals its plain version, and the merges are the same
    collectives); every rank's launch counts must show the kernels of the
    sharded path. Rank 0 prints ms/frame (host clock,
-   after a barrier) and the traced share of the merges (``tr.merge_*``).
+   after a barrier), the traced share of the merges (``tr.merge_*``) and
+   K7's host range (``tr.tidpass``).
    The ranks share one card and gloo stages each collective through host
    memory: these are not multi-card numbers.
 
@@ -316,10 +319,11 @@ def _tile_sums(mask):
 #: Lower counts of float operations (multiply, add, compare, floor) per
 #: (pixel, listed item) visit of the tile-binned kernels — K1's coverage and
 #: depth test of one face in one pass (K7's claim test likewise); K4's first
-#: edge test, on geometry pixels only (it skips background); K6's bbox test,
-#: on interior pixels — and per computed pixel of the per-pixel kernels
-#: (K3: per kind).
-OPS_PER_VISIT = {"visibility": 20, "tidpass": 20, "stencil": 5, "lines": 4}
+#: edge test, on geometry pixels only (it skips background) — per pixel an
+#: edge reaches for K6 (one candidate test: kk, the minor coordinate, six
+#: compares, the depth and its test), and per computed pixel of the
+#: per-pixel kernels (K3: per kind).
+OPS_PER_VISIT = {"visibility": 20, "tidpass": 20, "stencil": 5, "lines": 16}
 OPS_PER_PIXEL = {"gbuffer": 100, "sample_textures": 45,
                  "gbuffer_slim_flat": 0, "gbuffer_slim_gouraud": 25,
                  "gbuffer_slim_pbr": 40}
@@ -379,13 +383,10 @@ def needed_bytes(case, args, kw, out):
                 + int((outs[0] != 0).sum()) * 4)
     if kind == "lines":
         # The active edges' rows and every edge's flag; zbuf on the pixels
-        # where some edge's DDA pixel lands (the mask with every z test
-        # passed).
-        ldata, bbox, active, zbuf, h, w = args
-        reach = rc.lines_plain(ldata, bbox, active,
-                               torch.full_like(zbuf, float("inf")), h, w)
+        # where some edge's DDA pixel lands.
+        active = args[2]
         return (n + int(active.sum()) * (rc.L_COLS + 4) * 4 + active.numel()
-                + int(reach.sum()) * 4)
+                + _lines_reach(args) * 4)
     _, faces = _computed(case, args, kw)
     if kind != "sample_textures":
         return (n + args[2].numel() * 4
@@ -398,6 +399,18 @@ def needed_bytes(case, args, kw, out):
     return (n + tid.numel() * 4 + int(hit.any(0).sum()) * 8
             + faces.numel() * ftex.shape[1] * 3 * 4 + int((used >= 0).sum()) * 8
             + torch.unique(idx[hit]).numel() * 4)
+
+
+def _lines_reach(args):
+    """Pixels where some active edge's DDA pixel lands: K6's mask with
+    every z test passed."""
+    import torch
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    ldata, bbox, active, zbuf, h, w = args
+    return int(rc.lines_plain(ldata, bbox, active,
+                              torch.full_like(zbuf, float("inf")), h,
+                              w).sum())
 
 
 def bound(case, args, kw, out, zb_sign):
@@ -421,8 +434,9 @@ def bound(case, args, kw, out, zb_sign):
             ops = lists @ _tile_sums(torch.ones((h, w), dtype=torch.bool,
                                                 device=fdata.device))
         else:
-            # K7 stops at its claimer: one visit where a face claims the
-            # pixel, the tile's whole list where none does.
+            # K7, a lower count: one visit where a face claims the pixel
+            # (a walk from the list's end could stop there), the tile's
+            # whole list where none does.
             claimed = out >= 0
             ops = claimed.double().sum() + lists @ _tile_sums(~claimed)
     elif kind == "stencil":
@@ -430,11 +444,9 @@ def bound(case, args, kw, out, zb_sign):
         qi = args[1]
         ops = _tile_counts(qi[:, 0:4], qi[:, 5] > 0, h, w) @ _tile_sums(fg)
     elif kind == "lines":
-        h, w = zb_sign.shape
-        rows = torch.arange(h, device=fg.device)[:, None]
-        cols = torch.arange(w, device=fg.device)[None]
-        inner = (rows > 0) & (rows < h - 1) & (cols > 0) & (cols < w - 1)
-        ops = _tile_counts(args[1], args[2], h, w) @ _tile_sums(inner)
+        # One full candidate test per pixel an edge reaches, whatever the
+        # kernel's layout.
+        ops = _lines_reach(args)
     else:
         ops = _computed(case, args, kw)[0].double().sum()
     per = OPS_PER_VISIT.get(kind, OPS_PER_PIXEL.get(
@@ -464,18 +476,21 @@ def _time_ms(fn, runs=5):
 
 #: The port's kernels as the profiler names them (csrc/*.cu).
 _OUR_KERNEL = re.compile(r"::(visibility|tidpass|gbuffer|gbuffer_slim|sample|"
-                         r"stencil|lines|coarse_bins)_kernel[<(]")
+                         r"stencil|lines|lines_clear|coarse_bins)"
+                         r"_kernel[<(]")
 #: The kernels (``_OUR_KERNEL``'s names) each wrapper launches once per call
-#: where they are not just the wrapper's name: K1 and K4 bin first with
-#: csrc/bins.cu.
+#: where they are not just the wrapper's name: K1, K4 and K7 bin first with
+#: csrc/bins.cu, K6 clears its mask first.
 _WRAPPER_KERNELS = {"visibility": ("coarse_bins", "visibility"),
                     "stencil": ("coarse_bins", "stencil"),
+                    "tidpass": ("coarse_bins", "tidpass"),
+                    "lines": ("lines_clear", "lines"),
                     "sample_textures": ("sample",)}
 
 
 def _alone_ms(fn, wrapper, runs=3, tries=3):
     """Device time per call of the kernels that ``wrapper`` launches through
-    ``fn``, without the wrapper's torch ops (allocation, torch binning): a
+    ``fn``, without the wrapper's host work (checks, allocation): a
     profile of ``runs`` calls, summed over the wrapper's kernels of each
     one's mean time. A trace can come back short of some events: then the
     profile is taken again until every kernel of the wrapper has exactly
@@ -560,18 +575,21 @@ def _compare(name, got, ref):
 
 
 def _check_coarse_bins(case, args, kw):
-    """K1's or K4's coarse lists for this call, built by csrc/bins.cu on
-    the card, against ``coarse_bins_plain``; raises if they differ. Returns
-    (the wrapper's scratch bytes, the longest coarse list, entries in all,
-    the longest list of a 16x16 tile before the kernel's refinement)."""
+    """K1's, K4's or K7's coarse lists for this call, built by csrc/bins.cu
+    on the card, against ``coarse_bins_plain``; raises if they differ.
+    Returns (the wrapper's scratch bytes, the longest coarse list, entries
+    in all, the longest list of a 16x16 tile before the kernel's
+    refinement)."""
     import torch
     from tpu_renderer_torch.ops import _build
     from tpu_renderer_torch.ops import raster_cuda as rc
     from tpu_renderer_torch.ops import raster_plain as rp
 
     row0 = kw.get("row0", 0)
-    if wrapper_of(case) == "visibility":
-        fdata, words, h, w = args[:4]
+    kind = wrapper_of(case)
+    if kind in ("visibility", "tidpass"):
+        fdata, words = args[:2]
+        h, w = args[2:4] if kind == "visibility" else args[2].shape
         kind, bbox = 0, fdata[:, rp.F_BBOX:rp.F_BBOX + 4]
         active = (words & rp.FLAG_VALID) > 0
     else:
@@ -653,12 +671,12 @@ def _profile(scene, n_frames=5):
             device[e.name] = device.get(e.name, 0.0) + ms
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
-    # The kernels alone, without the torch binning their wrappers run
-    # (phase 3 times the wrappers).
+    # The kernels alone (phase 3 times the wrappers).
     kernels = {n: sum(v for k, v in device.items()
                       if f"::{n}_kernel(" in k or f"::{n}_kernel<" in k)
                for n in ("visibility", "gbuffer", "sample", "stencil",
-                         "gbuffer_slim", "lines", "tidpass", "coarse_bins")}
+                         "gbuffer_slim", "lines", "lines_clear", "tidpass",
+                         "coarse_bins")}
     kernels = {k: v for k, v in kernels.items() if v > 0}
     r = lambda d: {k[:60]: round(v, 4) for k, v in d}
     return {"wall": wall_ms, "busy": busy, "busy_share": busy / wall_ms,
@@ -776,9 +794,10 @@ def one_device_ids(cfg, n_tris, chunk=8):
 
 
 def _merge_share(render, n_frames=2):
-    """A CPU profile of ``n_frames`` renders: traced ms per frame and the
-    host time of each ``tr.merge_*`` range per frame (a collective's range
-    includes its wait for the slowest rank)."""
+    """A CPU profile of ``n_frames`` renders: traced ms per frame, the host
+    time of each ``tr.merge_*`` range per frame (a collective's range
+    includes its wait for the slowest rank) and of the ``tr.tidpass``
+    range (K7's wrapper)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -788,14 +807,17 @@ def _merge_share(render, n_frames=2):
             render()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n_frames
-    merges = {}
+    merges, tidpass = {}, 0.0
     for e in prof.events():
+        ms = e.time_range.elapsed_us() / 1e3 / n_frames
         if e.name.startswith("tr.merge_"):
             key = e.name[len("tr.merge_"):]
-            merges[key] = (merges.get(key, 0.0)
-                           + e.time_range.elapsed_us() / 1e3 / n_frames)
+            merges[key] = merges.get(key, 0.0) + ms
+        elif e.name == "tr.tidpass":
+            tidpass += ms
     return {"traced_ms": wall, "merge_ms": merges,
-            "merge_share": sum(merges.values()) / wall}
+            "merge_share": sum(merges.values()) / wall,
+            "tidpass_host_ms": tidpass}
 
 
 def _sharded_rank(rank, world, tmp, runs):
@@ -973,7 +995,8 @@ def _sharded_phase(scene, start, records):
                       f"row0 per rank {row0s}; rank 0: {lead['ms']:.2f} "
                       f"ms/frame (host clock, {SHARD_FRAMES} frames after a "
                       f"barrier), traced {lead['traced_ms']:.2f} ms/frame of "
-                      f"which merges {lead['merge_share']:.3f} {merge}. The "
+                      f"which merges {lead['merge_share']:.3f} {merge}, "
+                      f"tidpass host {lead['tidpass_host_ms']:.3f}. The "
                       f"ranks share one card and gloo stages each collective "
                       f"through host memory: not a multi-card figure.",
                       flush=True)
@@ -1024,13 +1047,16 @@ def main():
         ref = plain(*args, **kw)
         err, verdict = _compare(name, got, ref)
         bins = ""
-        if wrapper_of(name) in ("visibility", "stencil"):
+        if wrapper_of(name) in ("visibility", "stencil", "tidpass",
+                                "lines"):
             _assert_no_sync(lambda: kern(*args, **kw))
+            bins = "; no host sync"
+        if wrapper_of(name) in ("visibility", "stencil", "tidpass"):
             scratch, longest, entries, fine = _check_coarse_bins(name, args,
                                                                  kw)
-            bins = (f"; no host sync; coarse lists equal plain, scratch "
-                    f"{scratch} B, longest {longest}, entries {entries}; "
-                    f"longest 16x16 bbox list {fine}")
+            bins += (f"; coarse lists equal plain, scratch {scratch} B, "
+                     f"longest {longest}, entries {entries}; longest 16x16 "
+                     f"bbox list {fine}")
         ms = _time_ms(lambda: kern(*args, **kw))
         alone = _alone_ms(lambda: kern(*args, **kw), wrapper_of(name))
         plain_ms = _time_ms(lambda: plain(*args, **kw), runs=3)
@@ -1125,6 +1151,8 @@ def main():
                              f"[{min(xs):.3f}, {max(xs):.3f}]")
         prof = _profile(scene, n_frames=3)
         lead = sorted(prof["host"].items(), key=lambda kv: -kv[1])[:3]
+        own = (f"; lines host {prof['host']['lines']:.3f} ms/frame"
+               if shader == "wireframe" else "")
         print(f"[5 {shader}] launches {launched}; vs plain path tid "
               f"{tid_match:.6f}, frame {frame_match:.6f}, stencil equal; "
               f"foreground {fg:.3f}{extra}; ms/frame (host clock, {PAIRS} "
@@ -1132,8 +1160,8 @@ def main():
               f"{spread(variant_ms)}, general {spread(general_ms)}, "
               f"{shader} - general {spread(diff)}; traced wall "
               f"{prof['wall']:.2f}, device busy {prof['busy']:.3f} ms/frame;"
-              f" leading host stages {lead}; kernels {prof['kernels']}",
-              flush=True)
+              f" leading host stages {lead}; kernels {prof['kernels']}"
+              f"{own}", flush=True)
 
     # 6. sharded frames on meshes of ranks that share the card
     scene.skybox = None

@@ -14,13 +14,17 @@ This file imports no JAX, so it also runs on the card's host:
 - the same holds for the sharded modes, on the inputs of rank (1, 1) of a
   2x2 (rows, tris) mesh (``chip_smoke.shard_inputs``, at a row0 > 0): K1 z
   only, K7, the owned ranges of K2, K5 and K3, and K4;
-- and for inputs built to break K1's and K4's staged, binned design
-  (``long_face_list``, ``long_quad_list``): tile lists longer than two
-  staging chunks, exact z ties, faces that do not write z, NaN and inf
-  depths, an all-background tile beside geometry, quad edges through a
-  tile's corner pixel centre, non-finite edge coefficients, row0 > 0; on
-  the card, K1's and K4's coarse lists (csrc/bins.cu) equal
-  ``coarse_bins_plain`` and their wrappers never synchronise with the host.
+- and for inputs built to break K1's, K4's and K7's staged, binned design
+  (``long_face_list``, ``long_quad_list``, ``long_claim_inputs``): tile
+  lists longer than two staging chunks, exact z ties, faces that do not
+  write z, NaN and inf depths, an all-background tile beside geometry, quad
+  edges through a tile's corner pixel centre, non-finite edge
+  coefficients, row0 > 0, gid0 > 0; and K6's exact scatter
+  (``long_edge_list``: degenerate, axis-aligned, 45°, clipped and
+  non-finite edges, endpoints one ulp from integers, depths equal to the
+  z-buffer, many edges through one tile); on the card, the coarse lists of
+  K1, K4 and K7 (csrc/bins.cu) equal ``coarse_bins_plain``, and the
+  wrappers of K1, K4, K6 and K7 never synchronise with the host.
 
 ``build_scene`` is the shared procedural test scene: test_torch_slice.py
 and test_torch_modules.py build the same scene in the JAX package.
@@ -246,9 +250,138 @@ def long_quad_list(seed=0, row0=0):
             *rc.stencil_scalars(0.1, 50.0))
 
 
+#: The depth of the adversarial z-buffer's band where some edges lie at
+#: exactly the buffer's depth (zbuf - z == 0: not lit).
+TIE_Z = 5.0
+
+
+def _near(rng, n, ints):
+    """n float32 values one ulp either side of, or on, integers from
+    ``ints``."""
+    k = rng.choice(np.asarray(ints, np.float32), n)
+    side = rng.choice([-np.inf, np.inf, 0.0], n).astype(np.float32)
+    return np.where(side == 0, k, np.nextafter(k, side))
+
+
+def adversarial_edges(rng, h, w, crowd=0, box=None):
+    """Seeded edges (p0, p1 (E, 3) float32, x y z) that break K6's DDA
+    inversion if it is not exact: zero-length; sub-pixel (0 < steps < 1);
+    horizontal, vertical and 45° (|dx| == |dy|, integer and fractional
+    starts); general ones with sy > 0 and sy < 0; integer endpoints and
+    endpoints one ulp from integers (e.g. w - 1 + 0.99994); edges clipped at
+    0 and at w, h; edges along the frame's first and last two rows and
+    columns; NaN and ±inf endpoint coordinates; edges at depth TIE_Z; and
+    ``crowd`` general edges through ``box`` = (x0, x1, y0, y1)."""
+    def pts(n, lo=(-8, -8), hi=(w + 8, h + 8)):
+        return rng.uniform(lo, hi, (n, 2))
+
+    def run(start, d):
+        return start, start + d
+
+    groups = []
+    a = pts(40)
+    groups.append((a, a.copy()))                                 # zero-length
+    a = pts(40, (0, 0), (w, h))
+    groups.append(run(a, rng.uniform(-0.9, 0.9, (40, 2))))        # sub-pixel
+    a = pts(40)
+    groups.append(run(a, np.stack([rng.uniform(-60, 60, 40),
+                                   np.zeros(40)], 1)))            # horizontal
+    groups.append(run(pts(40), np.stack([np.zeros(40),
+                                         rng.uniform(-40, 40, 40)], 1)))
+    d = rng.choice([-1, 1], (40, 2)) * rng.choice([3.0, 7.25, 20.0, 31.5],
+                                                  (40, 1))
+    a = pts(40)
+    a[:20] = np.round(a[:20])
+    groups.append(run(a, d))                                      # 45°
+    groups.append((pts(60), pts(60)))                             # general
+    groups.append((np.round(pts(40)), np.round(pts(40))))         # integer
+    near = lambda n: np.stack([_near(rng, n, range(w + 1)),
+                               _near(rng, n, range(h + 1))], 1)
+    groups.append((near(60), near(60)))                           # one ulp
+    groups.append((pts(30, (-40, -40), (0, h + 40)),
+                   pts(30, (w, -40), (w + 40, h + 40))))          # clipped
+    for v, axis in ((0, 1), (1, 1), (h - 2, 1), (h - 1, 1), (0, 0), (1, 0),
+                    (w - 2, 0), (w - 1, 0)):                      # frame edges
+        a, b = pts(6), pts(6)
+        a[:, axis] = v + rng.choice([0.0, 0.25, 0.75], 6)
+        b[:, axis] = a[:, axis] + rng.choice([0.0, 0.5, -0.5], 6)
+        groups.append((a, b))
+    a, b = pts(30), pts(30)
+    bad = np.array([np.nan, np.inf, -np.inf])
+    a[np.arange(30), rng.integers(0, 2, 30)] = rng.choice(bad, 30)
+    b[:10, rng.integers(0, 2)] = rng.choice(bad, 10)
+    groups.append((a, b))                                         # NaN, ±inf
+    n = sum(len(g[0]) for g in groups)
+    if crowd:
+        x0, x1, y0, y1 = box
+        a = rng.uniform([x0, y0], [x1, y1], (crowd, 2))
+        ang = rng.uniform(0, 2 * np.pi, crowd)
+        r = rng.uniform(0, 40, (crowd, 1))
+        groups.append(run(a, r * np.stack([np.cos(ang), np.sin(ang)], 1)))
+    xy0 = np.concatenate([g[0] for g in groups])
+    xy1 = np.concatenate([g[1] for g in groups])
+    z = rng.uniform(0.0, 25.0, (len(xy0), 2))
+    tie = rng.random(len(xy0)) < 0.2
+    z[tie] = TIE_Z
+    z[:n][rng.random(n) < 0.03] = np.nan
+    p0 = np.concatenate([xy0, z[:, :1]], 1).astype(np.float32)
+    p1 = np.concatenate([xy1, z[:, 1:]], 1).astype(np.float32)
+    return torch.from_numpy(p0), torch.from_numpy(p1)
+
+
+def edge_zbuf(rng, h, w):
+    """The adversarial edges' real z-buffer: seeded depths in [1, 20], 10%
+    -inf (LH background: never lit), 5% +inf, and the rows [h/2, 3h/4)
+    at TIE_Z."""
+    zb = rng.uniform(1.0, 20.0, (h, w))
+    u = rng.random((h, w))
+    zb[u < 0.1] = -np.inf
+    zb[u > 0.95] = np.inf
+    zb[h // 2:3 * h // 4] = TIE_Z
+    return torch.from_numpy(zb.astype(np.float32))
+
+
+def long_edge_list(seed=0):
+    """K6's adversarial inputs on ADV_RES: ``adversarial_edges`` with 300
+    more edges through the crowded tile, 10% inactive, a fifth of the
+    bboxes shrunk by 0-2 px per side (the bbox test then cuts lines), and
+    ``edge_zbuf``. Returns the arguments of raster_cuda.lines."""
+    rng = np.random.default_rng(seed)
+    h, w = ADV_RES
+    lo, hi = CROWDED
+    p0, p1 = adversarial_edges(rng, h, w, crowd=300, box=(lo, hi, lo, hi))
+    ldata, bbox = rc.pack_lines(p0, p1, h, w)
+    shrink = rng.integers(0, 3, bbox.shape) * np.array([1, -1, 1, -1])
+    shrink[rng.random(len(bbox)) > 0.2] = 0
+    bbox = (bbox + torch.from_numpy(shrink.astype(np.int32))).contiguous()
+    active = torch.from_numpy(rng.random(len(ldata)) > 0.1)
+    return ldata, bbox, active, edge_zbuf(rng, h, w), h, w
+
+
+#: gid0 of the adversarial K7 case: the table is shard 1 of two of 850
+#: faces.
+ADV_GID0 = 850
+
+
+def long_claim_inputs(seed=0, row0=0):
+    """K7's adversarial inputs on ADV_RES rows from ``row0``: K1's
+    ``long_face_list`` claims against the MIN of its own z-buffer and
+    another seeded table's, which covers the 8x8 blocks of a checkerboard
+    (the merged buffer of two shards), so some pixels go to the other
+    shard. Returns (fdata, flags, zb_sign, sign)."""
+    fdata, flags, h, w = long_face_list(seed, row0)
+    zb, _ = rc.visibility_plain(fdata, flags, h, w, -1, row0, want_tid=False)
+    other = long_face_list(seed + 1000, row0)
+    zo, _ = rc.visibility_plain(*other, -1, row0, want_tid=False)
+    r, c = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    zo[(r // 8 + c // 8) % 2 == 0] = float("inf")
+    return fdata, flags, torch.minimum(zb, zo).contiguous(), -1
+
+
 #: Kernel cases: case id -> (wrapper name in raster_cuda, the LAUNCHES key
 #: its launch counts under); K5 once per layout, the sharded modes, and the
-#: adversarial inputs of K1 (claim, and z only at row0 > 0) and K4.
+#: adversarial inputs of K1 (claim, and z only at row0 > 0), K4, K6 and K7
+#: (at row0 > 0, gid0 > 0).
 CASES = {"visibility": ("visibility", "visibility"),
          "gbuffer": ("gbuffer", "gbuffer"),
          "sample_textures": ("sample_textures", "sample_textures"),
@@ -267,7 +400,9 @@ CASES = {"visibility": ("visibility", "visibility"),
          "visibility-long": ("visibility", "visibility"),
          "visibility_z-long-row0": ("visibility", "visibility_z"),
          "stencil-long": ("stencil", "stencil"),
-         "stencil-long-row0": ("stencil", "stencil")}
+         "stencil-long-row0": ("stencil", "stencil"),
+         "lines-long": ("lines", "lines"),
+         "tidpass-long-row0": ("tidpass", "tidpass")}
 
 #: row0 of the adversarial ``-row0`` cases.
 ADV_ROW0 = 40
@@ -329,6 +464,9 @@ def stage_inputs():
     inputs["stencil-long"] = (long_quad_list(3), {})
     inputs["stencil-long-row0"] = (long_quad_list(4, ADV_ROW0),
                                    {"row0": ADV_ROW0})
+    inputs["lines-long"] = (long_edge_list(5), {})
+    inputs["tidpass-long-row0"] = (long_claim_inputs(6, ADV_ROW0),
+                                   {"row0": ADV_ROW0, "gid0": ADV_GID0})
     return inputs
 
 
@@ -396,7 +534,10 @@ def test_shard_inputs_are_not_degenerate(stage_inputs):
 def test_adversarial_inputs_are_not_degenerate(stage_inputs):
     """The crowded tile's lists are longer than two staging chunks, its
     faces tie in z and claim pixels, and the quads shadow some pixels of
-    it while the all-background tile stays 0."""
+    it while the all-background tile stays 0; more than a chunk's worth of
+    edges cross it and light some of its pixels; K7's table claims many
+    ids there, all from gid0 on, and leaves pixels with geometry to the
+    other table."""
     from tpu_renderer_torch.ops import raster_plain as rp
 
     lo, hi = CROWDED
@@ -418,6 +559,21 @@ def test_adversarial_inputs_are_not_degenerate(stage_inputs):
         st = rc.stencil(*stage_inputs[name][0], **kw)
         assert (st[lo:hi, lo:hi] != 0).any()
         assert (zb[lo:hi, :lo] >= 3e38).all() and (st[lo:hi, :lo] == 0).all()
+    (ldata, bbox, active, zbuf, h, w), _ = stage_inputs["lines-long"]
+    off, _ = rc.tile_bins(bbox, active, h, w)
+    assert off[t + 1] - off[t] > CHUNK
+    mask = rc.lines(ldata, bbox, active, zbuf, h, w)
+    assert mask[lo:hi, lo:hi].any() and not mask[lo:hi, lo:hi].all()
+    (fdata, flags, zb, sign), kw = stage_inputs["tidpass-long-row0"]
+    off, _ = rc.tile_bins(fdata[:, rp.F_BBOX:rp.F_BBOX + 4].int(),
+                          (flags & rp.FLAG_VALID) > 0, *ADV_RES,
+                          row0=kw["row0"])
+    assert off[t + 1] - off[t] > 2 * CHUNK
+    tid = rc.tidpass(fdata, flags, zb, sign, **kw)
+    won = tid[lo:hi, lo:hi]
+    assert len(torch.unique(won[won >= 0])) > 8
+    assert (tid[tid >= 0] >= kw["gid0"]).all()
+    assert ((tid < 0) & (zb < 3e38)).any()       # the other table's pixels
 
 
 def test_tile_bins_list_every_overlap_in_order():
@@ -468,10 +624,11 @@ def test_kernel_matches_plain_on_card(cuda_inputs, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["visibility-long", "visibility_z-long-row0",
                                   "stencil-long", "stencil-long-row0",
-                                  "visibility", "stencil"])
+                                  "visibility", "stencil", "tidpass-shard",
+                                  "tidpass-long-row0"])
 def test_coarse_bins_match_plain_on_card(cuda_inputs, name):
-    """csrc/bins.cu's coarse lists (K1's faces, K4's quads) list exactly
-    coarse_bins_plain's primitives, in table order."""
+    """csrc/bins.cu's coarse lists (K1's and K7's faces, K4's quads) list
+    exactly coarse_bins_plain's primitives, in table order."""
     args, kw = cuda_inputs[name]
     chip_smoke._check_coarse_bins(CASES[name][0], args, kw)
 
@@ -479,10 +636,13 @@ def test_coarse_bins_match_plain_on_card(cuda_inputs, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["visibility", "visibility-long",
                                   "visibility_z-shard", "stencil",
-                                  "stencil-row0", "stencil-long"])
+                                  "stencil-row0", "stencil-long", "lines",
+                                  "lines-long", "tidpass-shard",
+                                  "tidpass-long-row0"])
 def test_binned_wrappers_do_not_sync_on_card(cuda_inputs, name):
-    """K1's and K4's wrappers never wait for the device: they run under
-    torch's sync debug mode "error", which raises on tile_bins' nonzero."""
+    """The wrappers of K1, K4, K6 and K7 never wait for the device: they
+    run under torch's sync debug mode "error", which raises on tile_bins'
+    nonzero."""
     args, kw = cuda_inputs[name]
     fn = getattr(rc, CASES[name][0])
     chip_smoke._assert_no_sync(lambda: fn(*args, **kw))

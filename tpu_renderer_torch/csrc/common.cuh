@@ -151,23 +151,3 @@ __device__ __forceinline__ int coarse_tile_of_block(int width) {
     return (blockIdx.y / per) * ((width + COARSE - 1) / COARSE) +
            blockIdx.x / per;
 }
-
-// The claim against a final z-buffer value zb (sign space): the LAST face of
-// the tile's list items[k0:k1] (face order) that covers pixel (r, c) and
-// passes zb >= z*sign, or -1 (reference pass 3, triangular.py:99-109). The
-// list is walked backwards and the walk stops at the first claimer. K7
-// (tidpass.cu) uses it; K1 claims in its one forward walk.
-__device__ __forceinline__ int claim_last(const float* __restrict__ fdata,
-                                          const int* __restrict__ flags,
-                                          const int* __restrict__ items,
-                                          int k0, int k1, float r, float c,
-                                          float zb, float sign) {
-    for (int k = k1 - 1; k >= k0; --k) {
-        const int face = items[k];
-        float z;
-        if (face_cover(fdata + (size_t)face * F_COLS, flags[face], r, c, &z) &&
-            zb >= z * sign)
-            return face;
-    }
-    return -1;
-}

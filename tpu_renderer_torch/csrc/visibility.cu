@@ -47,19 +47,13 @@
 // every (pixel, face) visit was itself a chain of dependent global loads,
 // the list was built in torch with a host sync, and claims walked it twice.
 // Design: the lists come from csrc/bins.cu (coarse tiles, on the card, no
-// host sync). One 16x16 block per tile, one thread per pixel, walks its
-// coarse tile's list in chunks of BLOCK faces: each thread tests one face's
-// bbox against the fine tile (the test of tile_bins, so nothing face_cover
-// could accept is lost; the z-only mode also drops faces that do not write
-// z), the faces that pass are ballot-compacted in face order, and the block
-// copies their flag words and rows into shared memory (cp.async, every
-// copy of a chunk in flight at once, 34.8 KB a chunk). Every thread then
-// walks the staged faces from shared memory; the walk only goes forward, so
-// one staged chunk serves the whole block.
+// host sync), and the block walks them as face_walk.cuh describes: refined
+// to its 16x16 tile, ballot-compacted in face order, staged in shared
+// memory by cp.async, then walked forward once (K7 shares that walk).
 // Tensor cores do not apply: the per-(pixel, face) work is f32 compares and
 // sums that must round op by op (-fmad=false) to stay bit-identical to the
 // plain version (raster_plain.py), with no matrix product for wgmma.
-#include "common.cuh"
+#include "face_walk.cuh"
 
 namespace {
 
@@ -71,67 +65,16 @@ __global__ void __launch_bounds__(BLOCK)
                       const int* __restrict__ bin_items, int n_faces,
                       int height, int width, int row0, float sign,
                       float* __restrict__ zb_out, int* __restrict__ tid_out) {
-    __shared__ __align__(16) float s_rows[BLOCK * F_COLS];
-    __shared__ int s_face[BLOCK];
-    __shared__ int s_flag[BLOCK];
-    __shared__ int s_warp[BLOCK / 32];
-    const int t = threadIdx.y * TILE + threadIdx.x;
     const int row = blockIdx.y * TILE + threadIdx.y;
     const int col = blockIdx.x * TILE + threadIdx.x;
-    const int tx0 = blockIdx.x * TILE;
-    const int ty0 = row0 + blockIdx.y * TILE;
-    const float r = static_cast<float>(row0 + row);
-    const float c = static_cast<float>(col);
     const int ct = coarse_tile_of_block(width);
-    const int count = bin_counts[ct];
-    const int* list = bin_items + (size_t)ct * n_faces;
-
     float m = INFINITY;
     int cand = -1;
-    // No thread leaves before the last barrier: threads outside the frame
-    // stage faces like the others and only skip the write.
-    for (int k0 = 0; k0 < count; k0 += BLOCK) {
-        const int k = k0 + t;
-        int face = 0, fl = 0;
-        bool hit = false;
-        if (k < count) {
-            face = list[k];
-            fl = flags[face];
-            hit = face_overlaps(fdata + (size_t)face * F_COLS, fl, tx0, ty0,
-                                TILE) &&
-                  (WANT_TID || (fl & FLAG_ZWRITE));
-        }
-        int staged;
-        // block_rank's barriers also end the previous chunk's walk.
-        const int pos = block_rank<BLOCK / 32>(hit, t, s_warp, &staged);
-        if (hit) {
-            s_face[pos] = face;
-            s_flag[pos] = fl;
-        }
-        __syncthreads();
-        // Rows are 136 bytes, 8-byte aligned (the wrapper checks the base):
-        // 17 copies of 8 bytes each.
-        constexpr int PAIRS = F_COLS / 2;
-        for (int e = t; e < staged * PAIRS; e += BLOCK) {
-            const int j = e / PAIRS;
-            const int off = 2 * (e - j * PAIRS);
-            cp_async<8>(s_rows + j * F_COLS + off,
-                        fdata + (size_t)s_face[j] * F_COLS + off);
-        }
-        cp_async_wait_all();
-        __syncthreads();
-        for (int j = 0; j < staged; ++j) {
-            const int fj = s_flag[j];
-            float z;
-            if (face_cover(s_rows + j * F_COLS, fj, r, c, &z)) {
-                const float zs = z * sign;
-                if (zs <= m) {
-                    cand = s_face[j];
-                    if (fj & FLAG_ZWRITE) m = zs;
-                }
-            }
-        }
-    }
+    walk_faces<WANT_TID ? WALK_Z_TID : WALK_Z>(
+        fdata, flags, bin_items + (size_t)ct * n_faces, bin_counts[ct],
+        blockIdx.x * TILE, row0 + blockIdx.y * TILE,
+        static_cast<float>(row0 + row), static_cast<float>(col), sign, m,
+        cand);
     if (row < height && col < width) {
         const size_t p = (size_t)row * width + col;
         zb_out[p] = m;

@@ -40,9 +40,9 @@ _SIGNATURES = {
     # fdata, flags, n_faces, bin_counts, bin_items, H, W, row0, sign,
     # want_tid, zb_sign, tid, stream
     "tr_visibility": [_P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
-    # fdata, flags, tile_off, tile_items, zb_sign, H, W, tiles_x, row0, gid0,
-    # sign, tid, stream
-    "tr_tidpass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
+    # fdata, flags, n_faces, bin_counts, bin_items, zb_sign, H, W, row0,
+    # gid0, sign, tid, stream
+    "tr_tidpass": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     # fdata, adata, tid, H, W, row0, gid0, g_local, gbuffer, stream
     "tr_gbuffer": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # tid, iu, iv, ftex, slots, pool, n_kinds, n_slots, pool_size, H, W,
@@ -57,8 +57,8 @@ _SIGNATURES = {
     "tr_coarse_bins": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # fdata, sdata, tid, layout, H, W, row0, gid0, g_local, gbuffer, stream
     "tr_gbuffer_slim": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    # ldata, lbbox, tile_off, tile_items, zbuf, H, W, tiles_x, mask, stream
-    "tr_lines": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # ldata, lbbox, active, n_edges, zbuf, H, W, mask, stream
+    "tr_lines": [_P, _P, _P, _I, _P, _I, _I, _P, _P],
 }
 
 _lib = None

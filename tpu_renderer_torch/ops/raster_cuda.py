@@ -32,10 +32,11 @@ allocates the outputs, launches the kernel on the current stream, raises if
 the launch reports an error, and adds one to its entry in :data:`LAUNCHES`.
 There is no fallback from the kernel: any other device raises.
 
-K1 and K4 bin on the card (csrc/bins.cu, :func:`coarse_bins_plain`), into
-scratch sized from what the host knows (table rows, frame size, COARSE),
-so their wrappers never wait for the device. K6 and K7 still bin with
-:func:`tile_bins`, whose ``nonzero`` does.
+K1, K4 and K7 bin on the card (csrc/bins.cu, :func:`coarse_bins_plain`),
+into scratch sized from what the host knows (table rows, frame size,
+COARSE); K6 scatters each edge's DDA pixels with no binning. So no wrapper
+waits for the device (:func:`tile_bins`, whose ``nonzero`` does, serves
+tests and measurements only).
 """
 from __future__ import annotations
 
@@ -251,7 +252,7 @@ def pack_slim_attrs(attrs, layout):
 def pack_lines(p0, p1, height, width):
     """Directed screen-space edges -> the wireframe kernel's tables
     (raster_pallas.pack_lines :2507, without the 128-lane padding and the
-    tube coefficients: K6 bins by bounding box).
+    tube coefficients: K6 walks each edge's bbox along its major axis).
 
     Replicates the reference DDA (line.py:6-16) in closed form: right-to-left
     normalization (dx > 0 swaps the endpoints), steps = max(|dx|, |dy|),
@@ -652,13 +653,6 @@ def _launch(name, *args, counter=None):
     LAUNCHES[counter or name] += 1
 
 
-def _face_bins(fdata, flags, height, width, row0):
-    """tile_bins of the valid faces' bboxes over the rows from ``row0``."""
-    bbox = fdata[:, rp.F_BBOX:rp.F_BBOX + 4].to(torch.int32)
-    return tile_bins(bbox, (flags & rp.FLAG_VALID) > 0, height, width,
-                     row0=row0)
-
-
 def visibility(fdata, flags, height, width, sign, row0=0, want_tid=True):
     """K1: final sign-space z-buffer and winning face index per pixel, for
     ``height`` rows from ``row0``.
@@ -700,11 +694,12 @@ def tidpass(fdata, flags, zb_sign, sign, row0=0, gid0=0):
     _require(fdata, "fdata", torch.float32, (g, rp.F_COLS))
     _require(flags, "flags", torch.int32, (g,))
     _require(zb_sign, "zb_sign", torch.float32, (height, width))
-    off, items = _face_bins(fdata, flags, height, width, row0)
+    _require_aligned(fdata, "fdata", 8)
+    counts, items = _bin_scratch(g, height, width, fdata.device)
     tid = torch.empty((height, width), dtype=torch.int32, device=fdata.device)
-    _launch("tidpass", fdata.data_ptr(), flags.data_ptr(), off.data_ptr(),
-            items.data_ptr(), zb_sign.data_ptr(), height, width,
-            -(-width // TILE), row0, gid0, float(sign), tid.data_ptr())
+    _launch("tidpass", fdata.data_ptr(), flags.data_ptr(), g,
+            counts.data_ptr(), items.data_ptr(), zb_sign.data_ptr(), height,
+            width, row0, gid0, float(sign), tid.data_ptr())
     return tid
 
 
@@ -811,11 +806,9 @@ def lines(ldata, bbox, active, zbuf, height, width):
     _require(bbox, "bbox", torch.int32, (e, 4))
     _require(active, "active", torch.bool, (e,))
     _require(zbuf, "zbuf", torch.float32, (height, width))
-    off, items = tile_bins(bbox, active, height, width)
     mask = torch.empty((height, width), dtype=torch.int32, device=zbuf.device)
-    _launch("lines", ldata.data_ptr(), bbox.data_ptr(), off.data_ptr(),
-            items.data_ptr(), zbuf.data_ptr(), height, width,
-            -(-width // TILE), mask.data_ptr())
+    _launch("lines", ldata.data_ptr(), bbox.data_ptr(), active.data_ptr(), e,
+            zbuf.data_ptr(), height, width, mask.data_ptr())
     return mask
 
 
