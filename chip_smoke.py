@@ -21,7 +21,12 @@ exits non-zero without the final line):
    of rank 1 of phase 6's 1x2 (rows, tris) mesh, the whole frame height
    and the second half of each model's faces (``shard_inputs``): K1 z
    only, K7, and the owned ranges of K2, K5 (gouraud, pbr) and K3, each
-   equal to its plain version;
+   equal to its plain version; then K1 (both modes) and K7 with a debug
+   camera whose frustum cuts the mesh (``flagship_debug_camera``): K1 on
+   the flagship's face table and its debug planes, K1 z only and K7 on the
+   same rank's shard inputs, each equal to its plain version, checked and
+   timed as above, with the faces that take the per-pixel clip test with
+   and without the debug camera;
 4. end to end, general shader: the flagship frame — a seeded procedural
    shadow-casting mesh of 4,992 faces with 1024² diffuse and tangent-space
    normal maps over a textured floor, point light, shadow volumes,
@@ -39,8 +44,9 @@ exits non-zero without the final line):
 6. sharded: ``render_frame_sharded`` on 1x2 (general, gouraud, pbr) and
    2x2 (general) meshes of ranks, one python3 subprocess each, started
    after the build and killed and waited for before the phase ends, gloo through a FileStore, every rank on ``cuda:0`` (one
-   card cannot host two NCCL ranks); each rank builds the flagship from the
-   seed. Each frame must match the one-device ``Scene.render()`` frame
+   card cannot host two NCCL ranks), and 1x2 gouraud with the debug camera
+   (K1 z only and K7 in their debug modes); each rank builds the flagship
+   from the seed. Each frame must match the one-device ``Scene.render()`` frame
    (frame >= 99.9%, stencil equal, zbuf within rtol 1e-6, tid >= 99.9%
    after mapping global ids to one-device faces) and, on every rank, equal
    its own render through the plain versions in all four buffers (every
@@ -51,17 +57,28 @@ exits non-zero without the final line):
    K7's host range (``tr.tidpass``).
    The ranks share one card and gloo stages each collective through host
    memory: these are not multi-card numbers.
+7. the debug-camera frame: the flagship with the debug camera and both
+   gizmos (``Light(show=True)``, a shown debug camera) through
+   ``Scene.render()``, which draws the debug camera's frustum on the host;
+   K1's debug mode, K2, K3 and K4 must launch; tid, stencil and frame must
+   match the same render through the plain versions; the overlay must draw
+   red pixels, and the debug camera must change tid on more than 1% of the
+   mesh's pixels. It is timed against the flagship without them in
+   interleaved orbit pairs and profiled (``tr.overlay``'s host range); then
+   a wireframe render with the debug camera must match its plain path.
 
 Before the last line it prints the card's ``name, power.limit`` line and
 one JSON object with the per-kernel records (each with its launches in
 the render of its path: K1-K4 from phase 4, each K5 layout from its
 shader's render, K6 from the wireframe render, the sharded modes from
-the 1x2 renders' rank whose inputs phase 3 took); the last line is
+the 1x2 renders' rank whose inputs phase 3 took, the debug modes from
+phase 7 and the debug 1x2 render); the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX: the card's
 host runs the port alone.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -154,17 +171,33 @@ def build_flagship(tr, device, resolution=RES, tex=TEX, seed=SEED):
         [0.35 + 0.4 * checker, 0.35 + 0.3 * _smooth_noise(rng, (tex, tex)),
          0.3 + 0.2 * checker], axis=-1).astype(np.float32)
 
-    light = tr.Light((5, 5, 0), light_type=tr.Lightning.POINT_LIGHTNING,
-                     center=(0, 0.5, 0.5), ambient_strength=0.1,
-                     specular_strength=0.1, linear=1e-9, quadratic=1e-10)
     camera = tr.Camera((0.5, 3, 5), center=(0, 0, 0), fovy=90, near=0.0001,
                        far=400, backface_culling=False)
-    scene = tr.Scene(camera, light, shadows=True, resolution=resolution,
+    scene = tr.Scene(camera, flagship_light(tr), shadows=True,
+                     resolution=resolution,
                      system=tr.SYSTEM.LH, subsystem=tr.SUBSYSTEM.OPENGL,
                      device=device)
     scene.add_model(mesh)
     scene.add_model(floor)
     return scene
+
+
+def flagship_light(tr, show=False):
+    """bench.py's light; ``show=True`` adds its sphere gizmo to a scene."""
+    return tr.Light((5, 5, 0), light_type=tr.Lightning.POINT_LIGHTNING,
+                    center=(0, 0.5, 0.5), ambient_strength=0.1,
+                    specular_strength=0.1, linear=1e-9, quadratic=1e-10,
+                    show=show)
+
+
+def flagship_debug_camera(tr, show=False):
+    """A debug camera over the flagship mesh looking down, as the golden
+    tests' (tests/test_golden.py:117-119) at this scale: near and far cut
+    the mesh's top cap off (y > 0.5) and keep the floor, so the second
+    clip space takes pixels from the mesh while both triangle shards of
+    phase 6 keep some. ``show=True`` adds its camera gizmo to a scene."""
+    return tr.Camera((0, 3, 0.01), center=(0, 0, 0), fovy=80, near=2.5,
+                     far=4.5, show=show)
 
 
 def procedural_cubemap(tr, size=SKY, seed=SEED):
@@ -222,7 +255,37 @@ def kernel_inputs(scene):
                                           zb_sign * cfg.system, h, w)
     inputs = {case: (args, {}) for case, args in inputs.items()}
     inputs.update(shard_inputs(cfg, dyn, zb_sign))
+    inputs.update(debug_inputs(cfg, dyn))
     return inputs, zb_sign
+
+
+def debug_inputs(cfg, dyn):
+    """K1's and K7's debug-mode inputs: the scene with
+    ``flagship_debug_camera``, its face table and debug planes for K1
+    (``visibility_dbg``), and the SHARD_RANK rank's shard inputs for K1 z
+    only and K7 (``visibility_z_dbg``, ``tidpass_dbg``), all with fdbg."""
+    import tpu_renderer_torch as tr
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    cam = flagship_debug_camera(tr)
+    cfg = dataclasses.replace(cfg, has_debug_camera=True,
+                              dbg_projection_type=cam.projection_type)
+    dyn = dict(dyn, debug_camera=tr.Scene._cam_dyn(cam))
+    device = dyn["light"]["position"].device
+    h, w = cfg.resolution
+    cam_m = pl._cam_matrices(cfg, dyn["camera"], device)
+    faces, _ = pl._build_face_batch(cfg, dyn, cam_m,
+                                    pl._debug_mvp(cfg, dyn, device))
+    fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
+    fdbg = rc.pack_debug_planes(faces)
+    zb_sign, _ = rc.visibility_plain(fdata, flags, h, w, cfg.system,
+                                     want_tid=False, fdbg=fdbg)
+    shard = shard_inputs(cfg, dyn, zb_sign)
+    return {"visibility_dbg": ((fdata, flags, h, w, cfg.system),
+                               {"fdbg": fdbg}),
+            "visibility_z_dbg": shard["visibility_z"],
+            "tidpass_dbg": shard["tidpass"]}
 
 
 #: The rank of a phase-6 mesh on whose inputs phase 3 holds the sharded
@@ -238,10 +301,12 @@ def shard_inputs(cfg, dyn, zb_sign, mesh=SHARD_RANK[0], at=SHARD_RANK[1]):
     versions: its block of rows of the one-device z-buffer (the MIN of the
     shards' z-buffers is that buffer), the MAX over shards of their K7
     claims as the merged tid, and the SUM over shards of their owned
-    G-buffers for K3's iu/iv. Keyed by case, as (args, kwargs). Raises
-    unless the rank's shard wins some pixels of its rows and another shard
-    wins others (on the flagship frame the second half of the faces wins
-    nothing in rows 512-1023)."""
+    G-buffers for K3's iu/iv. Keyed by case, as (args, kwargs). With a
+    debug camera in the scene, K1's and K7's calls take the shard's debug
+    planes (``fdbg``), as render_core's do. Raises unless the rank's shard
+    wins some pixels of its rows and another shard wins others (on the
+    flagship frame the second half of the faces wins nothing in rows
+    512-1023)."""
     import torch
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
@@ -254,26 +319,29 @@ def shard_inputs(cfg, dyn, zb_sign, mesh=SHARD_RANK[0], at=SHARD_RANK[1]):
     row0 = row_idx * lh
     zb = zb_sign[row0:row0 + lh].contiguous()
     cam_m = pl._cam_matrices(cfg, dyn["camera"], zb.device)
+    dbg_mvp = pl._debug_mvp(cfg, dyn, zb.device)
     padded = pad_models_for_tris(dyn, n_tris)
     shards = []
     for t in range(n_tris):
         d = shard_dyn(padded, n_tris, t)
-        faces, attrs = pl._build_face_batch(cfg, d, cam_m)
+        faces, attrs = pl._build_face_batch(cfg, d, cam_m, dbg_mvp)
         fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
-        shards.append((d, attrs, fdata, flags, t * fdata.shape[0]))
-    tid = torch.stack([rc.tidpass_plain(f, fl, zb, cfg.system, row0, g0)
-                       for _, _, f, fl, g0 in shards]).amax(0)
+        shards.append((d, attrs, fdata, flags, t * fdata.shape[0],
+                       rc.pack_debug_planes(faces)))
+    tid = torch.stack([rc.tidpass_plain(f, fl, zb, cfg.system, row0, g0, fd)
+                       for _, _, f, fl, g0, fd in shards]).amax(0)
     gb = sum(rc.gbuffer_plain(f, rc.pack_face_attrs(a), tid, row0, g0)
-             for _, a, f, _, g0 in shards)
-    d, attrs, fdata, flags, gid0 = shards[tris_idx]
+             for _, a, f, _, g0, _ in shards)
+    d, attrs, fdata, flags, gid0, fdbg = shards[tris_idx]
     owned = (tid >= gid0) & (tid < gid0 + fdata.shape[0])
     if not (owned.any() and ((tid >= 0) & ~owned).any()):
         raise AssertionError(f"rank {at} of {mesh}: degenerate shard inputs")
     own = {"row0": row0, "gid0": gid0}
+    dbg = {} if fdbg is None else {"fdbg": fdbg}
     inputs = {
         "visibility_z": ((fdata, flags, lh, w, cfg.system),
-                         {"row0": row0, "want_tid": False}),
-        "tidpass": ((fdata, flags, zb, cfg.system), own),
+                         {"row0": row0, "want_tid": False, **dbg}),
+        "tidpass": ((fdata, flags, zb, cfg.system), {**own, **dbg}),
         "gbuffer_owned": ((fdata, rc.pack_face_attrs(attrs), tid), own),
         "sample_textures_owned": (
             (tid, gb[rc.GB_IU].contiguous(), gb[rc.GB_IV].contiguous(),
@@ -287,6 +355,7 @@ def shard_inputs(cfg, dyn, zb_sign, mesh=SHARD_RANK[0], at=SHARD_RANK[1]):
 
 def wrapper_of(case):
     """raster_cuda wrapper name of a kernel case."""
+    case = case.removesuffix("_dbg")
     if case.startswith("gbuffer_slim"):
         return "gbuffer_slim"
     if case == "visibility_z":
@@ -368,10 +437,15 @@ def needed_bytes(case, args, kw, out):
     kind = wrapper_of(case)
     if kind in ("visibility", "tidpass"):
         # Every valid face's row, every face's flag word; K7's zb where a
-        # face claims the pixel (a lower count: there the id depends on it).
+        # face claims the pixel (a lower count: there the id depends on it);
+        # with a debug camera, the debug planes of the valid faces that
+        # take the per-pixel clip test.
         flags = args[1]
-        valid = int(((flags & rp.FLAG_VALID) > 0).sum())
-        n += valid * rp.F_COLS * 4 + flags.numel() * 4
+        valid = (flags & rp.FLAG_VALID) > 0
+        n += int(valid.sum()) * rp.F_COLS * 4 + flags.numel() * 4
+        if kw.get("fdbg") is not None:
+            ppc = valid & ((flags & rp.FLAG_PPC) > 0)
+            n += int(ppc.sum()) * rp.DBG_COLS * 4
         return n + (int((out >= 0).sum()) * 4 if kind == "tidpass" else 0)
     if kind == "stencil":
         # The active quads' rows and every quad's flag; zb where the
@@ -493,8 +567,10 @@ def _alone_ms(fn, wrapper, runs=3, tries=3):
     ``fn``, without the wrapper's host work (checks, allocation): a
     profile of ``runs`` calls, summed over the wrapper's kernels of each
     one's mean time. A trace can come back short of some events: then the
-    profile is taken again until every kernel of the wrapper has exactly
-    ``runs`` events; after ``tries`` short traces it raises."""
+    profile is taken again, up to ``tries`` times, until every kernel of
+    the wrapper has exactly ``runs`` events. If every trace is short, the
+    last one's means stand (each event is one launch); it raises when a
+    kernel has no event or more than ``runs``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -512,10 +588,12 @@ def _alone_ms(fn, wrapper, runs=3, tries=3):
             if m and m.group(1) in times:
                 times[m.group(1)].append(e.time_range.elapsed_us())
         if all(len(t) == runs for t in times.values()):
-            return sum(statistics.mean(t) for t in times.values()) / 1e3
-    raise RuntimeError(f"{wrapper}: {tries} profiles short of {runs} events "
-                       f"of each of {names}: "
-                       f"{ {k: len(v) for k, v in times.items()} }")
+            break
+    if not all(0 < len(t) <= runs for t in times.values()):
+        raise RuntimeError(f"{wrapper}: a profile of {runs} calls has "
+                           f"{ {k: len(v) for k, v in times.items()} } "
+                           f"events of {names}")
+    return sum(statistics.mean(t) for t in times.values()) / 1e3
 
 
 def _same(a, b):
@@ -534,10 +612,11 @@ def _same(a, b):
     return torch.equal(a, b)
 
 
-#: Cases held to their plain version exactly: K5, K6 and every sharded
-#: mode.
+#: Cases held to their plain version exactly: K5, K6, every sharded mode
+#: and every debug mode.
 EXACT = ("visibility_z", "tidpass", "gbuffer_owned", "sample_textures_owned",
-         "gbuffer_slim_gouraud_owned", "gbuffer_slim_pbr_owned")
+         "gbuffer_slim_gouraud_owned", "gbuffer_slim_pbr_owned",
+         "visibility_dbg", "visibility_z_dbg", "tidpass_dbg")
 
 
 def _compare(name, got, ref):
@@ -703,6 +782,7 @@ SOURCES = {
 #: The TPU kernel a sharded mode replaces, where its wrapper's differs.
 REPLACES = {
     "visibility_z": "tpu_renderer/ops/raster_pallas.py:602",
+    "visibility_z_dbg": "tpu_renderer/ops/raster_pallas.py:602",
     "gbuffer_owned": "tpu_renderer/ops/raster_pallas.py:2776",
     "gbuffer_slim_gouraud_owned": "tpu_renderer/ops/raster_pallas.py:2776",
     "gbuffer_slim_pbr_owned": "tpu_renderer/ops/raster_pallas.py:2776",
@@ -717,6 +797,10 @@ PATH_KERNELS = {
     "sharded": ("visibility_z", "tidpass", "gbuffer", "sample_textures",
                 "stencil"),
     "sharded_slim": ("visibility_z", "tidpass", "gbuffer_slim", "stencil"),
+    "overlay": ("visibility_dbg", "gbuffer", "sample_textures", "stencil"),
+    "wireframe_dbg": ("visibility_dbg", "gbuffer_slim", "stencil", "lines"),
+    "sharded_slim_dbg": ("visibility_z_dbg", "tidpass_dbg", "gbuffer_slim",
+                         "stencil"),
 }
 
 
@@ -733,9 +817,12 @@ def _check_render(scene, frame, debug):
     if debug:
         f_p, _, tid_p, st_p = pl.render_debug_frame(cfg, dyn, scene.shader,
                                                      ops=rc.PLAIN)
+        f_p = f_p.cpu().numpy()
+    elif scene.debug_camera is not None and scene.debug_overlay:
+        f_p, _, tid_p, st_p = scene._render_overlay(cfg, dyn, ops=rc.PLAIN)
     else:
         f_p, _, tid_p, st_p = pl.render_frame(cfg, dyn, ops=rc.PLAIN)
-    f_p = f_p.cpu().numpy()
+        f_p = f_p.cpu().numpy()
     tid_match = (tid == tid_p).float().mean().item()
     frame_match = float((frame == f_p).all(-1).mean())
     if frame.shape != (*RES, 3) or tid_match < 0.999 or frame_match < 0.999 \
@@ -768,12 +855,12 @@ def _orbit_ms(scene, n_frames):
     return (time.perf_counter() - t0) / n_frames * 1e3
 
 
-#: Phase 6's renders, (shader, (n_rows, n_tris)), by world size: one spawn
-#: of ranks each. Frames timed per render, and seconds a spawn may take
-#: before its ranks are killed.
-SHARDED_RUNS = {2: (("general", (1, 2)), ("gouraud", (1, 2)),
-                    ("pbr", (1, 2))),
-                4: (("general", (2, 2)),)}
+#: Phase 6's renders, (shader, (n_rows, n_tris), with the debug camera),
+#: by world size: one spawn of ranks each. Frames timed per render, and
+#: seconds a spawn may take before its ranks are killed.
+SHARDED_RUNS = {2: (("general", (1, 2), False), ("gouraud", (1, 2), False),
+                    ("pbr", (1, 2), False), ("gouraud", (1, 2), True)),
+                4: (("general", (2, 2), False),)}
 SHARD_FRAMES = 5
 RANK_DEADLINE = 300
 
@@ -820,6 +907,10 @@ def _merge_share(render, n_frames=2):
             "tidpass_host_ms": tidpass}
 
 
+def _run_key(shader, shape, debug):
+    return f"{shader}_{shape[0]}x{shape[1]}" + ("_dbg" if debug else "")
+
+
 def _sharded_rank(rank, world, tmp, runs):
     """One rank of phase 6: for each run, the sharded frame through the
     kernels (launch counts reset just before it, read just after) and
@@ -841,8 +932,9 @@ def _sharded_rank(rank, world, tmp, runs):
     try:
         scene = build_flagship(tr, "cuda")
         report = {}
-        for shader, (n_rows, n_tris) in runs:
+        for shader, (n_rows, n_tris), debug in runs:
             scene.shader = shader
+            scene.debug_camera = flagship_debug_camera(tr) if debug else None
             cfg, dyn = scene._prepare()
             mesh = tr.make_render_mesh(n_tris, "cuda")
             render = lambda ops=rc.KERNELS: tr.render_frame_sharded(
@@ -862,7 +954,7 @@ def _sharded_rank(rank, world, tmp, runs):
             torch.cuda.synchronize()
             dist.barrier()
             ms = (time.perf_counter() - t0) / SHARD_FRAMES * 1e3
-            key = f"{shader}_{n_rows}x{n_tris}"
+            key = _run_key(shader, (n_rows, n_tris), debug)
             report[key] = {
                 "launches": launches, "ms": ms,
                 "row0": mesh.get_local_rank("rows") * (cfg.resolution[0]
@@ -921,9 +1013,13 @@ def _spawn_ranks(world, tmp, runs):
 
 def _sharded_phase(scene, start, records):
     """Phase 6: every SHARDED_RUNS render against the one-device frame of
-    ``scene`` at the camera ``start`` and against its plain-path render;
-    puts the SHARD_RANK rank's launches into the sharded modes' records."""
+    ``scene`` at the camera ``start`` (with the debug camera, where the run
+    has it, and no overlay: the sharded path draws none) and against its
+    plain-path render; puts the SHARD_RANK rank's launches into the sharded
+    modes' records."""
     import torch
+
+    import tpu_renderer_torch as tr
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     try:
@@ -935,15 +1031,19 @@ def _sharded_phase(scene, start, records):
             for r in range(world):
                 with open(os.path.join(sub, f"rank{r}.json")) as f:
                     reports.append(json.load(f))
-            for shader, shape in runs:
-                key = f"{shader}_{shape[0]}x{shape[1]}"
+            for shader, shape, debug in runs:
+                key = _run_key(shader, shape, debug)
                 saved = np.load(os.path.join(sub, f"{key}.npz"))
                 frame, zbuf, tid, stencil = (saved[f"arr_{i}"]
                                              for i in range(4))
                 scene.shader = shader
                 scene.camera.set_position(start)
+                scene.debug_camera = (flagship_debug_camera(tr) if debug
+                                      else None)
+                scene.debug_overlay = False
                 want = scene.render()
                 torch.cuda.synchronize()
+                scene.debug_camera, scene.debug_overlay = None, True
                 cfg, _ = scene._prepare()
                 ids = one_device_ids(cfg, shape[1])
                 tid = np.where(tid >= 0, ids[np.maximum(tid, 0)], -1)
@@ -959,8 +1059,9 @@ def _sharded_phase(scene, start, records):
                         f"sharded {key} vs one device: tid {tid_match}, "
                         f"frame {frame_match}, stencil equal {st_equal}, "
                         f"zbuf close {zb_close}")
-                path = PATH_KERNELS["sharded" if shader == "general"
-                                    else "sharded_slim"]
+                path = PATH_KERNELS[("sharded" if shader == "general"
+                                     else "sharded_slim")
+                                    + ("_dbg" if debug else "")]
                 for r, rep in enumerate(reports):
                     got = rep[key]
                     if (min(got["launches"][k] for k in path) < 1
@@ -974,7 +1075,10 @@ def _sharded_phase(scene, start, records):
                     row_idx, tris_idx = SHARD_RANK[1]
                     launched = reports[row_idx * shape[1]
                                        + tris_idx][key]["launches"]
-                    if shader == "general":
+                    if debug:
+                        for case in ("visibility_z_dbg", "tidpass_dbg"):
+                            records[case]["launches"] = launched[case]
+                    elif shader == "general":
                         for case, k in (("visibility_z", "visibility_z"),
                                         ("tidpass", "tidpass"),
                                         ("gbuffer_owned", "gbuffer"),
@@ -1002,6 +1106,93 @@ def _sharded_phase(scene, start, records):
                       flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: Interleaved orbit pairs (flagship, debug-camera frame) of phase 7, and
+#: frames per orbit.
+DEBUG_PAIRS = 3
+DEBUG_ORBIT = 10
+
+
+def _debug_phase(tr, scene, start, records):
+    """Phase 7 (module docstring): the flagship with the debug camera and
+    both gizmos; ``scene`` is the flagship without them, which it is timed
+    against. Puts its K1 launches into the ``visibility_dbg`` record."""
+    import torch
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    dbg = build_flagship(tr, "cuda")
+    dbg.light = flagship_light(tr, show=True)
+    dbg.debug_camera = flagship_debug_camera(tr, show=True)
+    rc.reset_launches()
+    frame = dbg.render()
+    torch.cuda.synchronize()
+    launched = {k: rc.LAUNCHES[k] for k in PATH_KERNELS["overlay"]}
+    if min(launched.values()) < 1:
+        raise AssertionError(f"debug-camera path skipped a kernel: "
+                             f"{launched}")
+    records["visibility_dbg"]["launches"] = launched["visibility_dbg"]
+    tid_match, frame_match, fg = _check_render(dbg, frame, debug=False)
+    red = int(((frame[..., 0] == 255) & (frame[..., 1] == 0)
+               & (frame[..., 2] == 0)).sum())
+    if red == 0:
+        raise AssertionError("debug camera: the overlay drew no red pixel")
+    # The same frame without the debug camera's clip space: the mesh's
+    # pixels whose winner it changes.
+    cfg, dyn = dbg._prepare()
+    tid0 = pl.render_core(dataclasses.replace(cfg, has_debug_camera=False),
+                          dyn)[2]
+    tid = dbg.last_tid
+    sizes = np.cumsum([m.num_faces for m in cfg.models])
+    mesh = (tid0 >= 0) & (tid0 < int(sizes[0]))
+    moved = int(((tid != tid0) & mesh).sum())
+    share = moved / max(int(mesh.sum()), 1)
+    if share <= 0.01:
+        raise AssertionError(f"debug camera: tid changed on {moved} mesh "
+                             f"pixels ({share:.4f}), not more than 1%")
+    # The gizmos follow the flagship's two models: the light's sphere (the
+    # light stands outside the main camera's view) and the debug camera's.
+    gizmo_px = [int(((tid >= lo) & (tid < hi)).sum())
+                for lo, hi in zip(sizes[1:-1], sizes[2:])]
+    if len(gizmo_px) != 2 or gizmo_px[1] == 0:
+        raise AssertionError(f"gizmos: models {len(cfg.models)}, pixels "
+                             f"{gizmo_px}")
+    scene.shader, scene.skybox = "general", None
+    general_ms, debug_ms = [], []
+    for _ in range(DEBUG_PAIRS):
+        general_ms.append(_orbit_ms(scene, DEBUG_ORBIT))
+        debug_ms.append(_orbit_ms(dbg, DEBUG_ORBIT))
+    diff = [d - g for g, d in zip(general_ms, debug_ms)]
+    spread = lambda xs: (f"median {statistics.median(xs):.3f} "
+                         f"[{min(xs):.3f}, {max(xs):.3f}]")
+    prof = _profile(dbg, n_frames=3)
+    lead = sorted(prof["host"].items(), key=lambda kv: -kv[1])[:3]
+    print(f"[7 debug camera] launches {launched}; vs plain path tid "
+          f"{tid_match:.6f}, frame {frame_match:.6f}, stencil equal; "
+          f"foreground {fg:.3f}; overlay red px {red}; the debug camera "
+          f"moves {moved} of {int(mesh.sum())} mesh px ({share:.4f}); gizmo "
+          f"px (light, camera) {gizmo_px}; ms/frame (host clock, "
+          f"{DEBUG_PAIRS} interleaved {DEBUG_ORBIT}-frame orbit pairs): "
+          f"debug {spread(debug_ms)}, general {spread(general_ms)}, debug - "
+          f"general {spread(diff)}; traced wall {prof['wall']:.2f}, device "
+          f"busy {prof['busy']:.3f} ms/frame; overlay host "
+          f"{prof['host'].get('overlay', 0.0):.3f} ms/frame; leading host "
+          f"stages {lead}; kernels {prof['kernels']}", flush=True)
+
+    dbg.camera.set_position(start)
+    dbg.shader = "wireframe"
+    rc.reset_launches()
+    frame = dbg.render()
+    torch.cuda.synchronize()
+    launched = {k: rc.LAUNCHES[k] for k in PATH_KERNELS["wireframe_dbg"]}
+    if min(launched.values()) < 1:
+        raise AssertionError(f"debug-camera wireframe skipped a kernel: "
+                             f"{launched}")
+    tid_match, frame_match, fg = _check_render(dbg, frame, debug=True)
+    print(f"[7 debug camera, wireframe] launches {launched}; vs plain path "
+          f"tid {tid_match:.6f}, frame {frame_match:.6f}, stencil equal; "
+          f"foreground {fg:.3f}", flush=True)
 
 
 def main():
@@ -1067,12 +1258,22 @@ def main():
                          "launches": None, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None}
-        mode = f" {kw}" if kw else ""
+        shown = {k: (f"({v.shape[0]}, {v.shape[1]}) debug planes"
+                     if isinstance(v, torch.Tensor) else v)
+                 for k, v in kw.items()}
+        mode = f" {shown}" if kw else ""
         print(f"[3 kernel] {name}{mode}: {verdict}; max_abs_err {err:.3g}; "
               f"kernel {ms:.4f} ms (its wrapper, binning included), alone "
               f"{alone:.4f} ms, plain {plain_ms:.2f} ms; bound "
               f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
               f"{ops / 1e6:.2f} Mop){bins}", flush=True)
+    from tpu_renderer_torch.ops import raster_plain as rp
+    ppc = {case: int(((inputs[case][0][1] & rp.FLAG_PPC) > 0).sum())
+           for case in ("visibility", "visibility_dbg")}
+    print(f"[3 debug planes] faces on the per-pixel clip test: "
+          f"{ppc['visibility_dbg']} with the debug camera, "
+          f"{ppc['visibility']} without, of "
+          f"{inputs['visibility'][0][0].shape[0]}", flush=True)
     del inputs
 
     # 4. end to end through Scene.render()
@@ -1166,6 +1367,9 @@ def main():
     # 6. sharded frames on meshes of ranks that share the card
     scene.skybox = None
     _sharded_phase(scene, start, records)
+
+    # 7. the debug camera: its clip space, its frustum overlay, the gizmos
+    _debug_phase(tr, scene, start, records)
 
     unread = [n for n, r in records.items() if not r["launches"]]
     if unread:

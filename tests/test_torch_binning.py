@@ -11,7 +11,8 @@ each step the kernels take:
   (two passes) in zb and tid, on the kernel-test scene and on seeded face
   tables with exact z ties, faces that do not write z, NaN and ±inf depths
   and row0 > 0; and the whole design (coarse lists, refinement to the
-  16x16 tile, the walk) equals ``visibility_plain``, tile by tile;
+  16x16 tile, the walk) equals ``visibility_plain``, tile by tile; both
+  also with a debug camera's planes (``fdbg``: the second clip space);
 - K4's exact edge cull (csrc/stencil.cu): a plain model of the corner test
   keeps every (tile, quad) pair where some pixel is inside the quad's
   edges, so every pair where ``quad_fragments`` is nonzero, on the scene's
@@ -30,8 +31,9 @@ from tpu_renderer_torch.ops import raster_cuda as rc
 from tpu_renderer_torch.ops import raster_plain as rp
 from tpu_renderer_torch.ops.shadow import quad_fragments
 
-from test_torch_kernels import (ADV_RES, long_face_list, long_quad_list,
-                                random_faces, random_quads)
+from test_torch_kernels import (  # noqa: F401
+    ADV_RES, long_debug_list, long_face_list, long_quad_list,
+    one_torch_thread, random_faces, random_quads, with_debug_planes)
 
 T = rc.TILE
 
@@ -61,13 +63,14 @@ def scene_inputs():
 
 # ------------------------------------------------------------- K1
 
-def one_walk(fdata, flags, rows, cols, sign, want_tid=True):
+def one_walk(fdata, flags, rows, cols, sign, want_tid=True, fdbg=None):
     """The kernel's per-pixel recurrence over the faces in table order:
     running minimum m (+inf) and candidate c (-1); a covering face with
     zs = z * sign <= m becomes c, and lowers m if it writes z. Returns
     (m, c) over the (rows, cols) grid; ``want_tid=False`` walks only the
-    z-writing faces (K1's z-only staging)."""
-    cov, z = rp.face_fragments(fdata, flags, rows, cols)
+    z-writing faces (K1's z-only staging); ``fdbg`` adds the debug
+    camera's clip space to coverage."""
+    cov, z = rp.face_fragments(fdata, flags, rows, cols, fdbg)
     zs = z * sign
     m = torch.full(cov.shape[1:], float("inf"))
     c = torch.full(cov.shape[1:], -1, dtype=torch.int32)
@@ -120,6 +123,27 @@ def test_one_walk_equals_two_passes_on_random_tables(seed, row0, sign):
     assert (claim.sum(0) > 1).any()
 
 
+@pytest.mark.parametrize("seed,row0,sign", [(20, 0, 1), (21, 37, -1)])
+def test_one_walk_equals_two_passes_with_debug_planes(seed, row0, sign):
+    """The same with debug planes holding negative, NaN and ±inf values:
+    the walk over the second clip space still equals the two passes, and
+    the planes only take coverage away, somewhere."""
+    fdata, flags, h, w = _random_table(seed, row0)
+    flags, fdbg = with_debug_planes(fdata, flags, seed)
+    assert torch.isnan(fdbg).any() and torch.isinf(fdbg).any()
+    rows, cols = rp._grid(h, w, "cpu", row0)
+    m, c = one_walk(fdata, flags, rows, cols, sign, fdbg=fdbg)
+    zb, tid = rc.visibility_plain(fdata, flags, h, w, sign, row0=row0,
+                                  fdbg=fdbg)
+    assert torch.equal(m, zb) and torch.equal(c, tid)
+    mz, _ = one_walk(fdata, flags, rows, cols, sign, want_tid=False,
+                     fdbg=fdbg)
+    assert torch.equal(mz, zb)
+    cov, _ = rp.face_fragments(fdata, flags, rows, cols, fdbg)
+    cov0, _ = rp.face_fragments(fdata, flags, rows, cols)
+    assert (cov0 & ~cov).any() and not (cov & ~cov0).any()
+
+
 def _corners(h, w, row0):
     """Each fine tile's first and last pixel column (1, tx, 1) and row
     (ty, 1, 1), float32."""
@@ -156,10 +180,11 @@ def _fine_tiles(h, w):
     return [(ty, tx) for ty in range(-(-h // T)) for tx in range(-(-w // T))]
 
 
-def staged_visibility(fdata, flags, h, w, sign, row0=0, want_tid=True):
+def staged_visibility(fdata, flags, h, w, sign, row0=0, want_tid=True,
+                      fdbg=None):
     """csrc/visibility.cu tile by tile in plain PyTorch: the coarse list,
     refined to the fine tile by bbox (and z-writing in z-only mode), walked
-    once in list order."""
+    once in list order (with the staged faces' debug planes, if any)."""
     bbox = fdata[:, rp.F_BBOX:rp.F_BBOX + 4]
     counts, items = rc.coarse_bins_plain(bbox, (flags & rp.FLAG_VALID) > 0,
                                          h, w, row0)
@@ -178,7 +203,8 @@ def staged_visibility(fdata, flags, h, w, sign, row0=0, want_tid=True):
         lst = lst[keep]
         rows = torch.arange(y0, y0 + T, dtype=torch.float32)[:, None]
         cols = torch.arange(x0, x0 + T, dtype=torch.float32)[None]
-        m, c = one_walk(fdata[lst], flags[lst], rows, cols, sign, want_tid)
+        m, c = one_walk(fdata[lst], flags[lst], rows, cols, sign, want_tid,
+                        None if fdbg is None else fdbg[lst])
         ids = torch.cat([lst, torch.tensor([-1])]).to(torch.int32)
         c = ids[c.long()]                      # -1 stays -1
         r1, c1 = min(h, (ty + 1) * T), min(w, (tx + 1) * T)
@@ -187,20 +213,30 @@ def staged_visibility(fdata, flags, h, w, sign, row0=0, want_tid=True):
     return zb, tid
 
 
-@pytest.mark.parametrize("case", ["scene", "long", "long-z-row0", "random"])
+@pytest.mark.parametrize("case", ["scene", "long", "long-z-row0", "random",
+                                  "long-dbg", "long-z-row0-dbg",
+                                  "random-dbg"])
 def test_staged_design_equals_visibility_plain(scene_inputs, case):
+    fdbg = None
     if case == "scene":
         fdata, flags, h, w, sign = scene_inputs["faces"]
         row0, want_tid = 0, True
-    elif case == "random":
+    elif case.startswith("random"):
         fdata, flags, h, w = _random_table(5, 23)
         sign, row0, want_tid = -1, 23, True
+        if case.endswith("dbg"):
+            flags, fdbg = with_debug_planes(fdata, flags, 5)
     else:
-        row0 = 40 if case == "long-z-row0" else 0
-        fdata, flags, h, w = long_face_list(7, row0)
-        sign, want_tid = 1, case == "long"
-    zb, tid = staged_visibility(fdata, flags, h, w, sign, row0, want_tid)
-    zp, tp = rc.visibility_plain(fdata, flags, h, w, sign, row0, want_tid)
+        row0 = 40 if case.startswith("long-z-row0") else 0
+        if case.endswith("dbg"):
+            fdata, flags, h, w, fdbg = long_debug_list(7, row0)
+        else:
+            fdata, flags, h, w = long_face_list(7, row0)
+        sign, want_tid = 1, case.startswith("long") and "-z-" not in case
+    zb, tid = staged_visibility(fdata, flags, h, w, sign, row0, want_tid,
+                                fdbg)
+    zp, tp = rc.visibility_plain(fdata, flags, h, w, sign, row0, want_tid,
+                                 fdbg)
     assert torch.equal(zb, zp)
     if want_tid:
         assert torch.equal(tid, tp)

@@ -35,7 +35,8 @@ from tpu_renderer_torch.models import gizmos as gz_torch
 from tpu_renderer_torch.ops import cubemap as cm_torch
 from tpu_renderer_torch.ops import pipeline as pl_torch
 
-from test_torch_kernels import RES, build_scene  # noqa: E402
+from test_torch_kernels import (  # noqa: E402,F401
+    RES, build_scene, one_torch_thread)
 
 SIDES = ("left", "right", "top", "bottom", "front", "back")
 

@@ -14,6 +14,10 @@ This file imports no JAX, so it also runs on the card's host:
 - the same holds for the sharded modes, on the inputs of rank (1, 1) of a
   2x2 (rows, tris) mesh (``chip_smoke.shard_inputs``, at a row0 > 0): K1 z
   only, K7, the owned ranges of K2, K5 and K3, and K4;
+- the same for K1 (both modes) and K7 with a debug camera's planes
+  (``fdbg``): on the scene with a debug camera that cuts the mesh, on the
+  sharded inputs of that scene, and on adversarial tables whose debug
+  planes hold negative, NaN and infinite values (``long_debug_list``);
 - and for inputs built to break K1's, K4's and K7's staged, binned design
   (``long_face_list``, ``long_quad_list``, ``long_claim_inputs``): tile
   lists longer than two staging chunks, exact z ties, faces that do not
@@ -41,6 +45,20 @@ import chip_smoke
 from chip_smoke import shard_inputs
 
 RES = (64, 128)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread for the module's tests, restored after.
+    The suite runs in several pytest-xdist workers at once, and a default
+    of one thread per core in each oversubscribes the host: the many small
+    ops of these tests then wait on spinning threads (measured on 8 cores
+    and six workers: the port's heaviest test files ran up to 70 times
+    slower than alone). The other port test modules import it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def textures(seed=0):
@@ -146,6 +164,40 @@ def random_faces(rng, g, box, frame):
              | ppc * (rp.FLAG_CLIP | rp.FLAG_PPC)
              | (rng.random(g) < 0.7) * rp.FLAG_ZWRITE)
     return torch.from_numpy(fdata), torch.from_numpy(flags.astype(np.int32))
+
+
+def random_debug_planes(rng, g):
+    """Seeded (g, 18) debug planes (pack_debug_planes layout) for
+    ``random_faces``' tables: uniform in [0.2, 1.0], 10% negated, 1% NaN
+    and 1% ±inf. Returns a float32 tensor."""
+    e = rng.uniform(0.2, 1.0, (g, 18))
+    e[rng.random((g, 18)) < 0.1] *= -1
+    u = rng.random((g, 18))
+    e[u < 0.01] = np.nan
+    e[(u >= 0.01) & (u < 0.02)] = rng.choice([np.inf, -np.inf],
+                                               ((u >= 0.01) & (u < 0.02)).sum())
+    return torch.from_numpy(e.astype(np.float32))
+
+
+def with_debug_planes(fdata, flags, seed):
+    """A table's flags with 30% more faces on the per-pixel clip test, and
+    seeded debug planes for it (``random_debug_planes``; a generator of its
+    own, so the table itself is unchanged). Returns (flags, fdbg)."""
+    from tpu_renderer_torch.ops import raster_plain as rp
+
+    rng = np.random.default_rng(seed + 5000)
+    g = fdata.shape[0]
+    more = torch.from_numpy(rng.random(g) < 0.3)
+    flags = torch.where(more, flags | rp.FLAG_CLIP | rp.FLAG_PPC, flags)
+    return flags.contiguous(), random_debug_planes(rng, g)
+
+
+def long_debug_list(seed=0, row0=0):
+    """K1's adversarial table (``long_face_list``) with debug planes
+    (``with_debug_planes``). Returns (fdata, flags, h, w, fdbg)."""
+    fdata, flags, h, w = long_face_list(seed, row0)
+    flags, fdbg = with_debug_planes(fdata, flags, seed)
+    return fdata, flags, h, w, fdbg
 
 
 def long_face_list(seed=0, row0=0):
@@ -363,6 +415,15 @@ def long_edge_list(seed=0):
 ADV_GID0 = 850
 
 
+#: A debug camera for build_scene's scene: above the cube looking down,
+#: near and far tight around it, so its frustum cuts the cube's top and the
+#: floor while the main camera sees the whole scene (about half of the
+#: foreground pixels change hands; 19 faces need the per-pixel clip test
+#: for the debug space alone).
+DEBUG_CAM = dict(position=(1.0, 3.0, 1.5), center=(0, 0, 0), fovy=50,
+                 near=2.4, far=3.8)
+
+
 def long_claim_inputs(seed=0, row0=0):
     """K7's adversarial inputs on ADV_RES rows from ``row0``: K1's
     ``long_face_list`` claims against the MIN of its own z-buffer and
@@ -402,7 +463,13 @@ CASES = {"visibility": ("visibility", "visibility"),
          "stencil-long": ("stencil", "stencil"),
          "stencil-long-row0": ("stencil", "stencil"),
          "lines-long": ("lines", "lines"),
-         "tidpass-long-row0": ("tidpass", "tidpass")}
+         "tidpass-long-row0": ("tidpass", "tidpass"),
+         "visibility-dbg": ("visibility", "visibility_dbg"),
+         "visibility_z-dbg-shard": ("visibility", "visibility_z_dbg"),
+         "tidpass-dbg-shard": ("tidpass", "tidpass_dbg"),
+         "visibility-dbg-long": ("visibility", "visibility_dbg"),
+         "visibility_z-dbg-long-row0": ("visibility", "visibility_z_dbg"),
+         "tidpass-dbg-long-row0": ("tidpass", "tidpass_dbg")}
 
 #: row0 of the adversarial ``-row0`` cases.
 ADV_ROW0 = 40
@@ -467,7 +534,42 @@ def stage_inputs():
     inputs["lines-long"] = (long_edge_list(5), {})
     inputs["tidpass-long-row0"] = (long_claim_inputs(6, ADV_ROW0),
                                    {"row0": ADV_ROW0, "gid0": ADV_GID0})
+    # With a debug camera: the scene's K1, and the sharded K1 z only and K7
+    # of its 2x2 rank (1, 0), rows from 32, where the debug planes change
+    # both (shard_inputs passes fdbg where the scene has a debug camera).
+    scene = build_scene(tt, gz_torch, device="cpu",
+                        debug_camera=tt.Camera(**DEBUG_CAM))
+    cfg, dyn = scene._prepare()
+    cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
+    faces, _ = pl._build_face_batch(cfg, dyn, cam_m,
+                                    pl._debug_mvp(cfg, dyn, "cpu"))
+    fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
+    fdbg = rc.pack_debug_planes(faces)
+    inputs["visibility-dbg"] = ((fdata, flags, h, w, cfg.system),
+                                {"fdbg": fdbg})
+    zb, _ = rc.visibility_plain(fdata, flags, h, w, cfg.system, fdbg=fdbg)
+    shard = shard_inputs(cfg, dyn, zb, mesh=(2, 2), at=(1, 0))
+    inputs["visibility_z-dbg-shard"] = shard["visibility_z"]
+    inputs["tidpass-dbg-shard"] = shard["tidpass"]
+    fdata, flags, h, w, fdbg = long_debug_list(10)
+    inputs["visibility-dbg-long"] = ((fdata, flags, h, w, -1),
+                                     {"fdbg": fdbg})
+    fdata, flags, h, w, fdbg = long_debug_list(11, ADV_ROW0)
+    inputs["visibility_z-dbg-long-row0"] = (
+        (fdata, flags, h, w, 1),
+        {"row0": ADV_ROW0, "want_tid": False, "fdbg": fdbg})
+    fdata, flags, zb, sign = long_claim_inputs(12, ADV_ROW0)
+    flags, fdbg = with_debug_planes(fdata, flags, 12)
+    inputs["tidpass-dbg-long-row0"] = (
+        (fdata, flags, zb, sign),
+        {"row0": ADV_ROW0, "gid0": ADV_GID0, "fdbg": fdbg})
     return inputs
+
+
+def _moved(args, kw, device):
+    """A case's tensors, positional and keyword, on ``device``."""
+    to = lambda a: a.to(device) if isinstance(a, torch.Tensor) else a
+    return tuple(to(a) for a in args), {k: to(v) for k, v in kw.items()}
 
 
 def _equal(a, b):
@@ -497,9 +599,7 @@ def test_wrapper_on_cpu_runs_plain_version(stage_inputs, name):
 def test_wrapper_refuses_other_devices(stage_inputs, name):
     """No silent path: tensors on a device that is neither the CPU nor CUDA
     (here PyTorch's shape-only 'meta' device) raise."""
-    args, kw = stage_inputs[name]
-    args = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
-                 for a in args)
+    args, kw = _moved(*stage_inputs[name], "meta")
     with pytest.raises(RuntimeError):
         getattr(rc, CASES[name][0])(*args, **kw)
 
@@ -576,6 +676,30 @@ def test_adversarial_inputs_are_not_degenerate(stage_inputs):
     assert ((tid < 0) & (zb < 3e38)).any()       # the other table's pixels
 
 
+def test_debug_inputs_are_not_degenerate(stage_inputs):
+    """The debug planes change what K1 and K7 see: on the scene, the
+    sharded rank and the adversarial tables, some pixel's z or winner
+    differs from the same call without them; on the scene the debug space
+    alone puts some faces on the per-pixel clip test."""
+    from tpu_renderer_torch.ops import raster_plain as rp
+
+    for name in ("visibility-dbg", "visibility_z-dbg-shard",
+                 "tidpass-dbg-shard", "visibility-dbg-long",
+                 "visibility_z-dbg-long-row0", "tidpass-dbg-long-row0"):
+        args, kw = stage_inputs[name]
+        fn = getattr(rc, CASES[name][0])
+        plain = dict(kw)
+        plain.pop("fdbg")
+        got, without = fn(*args, **kw), fn(*args, **plain)
+        if isinstance(got, tuple):
+            got, without = got[1] if got[1] is not None else got[0], \
+                without[1] if without[1] is not None else without[0]
+        assert not torch.equal(got, without), name
+    (fdata, flags, *_), _ = stage_inputs["visibility-dbg"]
+    assert (flags & rp.FLAG_PPC).any()
+    assert (stage_inputs["visibility-dbg"][1]["fdbg"] <= 0).any()
+
+
 def test_tile_bins_list_every_overlap_in_order():
     rng = np.random.default_rng(3)
     x0 = rng.integers(0, 60, 200)
@@ -601,8 +725,7 @@ def test_tile_bins_list_every_overlap_in_order():
 def cuda_inputs(stage_inputs):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the card)")
-    return {name: (tuple(a.cuda() if isinstance(a, torch.Tensor) else a
-                         for a in args), kw)
+    return {name: _moved(args, kw, "cuda")
             for name, (args, kw) in stage_inputs.items()}
 
 
@@ -625,7 +748,8 @@ def test_kernel_matches_plain_on_card(cuda_inputs, name):
 @pytest.mark.parametrize("name", ["visibility-long", "visibility_z-long-row0",
                                   "stencil-long", "stencil-long-row0",
                                   "visibility", "stencil", "tidpass-shard",
-                                  "tidpass-long-row0"])
+                                  "tidpass-long-row0", "visibility-dbg",
+                                  "tidpass-dbg-long-row0"])
 def test_coarse_bins_match_plain_on_card(cuda_inputs, name):
     """csrc/bins.cu's coarse lists (K1's and K7's faces, K4's quads) list
     exactly coarse_bins_plain's primitives, in table order."""
@@ -638,7 +762,12 @@ def test_coarse_bins_match_plain_on_card(cuda_inputs, name):
                                   "visibility_z-shard", "stencil",
                                   "stencil-row0", "stencil-long", "lines",
                                   "lines-long", "tidpass-shard",
-                                  "tidpass-long-row0"])
+                                  "tidpass-long-row0", "visibility-dbg",
+                                  "visibility_z-dbg-shard",
+                                  "tidpass-dbg-shard",
+                                  "visibility-dbg-long",
+                                  "visibility_z-dbg-long-row0",
+                                  "tidpass-dbg-long-row0"])
 def test_binned_wrappers_do_not_sync_on_card(cuda_inputs, name):
     """The wrappers of K1, K4, K6 and K7 never wait for the device: they
     run under torch's sync debug mode "error", which raises on tile_bins'

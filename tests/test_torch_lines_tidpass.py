@@ -17,7 +17,9 @@ and without JAX, each step the kernels take:
 - K7's claim (csrc/tidpass.cu, face_walk.cuh WALK_CLAIM): the walk with m
   fixed at the given z equals ``tidpass_plain`` on the scene and on seeded
   tables with exact ties, faces that do not write z, NaN and ±inf depths
-  and z-buffer values, row0 > 0 and gid0 > 0;
+  and z-buffer values, row0 > 0 and gid0 > 0, and with debug planes (the
+  debug camera's clip space, on the scene with a debug camera and on
+  tables whose planes hold negative, NaN and ±inf values);
 - and K7's whole design tile by tile (coarse list, refinement to the 16x16
   tile by bbox, the claim walk) equals ``tidpass_plain``.
 """
@@ -29,9 +31,11 @@ from tpu_renderer_torch.ops import raster_cuda as rc
 from tpu_renderer_torch.ops import raster_plain as rp
 
 from test_torch_binning import _fine_tiles, _random_table
-from test_torch_kernels import (ADV_GID0, ADV_RES, ADV_ROW0, CROWDED, TIE_Z,
-                                adversarial_edges, build_scene, edge_zbuf,
-                                long_claim_inputs, long_edge_list)
+from test_torch_kernels import (ADV_GID0, ADV_RES, ADV_ROW0, CROWDED,
+                                DEBUG_CAM, TIE_Z, adversarial_edges,
+                                build_scene, edge_zbuf, long_claim_inputs,
+                                long_edge_list, one_torch_thread,  # noqa: F401
+                                with_debug_planes)
 
 T = rc.TILE
 
@@ -171,11 +175,12 @@ def test_adversarial_edges_are_not_degenerate(case):
 
 # ------------------------------------------------------------- K7
 
-def claim_walk(fdata, flags, zb, rows, cols, sign):
+def claim_walk(fdata, flags, zb, rows, cols, sign, fdbg=None):
     """K7's per-pixel walk over the faces in table order with m fixed at
-    the given z: a covering face with zs = z * sign <= zb becomes the
-    candidate. Returns cand (-1 where none)."""
-    cov, z = rp.face_fragments(fdata, flags, rows, cols)
+    the given z: a covering face (in the debug camera's clip space too,
+    with ``fdbg``) with zs = z * sign <= zb becomes the candidate. Returns
+    cand (-1 where none)."""
+    cov, z = rp.face_fragments(fdata, flags, rows, cols, fdbg)
     zs = z * sign
     c = torch.full(cov.shape[1:], -1, dtype=torch.int32)
     for f in range(fdata.shape[0]):
@@ -184,10 +189,11 @@ def claim_walk(fdata, flags, zb, rows, cols, sign):
     return c
 
 
-def staged_tidpass(fdata, flags, zb, sign, row0=0, gid0=0):
+def staged_tidpass(fdata, flags, zb, sign, row0=0, gid0=0, fdbg=None):
     """csrc/tidpass.cu tile by tile in plain PyTorch: the coarse list of
     valid faces, refined to the fine tile by bbox alone, walked once in
-    list order against the given z."""
+    list order against the given z (with the staged faces' debug planes,
+    if any)."""
     h, w = zb.shape
     bbox = fdata[:, rp.F_BBOX:rp.F_BBOX + 4]
     counts, items = rc.coarse_bins_plain(bbox, (flags & rp.FLAG_VALID) > 0,
@@ -205,29 +211,39 @@ def staged_tidpass(fdata, flags, zb, sign, row0=0, gid0=0):
         rows = torch.arange(y0, row0 + r1, dtype=torch.float32)[:, None]
         cols = torch.arange(x0, c1, dtype=torch.float32)[None]
         c = claim_walk(fdata[lst], flags[lst], zb[ty * T:r1, x0:c1], rows,
-                       cols, sign)
+                       cols, sign, None if fdbg is None else fdbg[lst])
         ids = torch.cat([lst + gid0, torch.tensor([-1])]).to(torch.int32)
         tid[ty * T:r1, x0:c1] = ids[c.long()]            # -1 stays -1
     return tid
 
 
 def _claim_case(case):
-    """(fdata, flags, zb_sign, sign, row0, gid0) of a claim case."""
-    if case == "scene":
+    """(fdata, flags, zb_sign, sign, row0, gid0, fdbg) of a claim case;
+    fdbg is None unless the case's name ends in ``-dbg``."""
+    if case.endswith("-dbg") and not case.startswith("scene"):
+        fdata, flags, zb, sign, row0, gid0, _ = _claim_case(case[:-4])
+        flags, fdbg = with_debug_planes(fdata, flags, row0 + gid0)
+        return fdata, flags, zb, sign, row0, gid0, fdbg
+    if case.startswith("scene"):
         import tpu_renderer_torch as tt
         from tpu_renderer_torch.models import gizmos as gz
         from tpu_renderer_torch.ops import pipeline as pl
 
-        scene = build_scene(tt, gz, device="cpu")
+        kw = ({"debug_camera": tt.Camera(**DEBUG_CAM)}
+              if case.endswith("-dbg") else {})
+        scene = build_scene(tt, gz, device="cpu", **kw)
         cfg, dyn = scene._prepare()
         h, w = cfg.resolution
         cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-        faces, _ = pl._build_face_batch(cfg, dyn, cam_m)
+        faces, _ = pl._build_face_batch(cfg, dyn, cam_m,
+                                        pl._debug_mvp(cfg, dyn, "cpu"))
         fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
-        zb, _ = rc.visibility_plain(fdata, flags, h, w, cfg.system)
-        return fdata, flags, zb, cfg.system, 0, 0
+        fdbg = rc.pack_debug_planes(faces)
+        zb, _ = rc.visibility_plain(fdata, flags, h, w, cfg.system,
+                                    fdbg=fdbg)
+        return fdata, flags, zb, cfg.system, 0, 0, fdbg
     if case == "long-row0":
-        return (*long_claim_inputs(6, ADV_ROW0), ADV_ROW0, ADV_GID0)
+        return (*long_claim_inputs(6, ADV_ROW0), ADV_ROW0, ADV_GID0, None)
     seed, row0, sign, gid0 = {"random-0": (0, 0, 1, 0),
                               "random-1": (1, 37, -1, 160),
                               "random-2": (2, 200, 1, 3000)}[case]
@@ -243,41 +259,44 @@ def _claim_case(case):
     zb[u < 0.03] = float("nan")
     zb[(u >= 0.03) & (u < 0.06)] = -float("inf")
     zb[(u >= 0.06) & (u < 0.09)] = float("inf")
-    return fdata, flags, zb.contiguous(), sign, row0, gid0
+    return fdata, flags, zb.contiguous(), sign, row0, gid0, None
 
 
-CLAIM_CASES = ["scene", "long-row0", "random-0", "random-1", "random-2"]
+CLAIM_CASES = ["scene", "long-row0", "random-0", "random-1", "random-2",
+               "scene-dbg", "long-row0-dbg", "random-1-dbg"]
 
 
 @pytest.mark.parametrize("case", CLAIM_CASES)
 def test_claim_walk_equals_tidpass_plain(case):
-    fdata, flags, zb, sign, row0, gid0 = _claim_case(case)
+    fdata, flags, zb, sign, row0, gid0, fdbg = _claim_case(case)
     h, w = zb.shape
     rows, cols = rp._grid(h, w, "cpu", row0)
-    c = claim_walk(fdata, flags, zb, rows, cols, sign)
-    want = rc.tidpass_plain(fdata, flags, zb, sign, row0, gid0)
+    c = claim_walk(fdata, flags, zb, rows, cols, sign, fdbg)
+    want = rc.tidpass_plain(fdata, flags, zb, sign, row0, gid0, fdbg)
     assert torch.equal(torch.where(c >= 0, c + gid0, c), want)
     assert (want >= 0).any() and (want < 0).any()
 
 
 @pytest.mark.parametrize("case", CLAIM_CASES)
 def test_staged_design_equals_tidpass_plain(case):
-    fdata, flags, zb, sign, row0, gid0 = _claim_case(case)
-    got = staged_tidpass(fdata, flags, zb, sign, row0, gid0)
-    want = rc.tidpass_plain(fdata, flags, zb, sign, row0, gid0)
+    fdata, flags, zb, sign, row0, gid0, fdbg = _claim_case(case)
+    got = staged_tidpass(fdata, flags, zb, sign, row0, gid0, fdbg)
+    want = rc.tidpass_plain(fdata, flags, zb, sign, row0, gid0, fdbg)
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("case", ["long-row0", "random-1", "random-2"])
+@pytest.mark.parametrize("case", ["long-row0", "random-1", "random-2",
+                                  "long-row0-dbg"])
 def test_claim_inputs_are_not_degenerate(case):
     """Exact ties decided (several faces claim a pixel), faces that do not
     write z claim some pixels, NaN and ±inf depths in the table, and, where
     the buffer is merged from two tables, pixels that no face of this one
-    claims although it covers them."""
-    fdata, flags, zb, sign, row0, gid0 = _claim_case(case)
+    claims although it covers them; with debug planes, they change the
+    claim."""
+    fdata, flags, zb, sign, row0, gid0, fdbg = _claim_case(case)
     h, w = zb.shape
     rows, cols = rp._grid(h, w, "cpu", row0)
-    cov, z = rp.face_fragments(fdata, flags, rows, cols)
+    cov, z = rp.face_fragments(fdata, flags, rows, cols, fdbg)
     claim = cov & (zb >= z * sign)
     assert (claim.sum(0) > 1).any()
     assert claim[(flags & rp.FLAG_ZWRITE) == 0].any()
@@ -285,3 +304,7 @@ def test_claim_inputs_are_not_degenerate(case):
     assert torch.isnan(z).any() and torch.isinf(z).any()
     assert (cov.any(0) & ~claim.any(0)).any()
     assert row0 > 0 and gid0 > 0
+    if fdbg is not None:
+        assert not torch.equal(
+            rc.tidpass_plain(fdata, flags, zb, sign, row0, gid0, fdbg),
+            rc.tidpass_plain(fdata, flags, zb, sign, row0, gid0))

@@ -41,7 +41,8 @@ from tpu_renderer_torch.ops.vertex import gather_faces, transform_vertices
 import tpu_renderer as tj
 from tpu_renderer.models import gizmos as gz_jax
 from tpu_renderer_torch.models import gizmos as gz_torch
-from test_torch_kernels import RES, build_scene
+from test_torch_kernels import (  # noqa: E402,F401
+    RES, build_scene, one_torch_thread)
 
 H, W = RES
 

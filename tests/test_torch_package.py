@@ -3,7 +3,9 @@
 - importing tpu_renderer_torch pulls in neither JAX nor tpu_renderer;
 - Scene renders on CUDA by default, so without CUDA both
   Scene(device="cuda") and Scene() raise, and device="cpu" is an explicit
-  request; features not ported yet raise NotImplementedError;
+  request; features not ported yet (supersampling, ``stats()``, sharded
+  wireframe frames) raise NotImplementedError, also in scenes that carry a
+  debug camera or gizmos;
 - the numpy host code (OBJ loader, EdgeTable, gizmos, texture stacks,
   transforms) matches the JAX package's.
 
@@ -33,6 +35,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_pulls_in_no_jax():
     code = ("import sys, tpu_renderer_torch, tpu_renderer_torch.interop, "
             "tpu_renderer_torch.ops.pipeline, tpu_renderer_torch.ops.cubemap, "
+            "tpu_renderer_torch.ops.overlay, tpu_renderer_torch.ops.lines, "
             "tpu_renderer_torch.parallel.mesh, "
             "tpu_renderer_torch.parallel.sharded\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
@@ -60,12 +63,19 @@ def test_scene_needs_explicit_device():
         tt.Scene(tt.Camera((0, 0, 3)), tt.Light((1, 1, 1)))
 
 
+def _sharded_wireframe_with_gizmo():
+    scene = tt.Scene(device="cpu", light=tt.Light((1, 1, 1), show=True),
+                     shader="wireframe")
+    tt.render_frame_sharded(*scene._prepare(), None)
+
+
 @pytest.mark.parametrize("make", [
-    lambda: tt.Scene(device="cpu", debug_camera=tt.Camera((1, 1, 1))),
-    lambda: tt.Scene(tt.Camera((0, 0, 3), show=True), device="cpu"),
+    lambda: tt.Scene(device="cpu", debug_camera=tt.Camera((1, 1, 1)),
+                     supersample=2),
+    lambda: tt.Scene(tt.Camera((0, 0, 3), show=True), device="cpu").stats(),
     lambda: tt.Scene(device="cpu", supersample=2),
     lambda: tt.Scene(device="cpu").stats(),
-    lambda: tt.Scene(device="cpu", light=tt.Light((1, 1, 1), show=True)),
+    _sharded_wireframe_with_gizmo,
 ], ids=["debug_camera", "camera_gizmo", "supersample", "stats", "gizmo"])
 def test_unported_features_raise(make):
     with pytest.raises(NotImplementedError):

@@ -37,7 +37,8 @@ from tpu_renderer_torch.ops import pipeline as pl
 from tpu_renderer_torch.ops import raster_cuda as rc
 
 from chip_smoke import one_device_ids
-from test_torch_kernels import RES, build_scene  # noqa: E402
+from test_torch_kernels import (  # noqa: E402,F401
+    RES, build_scene, one_torch_thread)
 
 RES_P = (64, 64)
 #: The sharded renders, (shader, (n_rows, n_tris)), by world size: one

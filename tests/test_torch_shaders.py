@@ -45,7 +45,8 @@ from tpu_renderer_torch.ops import pipeline as pl_torch
 from tpu_renderer_torch.ops import raster_cuda as rc
 from tpu_renderer_torch.ops import shading as sh_torch
 
-from test_torch_kernels import RES, build_scene  # noqa: E402
+from test_torch_kernels import (  # noqa: E402,F401
+    RES, build_scene, one_torch_thread)
 
 H, W = RES
 SLIM = ["flat", "gouraud", "pbr"]

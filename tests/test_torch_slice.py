@@ -30,7 +30,8 @@ from tpu_renderer_torch.interop import dyn_from_numpy
 from tpu_renderer_torch.models import gizmos as gz_torch
 from tpu_renderer_torch.ops.pipeline import render_frame
 
-from test_torch_kernels import RES, build_scene  # noqa: E402
+from test_torch_kernels import (  # noqa: E402,F401
+    RES, build_scene, one_torch_thread)
 
 
 @pytest.fixture(scope="module")

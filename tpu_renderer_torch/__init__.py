@@ -4,7 +4,9 @@ The JAX package ``tpu_renderer`` is the reference this port is held to.
 This package imports torch and numpy, never JAX and never ``tpu_renderer``.
 It renders textured, normal-mapped, shadowed scenes with the general
 Blinn-Phong shader, the flat, gouraud, PBR, wireframe and points shaders,
-over a color or a cubemap skybox (``CubeMap``). On a CUDA device (the
+over a color or a cubemap skybox (``CubeMap``), with an optional debug
+camera (its clip space and its frustum overlay) and camera/light gizmos.
+On a CUDA device (the
 default) it runs seven hand-written CUDA kernels (``ops/raster_cuda.py``,
 sources in ``csrc/``, built at first use); with ``device="cpu"`` it runs
 their plain PyTorch versions. ``render_frame_sharded`` splits one frame

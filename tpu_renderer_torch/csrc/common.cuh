@@ -30,6 +30,9 @@ constexpr int F_INV_W = 9;   // 1/w per vertex
 constexpr int F_BBOX = 12;   // x0 x1 y0 y1 as float
 constexpr int F_CLIP = 16;   // e[i][j] at 16 + 6*i + j
 constexpr int F_COLS = 34;
+// The debug camera's planes (raster_cuda.pack_debug_planes), a (G, 18)
+// table of their own: e_dbg[i][j] at 6*i + j, pre-scaled as F_CLIP's.
+constexpr int DBG_COLS = 18;
 
 constexpr int FLAG_VALID = 1;
 constexpr int FLAG_ZWRITE = 4;
@@ -40,11 +43,30 @@ constexpr int GB_CHANNELS = 32;
 constexpr int Q_COLS = 44;   // quad table (pack_quads)
 constexpr int QI_COLS = 8;
 
+// The six linearized plane conditions of one clip space at barycentrics
+// (u, v, w): q_j = u*e[j] + v*e[6 + j] + w*e[12 + j] for the pre-scaled
+// planes e, each (q_j > 0) == s_pos. A NaN q fails q > 0, as in
+// raster_pallas._face_tile_cov.
+__device__ __forceinline__ bool inside_space(const float* __restrict__ e,
+                                             float u, float v, float w,
+                                             bool s_pos) {
+    for (int j = 0; j < 6; ++j) {
+        const float q = u * e[j] + v * e[6 + j] + w * e[12 + j];
+        if ((q > 0.0f) != s_pos) return false;
+    }
+    return true;
+}
+
 // Coverage and depth of one face at pixel (r, c): the barycentric inside
 // test u, v, w >= 0 from the affine coefficients, the integer bbox window,
 // validity, and — for faces flagged FLAG_PPC — the linearized per-pixel clip
-// test (q_j > 0) == (S > 0), S != 0 (raster_pallas._face_tile_cov).
+// test (q_j > 0) == (S > 0), S != 0 (raster_pallas._face_tile_cov), over
+// the camera's planes and, with DEBUG, then the debug camera's planes `fd`
+// (the face's DBG_COLS row; unread without DEBUG). The conditions are ANDed,
+// so stopping at the first that fails gives the plain version's answer.
+template <bool DEBUG>
 __device__ __forceinline__ bool face_cover(const float* __restrict__ f,
+                                           const float* __restrict__ fd,
                                            int flags, float r, float c,
                                            float* z) {
     if (!(flags & FLAG_VALID)) return false;
@@ -59,11 +81,8 @@ __device__ __forceinline__ bool face_cover(const float* __restrict__ f,
         const float s = u * f[F_INV_W] + v * f[F_INV_W + 1] + w * f[F_INV_W + 2];
         if (!(s != 0.0f)) return false;
         const bool s_pos = s > 0.0f;
-        for (int j = 0; j < 6; ++j) {
-            const float q = u * f[F_CLIP + j] + v * f[F_CLIP + 6 + j] +
-                            w * f[F_CLIP + 12 + j];
-            if ((q > 0.0f) != s_pos) return false;
-        }
+        if (!inside_space(f + F_CLIP, u, v, w, s_pos)) return false;
+        if (DEBUG && !inside_space(fd, u, v, w, s_pos)) return false;
     }
     *z = f[6] * c + f[7] * r + f[8];
     return true;

@@ -14,6 +14,14 @@
 // - walk: every thread tests the staged faces in order from shared memory.
 //   The walk only goes forward, so one staged chunk serves the whole block.
 //
+// DEBUG (a debug camera, raster_cuda.pack_debug_planes): each staged face's
+// 18 debug planes (72 B, nine 8-byte copies) are staged beside its row and
+// face_cover tests that second clip space too. Its 18.4 KB a chunk would
+// take the block's shared memory past the 48 KB of static allocation, so
+// they live in dynamic shared memory (DEBUG_SMEM bytes at launch, after the
+// launcher's opt-in): the instantiations without DEBUG keep the static
+// layout and the time they had.
+//
 // Per pixel the walk keeps a running minimum m and a candidate cand; for
 // each covering face in face order, with zs = z*sign:
 //     if (zs <= m) { cand = face; if (MODE != WALK_CLAIM && z-writing) m = zs; }
@@ -35,14 +43,28 @@
 
 enum WalkMode { WALK_Z = 0, WALK_Z_TID = 1, WALK_CLAIM = 2 };
 
-template <int MODE>
+// Dynamic shared memory of a DEBUG walk: one chunk's debug planes.
+constexpr int DEBUG_SMEM = BLOCK * DBG_COLS * (int)sizeof(float);
+
+// Opt a DEBUG walk's kernel in to DEBUG_SMEM bytes of dynamic shared
+// memory: with the static rows the block passes the 48 KB that need no
+// opt-in (about 55.3 KB in all). Returns the cudaError_t.
+template <typename Kernel>
+cudaError_t allow_debug_smem(Kernel kernel) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DEBUG_SMEM);
+}
+
+template <int MODE, bool DEBUG>
 __device__ __forceinline__ void walk_faces(const float* __restrict__ fdata,
                                            const int* __restrict__ flags,
+                                           const float* __restrict__ fdbg,
                                            const int* __restrict__ list,
                                            int count, int tx0, int ty0,
                                            float r, float c, float sign,
                                            float& m, int& cand) {
     __shared__ __align__(16) float s_rows[BLOCK * F_COLS];
+    extern __shared__ __align__(16) float s_dbg[];
     __shared__ int s_face[BLOCK];
     __shared__ int s_flag[BLOCK];
     __shared__ int s_warp[BLOCK / 32];
@@ -75,12 +97,24 @@ __device__ __forceinline__ void walk_faces(const float* __restrict__ fdata,
             cp_async<8>(s_rows + j * F_COLS + off,
                         fdata + (size_t)s_face[j] * F_COLS + off);
         }
+        if constexpr (DEBUG) {
+            // Debug rows are 72 bytes, 8-byte aligned (the wrappers check
+            // the base): 9 copies of 8 bytes each.
+            constexpr int DPAIRS = DBG_COLS / 2;
+            for (int e = t; e < staged * DPAIRS; e += BLOCK) {
+                const int j = e / DPAIRS;
+                const int off = 2 * (e - j * DPAIRS);
+                cp_async<8>(s_dbg + j * DBG_COLS + off,
+                            fdbg + (size_t)s_face[j] * DBG_COLS + off);
+            }
+        }
         cp_async_wait_all();
         __syncthreads();
         for (int j = 0; j < staged; ++j) {
             const int fj = s_flag[j];
             float z;
-            if (face_cover(s_rows + j * F_COLS, fj, r, c, &z)) {
+            if (face_cover<DEBUG>(s_rows + j * F_COLS, s_dbg + j * DBG_COLS,
+                                  fj, r, c, &z)) {
                 const float zs = z * sign;
                 if (zs <= m) {
                     cand = s_face[j];

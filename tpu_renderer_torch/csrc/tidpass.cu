@@ -28,13 +28,19 @@
 // (face_walk.cuh). Pixel math runs in global coordinates (row0 + local
 // row). Op-by-op rounding (-fmad=false) keeps it bit-identical to the plain
 // version (raster_cuda.tidpass_plain).
+//
+// With a debug camera (fdbg not null; tidpass_pallas with_debug=True) the
+// claim tests the debug camera's clip space too, in the DEBUG walk
+// (face_walk.cuh), as K1 does.
 #include "face_walk.cuh"
 
 namespace {
 
+template <bool DEBUG>
 __global__ void __launch_bounds__(BLOCK)
     tidpass_kernel(const float* __restrict__ fdata,
                    const int* __restrict__ flags,
+                   const float* __restrict__ fdbg,
                    const int* __restrict__ bin_counts,
                    const int* __restrict__ bin_items, int n_faces,
                    const float* __restrict__ zb_sign, int height, int width,
@@ -47,8 +53,8 @@ __global__ void __launch_bounds__(BLOCK)
     // A thread outside the frame walks with the block and writes nothing.
     float m = in_frame ? zb_sign[p] : -INFINITY;
     int cand = -1;
-    walk_faces<WALK_CLAIM>(
-        fdata, flags, bin_items + (size_t)ct * n_faces, bin_counts[ct],
+    walk_faces<WALK_CLAIM, DEBUG>(
+        fdata, flags, fdbg, bin_items + (size_t)ct * n_faces, bin_counts[ct],
         blockIdx.x * TILE, row0 + blockIdx.y * TILE,
         static_cast<float>(row0 + row), static_cast<float>(col), sign, m,
         cand);
@@ -57,18 +63,31 @@ __global__ void __launch_bounds__(BLOCK)
 
 }  // namespace
 
-TR_EXPORT int tr_tidpass(const float* fdata, const int* flags, int n_faces,
-                         int* bin_counts, int* bin_items,
-                         const float* zb_sign, int height, int width, int row0,
-                         int gid0, float sign, int* tid, void* stream) {
+// fdbg: the (n_faces, DBG_COLS) debug planes, or null without a debug
+// camera.
+TR_EXPORT int tr_tidpass(const float* fdata, const int* flags,
+                         const float* fdbg, int n_faces, int* bin_counts,
+                         int* bin_items, const float* zb_sign, int height,
+                         int width, int row0, int gid0, float sign, int* tid,
+                         void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const int rc = launch_coarse_bins(BIN_FACES, fdata, flags, n_faces, height,
                                       width, row0, bin_counts, bin_items, st);
     if (rc != 0) return rc;
     const dim3 block(TILE, TILE);
     const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE);
-    tidpass_kernel<<<grid, block, 0, st>>>(fdata, flags, bin_counts, bin_items,
-                                           n_faces, zb_sign, height, width,
-                                           row0, gid0, sign, tid);
+    if (fdbg) {
+        // Once per process.
+        static const cudaError_t opt_in =
+            allow_debug_smem(tidpass_kernel<true>);
+        if (opt_in != cudaSuccess) return (int)opt_in;
+        tidpass_kernel<true><<<grid, block, DEBUG_SMEM, st>>>(
+            fdata, flags, fdbg, bin_counts, bin_items, n_faces, zb_sign,
+            height, width, row0, gid0, sign, tid);
+    } else {
+        tidpass_kernel<false><<<grid, block, 0, st>>>(
+            fdata, flags, fdbg, bin_counts, bin_items, n_faces, zb_sign,
+            height, width, row0, gid0, sign, tid);
+    }
     return (int)cudaGetLastError();
 }

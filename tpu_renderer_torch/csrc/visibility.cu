@@ -53,14 +53,21 @@
 // Tensor cores do not apply: the per-(pixel, face) work is f32 compares and
 // sums that must round op by op (-fmad=false) to stay bit-identical to the
 // plain version (raster_plain.py), with no matrix product for wgmma.
+//
+// With a debug camera (fdbg not null; with_debug=True of both TPU kernels)
+// each face also carries the debug camera's 18 planes, and a face that
+// needs the per-pixel clip test must pass that second clip space too: the
+// DEBUG instantiations stage those planes in dynamic shared memory beside
+// the rows (face_walk.cuh). The walk and its claim are unchanged.
 #include "face_walk.cuh"
 
 namespace {
 
-template <bool WANT_TID>
+template <bool WANT_TID, bool DEBUG>
 __global__ void __launch_bounds__(BLOCK)
     visibility_kernel(const float* __restrict__ fdata,
                       const int* __restrict__ flags,
+                      const float* __restrict__ fdbg,
                       const int* __restrict__ bin_counts,
                       const int* __restrict__ bin_items, int n_faces,
                       int height, int width, int row0, float sign,
@@ -70,8 +77,8 @@ __global__ void __launch_bounds__(BLOCK)
     const int ct = coarse_tile_of_block(width);
     float m = INFINITY;
     int cand = -1;
-    walk_faces<WANT_TID ? WALK_Z_TID : WALK_Z>(
-        fdata, flags, bin_items + (size_t)ct * n_faces, bin_counts[ct],
+    walk_faces<WANT_TID ? WALK_Z_TID : WALK_Z, DEBUG>(
+        fdata, flags, fdbg, bin_items + (size_t)ct * n_faces, bin_counts[ct],
         blockIdx.x * TILE, row0 + blockIdx.y * TILE,
         static_cast<float>(row0 + row), static_cast<float>(col), sign, m,
         cand);
@@ -82,25 +89,44 @@ __global__ void __launch_bounds__(BLOCK)
     }
 }
 
+template <bool WANT_TID, bool DEBUG>
+int launch_visibility(dim3 grid, cudaStream_t st, const float* fdata,
+                      const int* flags, const float* fdbg,
+                      const int* bin_counts, const int* bin_items, int n_faces,
+                      int height, int width, int row0, float sign,
+                      float* zb_sign, int* tid) {
+    int smem = 0;
+    if constexpr (DEBUG) {
+        // Once per process for this instantiation.
+        static const cudaError_t opt_in =
+            allow_debug_smem(visibility_kernel<WANT_TID, DEBUG>);
+        if (opt_in != cudaSuccess) return (int)opt_in;
+        smem = DEBUG_SMEM;
+    }
+    visibility_kernel<WANT_TID, DEBUG><<<grid, dim3(TILE, TILE), smem, st>>>(
+        fdata, flags, fdbg, bin_counts, bin_items, n_faces, height, width,
+        row0, sign, zb_sign, tid);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-TR_EXPORT int tr_visibility(const float* fdata, const int* flags, int n_faces,
-                            int* bin_counts, int* bin_items, int height,
-                            int width, int row0, float sign, int want_tid,
-                            float* zb_sign, int* tid, void* stream) {
+// fdbg: the (n_faces, DBG_COLS) debug planes, or null without a debug
+// camera.
+TR_EXPORT int tr_visibility(const float* fdata, const int* flags,
+                            const float* fdbg, int n_faces, int* bin_counts,
+                            int* bin_items, int height, int width, int row0,
+                            float sign, int want_tid, float* zb_sign, int* tid,
+                            void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const int rc = launch_coarse_bins(BIN_FACES, fdata, flags, n_faces, height,
                                       width, row0, bin_counts, bin_items, st);
     if (rc != 0) return rc;
-    const dim3 block(TILE, TILE);
     const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE);
-    if (want_tid)
-        visibility_kernel<true><<<grid, block, 0, st>>>(
-            fdata, flags, bin_counts, bin_items, n_faces, height, width, row0,
-            sign, zb_sign, tid);
-    else
-        visibility_kernel<false><<<grid, block, 0, st>>>(
-            fdata, flags, bin_counts, bin_items, n_faces, height, width, row0,
-            sign, zb_sign, tid);
-    return (int)cudaGetLastError();
+    auto* launch = want_tid ? (fdbg ? &launch_visibility<true, true>
+                                    : &launch_visibility<true, false>)
+                            : (fdbg ? &launch_visibility<false, true>
+                                    : &launch_visibility<false, false>);
+    return launch(grid, st, fdata, flags, fdbg, bin_counts, bin_items,
+                  n_faces, height, width, row0, sign, zb_sign, tid);
 }

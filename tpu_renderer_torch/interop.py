@@ -38,8 +38,9 @@ def _tensor(a, device, key):
 def dyn_from_numpy(dyn_np, device):
     """The JAX package's prepared dyn (numpy leaves) -> the port's dyn.
 
-    Camera parameters stay float32 tensors on the CPU (the port composes the
-    per-frame matrices on the host); everything else lands on ``device``.
+    Camera parameters, the debug camera's too, stay float32 tensors on the
+    CPU (the port composes the per-frame matrices on the host); everything
+    else lands on ``device``.
     A cubemap background arrives as ``skybox`` (its ``packed`` texels)
     instead of ``background_color``.
     """
@@ -53,8 +54,6 @@ def dyn_from_numpy(dyn_np, device):
                 if key in md:
                     out[key] = _tensor(md[key], device, key)
         models.append(out)
-    if "debug_camera" in dyn_np:
-        raise NotImplementedError("the debug camera is not ported yet")
     f32 = lambda a, dev=device: torch.as_tensor(
         np.array(a, np.float32), device=dev)
     dyn = {
@@ -62,6 +61,9 @@ def dyn_from_numpy(dyn_np, device):
         "camera": {k: f32(v, "cpu") for k, v in dyn_np["camera"].items()},
         "light": {k: f32(v) for k, v in dyn_np["light"].items()},
     }
+    if "debug_camera" in dyn_np:
+        dyn["debug_camera"] = {k: f32(v, "cpu") for k, v in
+                               dyn_np["debug_camera"].items()}
     if "skybox" in dyn_np:
         dyn["skybox"] = {"packed": _tensor(dyn_np["skybox"]["packed"],
                                            device, "packed")}

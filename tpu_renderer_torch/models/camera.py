@@ -8,10 +8,12 @@ default Camera/Light arguments.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tpu_renderer_torch.constants import PROJECTION_TYPE, SYSTEM
 from tpu_renderer_torch.ops import transforms as T
-from tpu_renderer_torch.ops.frustum import extract_frustum_planes
+from tpu_renderer_torch.ops.frustum import (extract_frustum_planes,
+                                            extract_frustum_planes_host)
 from tpu_renderer_torch.ops.lightning import Lightning
 
 __all__ = ["PositionedObject", "Camera", "Light", "camera_matrices"]
@@ -19,7 +21,7 @@ __all__ = ["PositionedObject", "Camera", "Light", "camera_matrices"]
 
 def camera_matrices(position, center, up, fovy, near, far, *,
                     projection_type, system, subsystem, resolution,
-                    x_offset=0, y_offset=0):
+                    x_offset=0, y_offset=0, host=False, dtype=torch.float32):
     """All view/projection matrices for a camera-like object.
 
     Replicates the reference mixin's composition (core.py:394-429): the
@@ -28,14 +30,35 @@ def camera_matrices(position, center, up, fovy, near, far, *,
     translate @ rotate @ projection; aspect = width / height.
 
     Returns a dict of float32 CPU tensors: lookat, projection, MVP, viewport,
-    frustum_planes.
+    frustum_planes. ``host=True`` returns numpy arrays of ``dtype`` (float32
+    or float64) instead, the JAX package's host form
+    (tpu_renderer/models/camera.py:25-73): the builders run in ``dtype``,
+    and lookat = translate @ rotate, MVP = lookat @ projection and the
+    planes are computed with numpy. In float64 they equal that package's
+    host matrices under ``jax.enable_x64`` bit for bit. The debug overlay
+    draws with them: when the debug camera equals the main one, the
+    frustum-cube corners lie exactly on the clip planes, where another
+    summation order (a torch float64 matmul's, say) can flip a sign.
     """
     height, width = resolution
     aspect = width / height
     rotate_fn = (T.look_at_rotate_lh if system == SYSTEM.LH
                  else T.look_at_rotate_rh)
-    rot = rotate_fn(center, position, up)
     proj_fn = T.perspectives[subsystem][projection_type][system]
+    if host:
+        rot = rotate_fn(center, position, up, dtype=dtype).numpy()
+        projection = proj_fn(fovy, aspect, near, far, dtype=dtype).numpy()
+        lookat = T.looka_at_translate(position, dtype=dtype).numpy() @ rot
+        mvp = lookat @ projection
+        return {
+            "lookat": lookat,
+            "projection": projection,
+            "MVP": mvp,
+            "viewport": T.ViewPort(resolution, far, near, x_offset=x_offset,
+                                   y_offset=y_offset, dtype=dtype).numpy(),
+            "frustum_planes": extract_frustum_planes_host(mvp),
+        }
+    rot = rotate_fn(center, position, up)
     projection = proj_fn(fovy, aspect, near, far)
     lookat = T.matmul(T.looka_at_translate(position), rot)
     mvp = T.matmul(lookat, projection)
@@ -89,7 +112,11 @@ class _TransformMixin:
         self.x_offset = x_offset
         self.y_offset = y_offset
 
-    def _matrices(self):
+    def _matrices(self, dtype=torch.float32):
+        """The host form of :func:`camera_matrices` (numpy, ``dtype``) for
+        the bound scene's resolution and systems: the properties below, the
+        gizmos and the debug overlay (float64) read it; the render path
+        composes its own (ops/pipeline.py ``_cam_matrices``)."""
         scene = self.scene
         if scene is None:
             raise RuntimeError("object is not bound to a Scene")
@@ -97,11 +124,12 @@ class _TransformMixin:
             self.position, self.center, self.up, self.fovy, self.near, self.far,
             projection_type=self.projection_type, system=scene.system,
             subsystem=scene.subsystem, resolution=scene.resolution,
-            x_offset=self.x_offset, y_offset=self.y_offset)
+            x_offset=self.x_offset, y_offset=self.y_offset, host=True,
+            dtype=dtype)
 
     @property
     def projection(self):
-        return self._matrices()["projection"].numpy()
+        return self._matrices()["projection"]
 
     @property
     def rotate(self):
@@ -115,19 +143,19 @@ class _TransformMixin:
 
     @property
     def lookat(self):
-        return self._matrices()["lookat"].numpy()
+        return self._matrices()["lookat"]
 
     @property
     def MVP(self):
-        return self._matrices()["MVP"].numpy()
+        return self._matrices()["MVP"]
 
     @property
     def frustum_planes(self):
-        return self._matrices()["frustum_planes"].numpy()
+        return self._matrices()["frustum_planes"]
 
     @property
     def viewport(self):
-        return self._matrices()["viewport"].numpy()
+        return self._matrices()["viewport"]
 
 
 class Camera(PositionedObject, _TransformMixin):

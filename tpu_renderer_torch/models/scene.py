@@ -2,7 +2,9 @@
 
 Counterpart of ``tpu_renderer/models/scene.py`` (reference core.py:558-640)
 on one device: the six shaders (general, flat, gouraud, pbr, wireframe,
-points), optional shadow volumes, and a color or cubemap-skybox background.
+points), optional shadow volumes, a color or cubemap-skybox background, a
+debug camera (its clip space in the rasterizer, and its frustum drawn over
+the frame on the host) and the camera and light gizmos (``show=True``).
 Fixed reference quirks kept from the JAX package: ``shadows=`` is honored
 and ``Model.shadowing`` gates which models cast shadows; camera/light
 bindings live on the Scene instance; default camera/light are fresh per
@@ -11,8 +13,8 @@ Scene.
 ``device`` defaults to ``"cuda"``: a Scene renders on the card unless the
 caller asks for the CPU (``device="cpu"``, the plain versions of the
 kernels). On a host without CUDA, ``Scene()`` raises RuntimeError. Features
-of the JAX package that are not ported yet (debug camera and overlays,
-supersampling, camera/light gizmos, ``stats()``) raise NotImplementedError.
+of the JAX package that are not ported yet (supersampling, ``stats()``)
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -22,13 +24,17 @@ import numpy as np
 import torch
 
 from tpu_renderer_torch.constants import SUBSYSTEM, SYSTEM
+from tpu_renderer_torch.models import gizmos
 from tpu_renderer_torch.models.camera import Camera, Light
 from tpu_renderer_torch.models.model import Model
+from tpu_renderer_torch.ops import raster_cuda as rc
+from tpu_renderer_torch.ops import transforms as T
 from tpu_renderer_torch.ops.cubemap import CubeMap
+from tpu_renderer_torch.ops.overlay import draw_view_frustum
 from tpu_renderer_torch.ops.pipeline import (DEBUG_SHADERS, ModelConfig,
                                              SceneConfig, SHADER_GENERAL,
-                                             SHADERS, render_debug_frame,
-                                             render_frame)
+                                             SHADERS, _span, render_core,
+                                             render_debug_frame, render_frame)
 
 __all__ = ["Scene"]
 
@@ -113,9 +119,6 @@ class Scene:
                  subsystem=SUBSYSTEM.DIRECTX, skymap=None,
                  shader: str = SHADER_GENERAL, supersample: int = 1, *,
                  device="cuda"):
-        if debug_camera is not None:
-            raise NotImplementedError("debug camera and overlays are not "
-                                      "ported yet")
         if shader not in SHADERS:
             raise ValueError(f"unknown shader {shader!r}; one of {SHADERS}")
         if int(supersample) != 1:
@@ -131,11 +134,14 @@ class Scene:
         self.shadows = shadows
         self.skybox = skymap
         self.shader = shader
-        self.debug_camera = None
+        #: Draw the debug camera's frustum over the frame like the reference
+        #: (core.py:638) whenever a debug camera is present.
+        self.debug_overlay = True
+        self._packets: Dict[int, dict] = {}
         self.camera = camera if camera is not None else Camera(
             position=(0, 0, 1), center=(0, 0, 0))
         self.light = light if light is not None else Light(position=(1, 1, 1))
-        self._packets: Dict[int, dict] = {}
+        self.debug_camera = debug_camera
         self.last_zbuf = None
         self.last_tid = None
         self.last_stencil = None
@@ -144,13 +150,36 @@ class Scene:
 
     def __setattr__(self, key, value):
         # Bind camera/light objects to this scene (reference Bound
-        # descriptor, core.py:527-555).
-        if key in ("camera", "light") and value is not None:
-            if getattr(value, "show", False):
-                raise NotImplementedError("camera/light gizmos (show=True) "
-                                          "are not ported yet")
-            value.scene = self
+        # descriptor, core.py:527-555) and add their gizmos.
         super().__setattr__(key, value)
+        if key in ("camera", "light", "debug_camera") and value is not None:
+            value.scene = self
+            if getattr(value, "show", False):
+                self._add_gizmo(value)
+
+    def _add_gizmo(self, obj):
+        """A sphere at a light, a frustum-shaped mesh at a camera (reference
+        core.py:532-552; scene.py:368-389 of the JAX package): procedural
+        meshes scaled by 0.1 and carried by inv(lookat), normals by the
+        inverse of its 3x3 part (flipped), pinv where a matrix is singular;
+        no per-pixel clip test."""
+        sub = (gizmos.make_sphere() if isinstance(obj, Light)
+               else gizmos.make_camera_gizmo())
+        sub.clip = False
+        sub = sub @ T.scale(0.1)
+        lookat = np.asarray(obj.lookat, np.float64)
+        try:
+            inv = np.linalg.inv(lookat)
+        except np.linalg.LinAlgError:
+            inv = np.linalg.pinv(lookat)
+        sub = sub @ inv
+        try:
+            inv3 = np.linalg.inv(lookat[:3, :3])
+        except np.linalg.LinAlgError:
+            inv3 = np.linalg.pinv(lookat[:3, :3])
+        sub.normals = (-sub.normals @ inv3).astype(np.float32) \
+            if sub.normals is not None else None
+        self.add_model(sub)
 
     def add_model(self, model: Model):
         self.models.append(model)
@@ -280,13 +309,18 @@ class Scene:
             backface_culling=self.camera.backface_culling,
             light_type=self.light.light_type,
             models=tuple(p["_config"] for p in packets),
-            shader=self.shader, background=background)
+            shader=self.shader, background=background,
+            has_debug_camera=self.debug_camera is not None,
+            dbg_projection_type=(self.debug_camera.projection_type
+                                 if self.debug_camera else 0))
         dyn = {
             "models": [{k: v for k, v in p.items() if not k.startswith("_")}
                        for p in packets],
             "camera": self._cam_dyn(self.camera),
             "light": self._light_dyn(),
         }
+        if self.debug_camera is not None:
+            dyn["debug_camera"] = self._cam_dyn(self.debug_camera)
         if background == "color":
             dyn["background_color"] = bg_color
         else:
@@ -296,13 +330,43 @@ class Scene:
     def render(self) -> np.ndarray:
         """Render one frame; returns (H, W, 3) uint8, same as core.py:587-640.
         The z-buffer, winner ids and stencil stay on the device as
-        ``last_zbuf``, ``last_tid`` and ``last_stencil``."""
+        ``last_zbuf``, ``last_tid`` and ``last_stencil``.
+
+        With a debug camera (and ``debug_overlay``), the general, flat,
+        gouraud and pbr frames get its frustum drawn on the host
+        (scene.py:824-848 of the JAX package): the pre-flip frame and the
+        z-buffer come to the host as float64, ``draw_view_frustum`` draws
+        with both cameras' float64 host matrices, then flip, gamma 0.8 and
+        uint8 run in numpy. ``last_zbuf`` is then the z-buffer as the
+        overlay left it, a float64 CPU tensor. Wireframe and points draw no
+        overlay, as in the JAX package."""
         cfg, dyn = self._prepare()
         if self.shader in DEBUG_SHADERS:
             return self._render_debug_shader(cfg, dyn)
+        if self.debug_camera is not None and self.debug_overlay:
+            out, zbuf, tid, stencil = self._render_overlay(cfg, dyn)
+            self.last_zbuf, self.last_tid, self.last_stencil = \
+                zbuf, tid, stencil
+            return out
         out, zbuf, tid, stencil = render_frame(cfg, dyn)
         self.last_zbuf, self.last_tid, self.last_stencil = zbuf, tid, stencil
         return out.cpu().numpy()
+
+    def _render_overlay(self, cfg, dyn, ops=rc.KERNELS):
+        """The frame through ``ops`` (render_core's), then the debug
+        camera's frustum on the host. Returns (frame_u8 (H, W, 3) numpy,
+        zbuf float64 CPU tensor as the overlay left it, tid, stencil)."""
+        frame, zbuf, tid, stencil = render_core(cfg, dyn, ops)
+        with _span("overlay"):
+            frame = frame.cpu().numpy().astype(np.float64)
+            zb = zbuf.cpu().numpy().astype(np.float64)
+            draw_view_frustum(frame, self.camera._matrices(torch.float64),
+                              self.debug_camera._matrices(torch.float64),
+                              self.camera.position, self.camera.near,
+                              self.camera.far, self.resolution, zb,
+                              self.system)
+            out = (np.clip(frame[::-1] ** 0.8, 0, 1) * 255).astype(np.uint8)
+        return out, torch.from_numpy(zb), tid, stencil
 
     def _render_debug_shader(self, cfg, dyn) -> np.ndarray:
         """Wireframe / points shaders (reference triangular.py:269-283):

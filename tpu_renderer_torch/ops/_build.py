@@ -37,12 +37,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
 #: C signatures of the exported launchers (every one returns cudaError_t).
 _SIGNATURES = {
-    # fdata, flags, n_faces, bin_counts, bin_items, H, W, row0, sign,
-    # want_tid, zb_sign, tid, stream
-    "tr_visibility": [_P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
-    # fdata, flags, n_faces, bin_counts, bin_items, zb_sign, H, W, row0,
-    # gid0, sign, tid, stream
-    "tr_tidpass": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+    # fdata, flags, fdbg (null: no debug camera), n_faces, bin_counts,
+    # bin_items, H, W, row0, sign, want_tid, zb_sign, tid, stream
+    "tr_visibility": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P, _P,
+                      _P],
+    # fdata, flags, fdbg (null: no debug camera), n_faces, bin_counts,
+    # bin_items, zb_sign, H, W, row0, gid0, sign, tid, stream
+    "tr_tidpass": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     # fdata, adata, tid, H, W, row0, gid0, g_local, gbuffer, stream
     "tr_gbuffer": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # tid, iu, iv, ftex, slots, pool, n_kinds, n_slots, pool_size, H, W,

@@ -11,12 +11,17 @@ current vertex if visible; the edge/plane intersection on a visibility
 change) and compacts them in order with a prefix-sum scatter — the same
 output order as the reference's sequential appends
 (plane_intersection.py:59-86).
+
+The debug overlay clips on the host in float64 numpy:
+``extract_frustum_planes_host`` and ``clipping``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["extract_frustum_planes", "clip_polygon"]
+__all__ = ["extract_frustum_planes", "extract_frustum_planes_host",
+           "clip_polygon", "clipping"]
 
 
 def _dot4(a, p):
@@ -40,6 +45,17 @@ def extract_frustum_planes(matrix):
         col(3) - col(2),   # far
     ])
     return planes / torch.linalg.vector_norm(planes, dim=-1, keepdim=True)
+
+
+def extract_frustum_planes_host(matrix):
+    """Numpy twin of :func:`extract_frustum_planes` for the host overlay
+    (tpu_renderer/ops/frustum.py:59): with a float64 MVP composed by numpy,
+    the planes equal the reference's (plane_intersection.py:43-56)."""
+    m = np.asarray(matrix)
+    col = lambda i: m[..., i]
+    planes = np.stack([col(3) + col(0), col(3) - col(0), col(3) + col(1),
+                       col(3) - col(1), col(3) + col(2), col(3) - col(2)])
+    return planes / np.linalg.norm(planes, axis=-1, keepdims=True)
 
 
 def _clip_one_plane(verts, count, plane):
@@ -104,3 +120,36 @@ def clip_polygon(verts, count, planes):
             < count[..., None])[..., None]
     verts = torch.where(keep, verts, torch.zeros_like(verts))
     return verts, count.to(torch.int32)
+
+
+def clipping(polygon_vertices, clipping_planes):
+    """Reference-compatible host clipper (plane_intersection.py:59-86;
+    tpu_renderer/ops/frustum.py:178): an (N, 4) polygon -> the clipped
+    (M, 4) polygon, Sutherland–Hodgman in float64 numpy.
+
+    Visibility is ``plane @ point >= 0``; a crossing edge intersects from
+    the *next* towards the *current* vertex (plane_intersection.py:81);
+    segments parallel to the plane (|denominator| < 1e-10) or with weight
+    outside [0, 1] add no vertex. Float64 matters: the debug overlay's
+    frustum corners can lie exactly on the clip planes.
+    """
+    poly = [np.asarray(v, np.float64) for v in polygon_vertices]
+    for plane in np.asarray(clipping_planes, np.float64):
+        kept = []
+        n = len(poly)
+        for i in range(n):
+            cur = poly[i]
+            nxt = poly[(i + 1) % n]
+            cur_in = plane @ cur >= 0
+            nxt_in = plane @ nxt >= 0
+            if cur_in:
+                kept.append(cur)
+            if cur_in != nxt_in:
+                d = cur - nxt
+                denom = plane @ d
+                if abs(denom) >= 1e-10:
+                    w = -(plane @ nxt) / denom
+                    if 0 <= w <= 1:
+                        kept.append(nxt + w * d)
+        poly = kept
+    return np.array(poly)

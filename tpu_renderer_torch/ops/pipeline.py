@@ -20,6 +20,12 @@ path for the z-buffer, re-run the vertex stage over every face, and draw
 edges through K6 (``raster_cuda.lines``) or vertex splats through a
 scatter-max.
 
+With a debug camera (``SceneConfig.has_debug_camera``, ``dyn["debug_camera"]``)
+every face also carries its vertices in the debug camera's clip space, and
+K1 and K7 clip against both frusta (``raster_cuda.pack_debug_planes``), as
+the JAX package's ``with_debug`` kernels do; every other stage is
+unchanged. Its frustum overlay is drawn on the host (``Scene.render``).
+
 Sharded (``parallel/sharded.py``, the JAX package's shard_map branches
 :688-852 and :878-924): ``render_core`` renders a block of rows from
 ``row0`` on every path. With a triangle shard (``tris_group``) it runs
@@ -51,7 +57,8 @@ from tpu_renderer_torch.ops.cubemap import fill_frame_from_skybox
 from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.shadow import _cross, prepare_quads
 from tpu_renderer_torch.ops.transforms import normalize
-from tpu_renderer_torch.ops.vertex import gather_faces, transform_vertices
+from tpu_renderer_torch.ops.vertex import (_rowvec, gather_faces,
+                                           transform_vertices)
 from tpu_renderer_torch.parallel.mesh import all_reduce
 
 __all__ = ["SceneConfig", "ModelConfig", "render_core", "render_frame",
@@ -99,22 +106,40 @@ class SceneConfig:
     models: Tuple[ModelConfig, ...]
     shader: str = SHADER_GENERAL   # one of SHADERS
     background: str = "color"      # "color" | "cubemap"
+    has_debug_camera: bool = False
+    dbg_projection_type: int = 0
 
 
-def _cam_matrices(cfg: SceneConfig, cam, device):
-    """Camera matrices, composed on the CPU in float32, then moved."""
+def _cam_matrices(cfg: SceneConfig, cam, device, projection_type=None):
+    """Camera matrices, composed on the CPU in float32, then moved: the
+    scene's resolution and systems, with ``projection_type`` (default the
+    camera's, ``cfg.cam_projection_type``)."""
+    if projection_type is None:
+        projection_type = cfg.cam_projection_type
     m = camera_matrices(
         cam["position"], cam["center"], cam["up"], cam["fovy"], cam["near"],
-        cam["far"], projection_type=cfg.cam_projection_type,
+        cam["far"], projection_type=projection_type,
         system=cfg.system, subsystem=cfg.subsystem,
         resolution=cfg.resolution)
     return {k: v.to(device) for k, v in m.items()}
 
 
-def _build_face_batch(cfg: SceneConfig, dyn, cam_m):
+def _debug_mvp(cfg: SceneConfig, dyn, device):
+    """The debug camera's MVP (pipeline.py:590-593 of the JAX package: the
+    scene's resolution and systems, the debug camera's projection type), or
+    None without a debug camera."""
+    if not cfg.has_debug_camera:
+        return None
+    return _cam_matrices(cfg, dyn["debug_camera"], device,
+                         cfg.dbg_projection_type)["MVP"]
+
+
+def _build_face_batch(cfg: SceneConfig, dyn, cam_m, dbg_mvp=None):
     """Vertex stage + per-face gathers for every model, concatenated
     (pipeline._build_face_batch :133 without the sampler-window fields;
-    the attrs carry what every shader reads, :218-229).
+    the attrs carry what every shader reads, :218-229). With the debug
+    camera's ``dbg_mvp``, the raster dict also carries ``clip_dbg``, each
+    face's vertices in its clip space (:175-178).
     Returns (raster dict, attrs dict) of per-face tensors."""
     height, width = cfg.resolution
     near, far = dyn["camera"]["near"], dyn["camera"]["far"]
@@ -138,6 +163,10 @@ def _build_face_batch(cfg: SceneConfig, dyn, cam_m):
             "clip_en": torch.full((F,), mc.clip, device=dev),
             "z_write": torch.full((F,), mc.depth_test, device=dev),
         })
+        if dbg_mvp is not None:
+            # Elementwise in float32, as transform_vertices' clip space.
+            raster_parts[-1]["clip_dbg"] = _rowvec(
+                md["verts"].to(torch.float32), dbg_mvp)[md["vid"].long()]
         attr_parts.append({
             "sx": f["sx"], "sy": f["sy"], "szlin": f["szlin"],
             "world": world, "vn": vn, "face_normal": face_normal,
@@ -332,9 +361,11 @@ def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS, *, local_height=None,
         return frame, zbuf, tid, torch.zeros_like(tid)
     with _span("vertex"):
         cam_m = {k: v.to(device) for k, v in cam_host.items()}
-        faces, attrs = _build_face_batch(cfg, dyn, cam_m)
+        faces, attrs = _build_face_batch(cfg, dyn, cam_m,
+                                         _debug_mvp(cfg, dyn, device))
         fdata = rc.pack_faces(faces)
         flags = rc.face_flags(faces)
+        fdbg = rc.pack_debug_planes(faces)
         # Global face ids are shard-major: gid0 + the local index
         # (pipeline.py:236-237 of the JAX package).
         gid0 = tris_idx * fdata.shape[0]
@@ -345,18 +376,18 @@ def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS, *, local_height=None,
     if tris_group is None:
         with _span("visibility"):
             zb_sign, tid = ops.visibility(fdata, flags, *shape, sign,
-                                          row0=row0)
+                                          row0=row0, fdbg=fdbg)
     else:
         # A shard's own winners mean nothing before its z-buffer meets the
         # others': z alone, MIN, then every shard claims against the merged
         # buffer and the highest global id wins.
         with _span("visibility"):
             zb_sign, _ = ops.visibility(fdata, flags, *shape, sign, row0=row0,
-                                        want_tid=False)
+                                        want_tid=False, fdbg=fdbg)
         zb_sign = all_reduce(zb_sign, "min", tris_group, "zb")
         with _span("tidpass"):
             tid = ops.tidpass(fdata, flags, zb_sign, sign, row0=row0,
-                              gid0=gid0)
+                              gid0=gid0, fdbg=fdbg)
         tid = all_reduce(tid, "max", tris_group, "tid")
     with _span("gbuffer"):
         if slim:
@@ -420,8 +451,9 @@ def render_debug_frame(cfg: SceneConfig, dyn, kind, ops=rc.KERNELS):
     """Wireframe / points frames (pipeline.render_debug_frame :957,
     reference triangular.py:269-283).
 
-    - the gouraud path (K1, K5, and K4 with shadows) resolves the z-buffer;
-      its shading is discarded;
+    - the gouraud path (K1, K5, and K4 with shadows) resolves the z-buffer,
+      with the debug camera's clip space where the scene has one; its
+      shading is discarded;
     - every real face (no culling or validity masks: the reference iterates
       all of model.face_array) re-runs the vertex stage, z linearized;
     - wireframe: the three directed edges of every face through K6, one

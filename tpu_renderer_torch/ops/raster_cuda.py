@@ -32,6 +32,12 @@ allocates the outputs, launches the kernel on the current stream, raises if
 the launch reports an error, and adds one to its entry in :data:`LAUNCHES`.
 There is no fallback from the kernel: any other device raises.
 
+With a debug camera, K1 (both modes) and K7 also take ``fdbg``
+(:func:`pack_debug_planes`), the debug camera's clip planes of each face,
+and test that second clip space where a face needs the per-pixel test;
+these launches count under ``visibility_dbg``, ``visibility_z_dbg`` and
+``tidpass_dbg``.
+
 K1, K4 and K7 bin on the card (csrc/bins.cu, :func:`coarse_bins_plain`),
 into scratch sized from what the host knows (table rows, frame size,
 COARSE); K6 scatters each edge's DDA pixels with no binning. So no wrapper
@@ -47,7 +53,8 @@ from tpu_renderer_torch.ops.shadow import QUAD_PMAX, quad_edge_coeffs, \
     quad_fragments, _cross, _dot3
 
 __all__ = [
-    "face_flags", "pack_faces", "pack_face_attrs", "pack_quads",
+    "face_flags", "pack_faces", "pack_debug_planes", "pack_face_attrs",
+    "pack_quads",
     "pack_slim_attrs", "pack_lines", "stencil_scalars", "tile_bins",
     "coarse_bins_plain", "bin_scratch_bytes", "COARSE", "MAX_BIN_SCRATCH",
     "visibility", "gbuffer", "sample_textures", "stencil", "gbuffer_slim",
@@ -59,10 +66,12 @@ __all__ = [
 ]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`; K1's
-#: z-only launches count as ``visibility_z``.
-LAUNCHES = {"visibility": 0, "visibility_z": 0, "gbuffer": 0,
-            "sample_textures": 0, "stencil": 0, "gbuffer_slim": 0,
-            "lines": 0, "tidpass": 0}
+#: z-only launches count as ``visibility_z``, and K1's and K7's launches
+#: with a debug camera's planes under the same keys with ``_dbg``.
+LAUNCHES = {"visibility": 0, "visibility_z": 0, "visibility_dbg": 0,
+            "visibility_z_dbg": 0, "gbuffer": 0, "sample_textures": 0,
+            "stencil": 0, "gbuffer_slim": 0, "lines": 0, "tidpass": 0,
+            "tidpass_dbg": 0}
 
 
 def reset_launches():
@@ -142,10 +151,15 @@ def _conds(clip):                                 # (G, 3, 4) -> (G, 3, 6)
 def face_flags(faces):
     """Per-face flag word: 1 valid | 2 clip_en | 4 z_write | 8 needs the
     per-pixel clip test (raster_pallas.face_flags :238). A clip-enabled face
-    whose three vertices lie strictly inside every clip plane passes the
-    interpolated test at every interior pixel by convexity and skips it."""
+    whose three vertices lie strictly inside every clip plane, of the
+    camera and, when ``faces`` carries ``clip_dbg``, of the debug camera,
+    passes the interpolated test at every interior pixel by convexity and
+    skips it."""
     e_cam = _conds(faces["clip"]) * faces["inv_w"][..., None]
     all_inside = (e_cam > 0).all(dim=2).all(dim=1)
+    if "clip_dbg" in faces:
+        e_dbg = _conds(faces["clip_dbg"]) * faces["inv_w"][..., None]
+        all_inside &= (e_dbg > 0).all(dim=2).all(dim=1)
     needs_ppc = faces["clip_en"] & ~all_inside
     i32 = lambda b: b.to(torch.int32)
     return (i32(faces["valid"]) | (i32(faces["clip_en"]) << 1)
@@ -162,6 +176,20 @@ def pack_faces(faces):
     return torch.cat([faces["aff"], faces["inv_w"],
                       faces["bbox"].to(torch.float32),
                       e_cam.reshape(g, 18)], dim=1).contiguous()
+
+
+def pack_debug_planes(faces):
+    """The debug camera's clip planes of each face, pre-scaled as
+    pack_faces' own: (G, 18) float32, e_dbg[i, j] = inv_w[i] *
+    cond_j(clip_dbg_i) at 6*i + j (columns 34-52 of raster_pallas.pack_faces
+    with a debug camera, kept in a table of their own so that the 34-column
+    table and every kernel that reads only it stay as they are). None when
+    ``faces`` has no ``clip_dbg`` (no debug camera)."""
+    if "clip_dbg" not in faces:
+        return None
+    g = faces["sx"].shape[0]
+    e_dbg = _conds(faces["clip_dbg"]) * faces["inv_w"][..., None]
+    return e_dbg.reshape(g, rp.DBG_COLS).contiguous()
 
 
 def pack_face_attrs(attrs):
@@ -377,20 +405,20 @@ def _bin_scratch(n, height, width, device):
 # ------------------------------------------------------------- plain versions
 
 def visibility_plain(fdata, flags, height, width, sign, row0=0,
-                     want_tid=True):
+                     want_tid=True, fdbg=None):
     """K1's plain version: raster_plain's z pass then id pass.
     Returns (zb_sign (H, W) float32, tid (H, W) int32), or (zb_sign, None)
     with ``want_tid=False``."""
     return rp.render_visibility(fdata, flags, height, width, sign, row0=row0,
-                                want_tid=want_tid)
+                                want_tid=want_tid, fdbg=fdbg)
 
 
-def tidpass_plain(fdata, flags, zb_sign, sign, row0=0, gid0=0):
+def tidpass_plain(fdata, flags, zb_sign, sign, row0=0, gid0=0, fdbg=None):
     """K7's plain version: raster_plain's id pass against the given final
     z-buffer. Returns tid (H, W) int32, gid0 + face index or -1."""
     height, width = zb_sign.shape
     return rp.visibility_pass(fdata, flags, zb_sign, height, width, sign,
-                              row0=row0, gid0=gid0)
+                              row0=row0, gid0=gid0, fdbg=fdbg)
 
 
 def _owned(tid, gid0, g_local):
@@ -653,53 +681,73 @@ def _launch(name, *args, counter=None):
     LAUNCHES[counter or name] += 1
 
 
-def visibility(fdata, flags, height, width, sign, row0=0, want_tid=True):
-    """K1: final sign-space z-buffer and winning face index per pixel, for
-    ``height`` rows from ``row0``.
-
-    fdata: (G, 34) float32 (pack_faces); flags: (G,) int32 (face_flags).
-    Returns (zb_sign (H, W) float32, tid (H, W) int32, -1 = background), or
-    (zb_sign, None) with ``want_tid=False`` (z-only mode, counted as
-    ``visibility_z``).
-    """
-    if _on_cpu(fdata, flags):
-        return visibility_plain(fdata, flags, height, width, sign, row0,
-                                want_tid)
+def _face_tables(fdata, flags, fdbg):
+    """Check K1's and K7's face tables for a launch: fdata (G, 34) and fdbg
+    (G, 18) or None float32, 8-byte aligned (their rows are staged by
+    8-byte copies); flags (G,) int32. Returns G."""
     g = fdata.shape[0]
     _require(fdata, "fdata", torch.float32, (g, rp.F_COLS))
     _require(flags, "flags", torch.int32, (g,))
     _require_aligned(fdata, "fdata", 8)
+    if fdbg is not None:
+        _require(fdbg, "fdbg", torch.float32, (g, rp.DBG_COLS))
+        _require_aligned(fdbg, "fdbg", 8)
+    return g
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def visibility(fdata, flags, height, width, sign, row0=0, want_tid=True,
+               fdbg=None):
+    """K1: final sign-space z-buffer and winning face index per pixel, for
+    ``height`` rows from ``row0``.
+
+    fdata: (G, 34) float32 (pack_faces); flags: (G,) int32 (face_flags);
+    fdbg: (G, 18) float32 (pack_debug_planes) with a debug camera, else
+    None. Returns (zb_sign (H, W) float32, tid (H, W) int32, -1 =
+    background), or (zb_sign, None) with ``want_tid=False`` (z-only mode,
+    counted as ``visibility_z``; with fdbg, ``visibility_dbg`` and
+    ``visibility_z_dbg``).
+    """
+    tensors = (fdata, flags) if fdbg is None else (fdata, flags, fdbg)
+    if _on_cpu(*tensors):
+        return visibility_plain(fdata, flags, height, width, sign, row0,
+                                want_tid, fdbg)
+    g = _face_tables(fdata, flags, fdbg)
     counts, items = _bin_scratch(g, height, width, fdata.device)
     zb = torch.empty((height, width), dtype=torch.float32,
                      device=fdata.device)
     tid = (torch.empty((height, width), dtype=torch.int32,
                        device=fdata.device) if want_tid else None)
-    _launch("visibility", fdata.data_ptr(), flags.data_ptr(), g,
+    counter = ("visibility" if want_tid else "visibility_z") + (
+        "" if fdbg is None else "_dbg")
+    _launch("visibility", fdata.data_ptr(), flags.data_ptr(), _ptr(fdbg), g,
             counts.data_ptr(), items.data_ptr(), height, width, row0,
-            float(sign), int(want_tid), zb.data_ptr(),
-            tid.data_ptr() if want_tid else None,
-            counter="visibility" if want_tid else "visibility_z")
+            float(sign), int(want_tid), zb.data_ptr(), _ptr(tid),
+            counter=counter)
     return zb, tid
 
 
-def tidpass(fdata, flags, zb_sign, sign, row0=0, gid0=0):
+def tidpass(fdata, flags, zb_sign, sign, row0=0, gid0=0, fdbg=None):
     """K7: winning face ids against the given final z-buffer ``zb_sign``
     (H, W) float32, for its rows from ``row0``: gid0 + the last face index
     that covers the pixel and passes ``zb >= z * sign``, -1 elsewhere.
-    fdata, flags as for :func:`visibility`. Returns (H, W) int32."""
-    if _on_cpu(fdata, flags, zb_sign):
-        return tidpass_plain(fdata, flags, zb_sign, sign, row0, gid0)
-    g = fdata.shape[0]
+    fdata, flags, fdbg as for :func:`visibility` (launches with fdbg count
+    as ``tidpass_dbg``). Returns (H, W) int32."""
+    tensors = (fdata, flags, zb_sign) + (() if fdbg is None else (fdbg,))
+    if _on_cpu(*tensors):
+        return tidpass_plain(fdata, flags, zb_sign, sign, row0, gid0, fdbg)
+    g = _face_tables(fdata, flags, fdbg)
     height, width = zb_sign.shape
-    _require(fdata, "fdata", torch.float32, (g, rp.F_COLS))
-    _require(flags, "flags", torch.int32, (g,))
     _require(zb_sign, "zb_sign", torch.float32, (height, width))
-    _require_aligned(fdata, "fdata", 8)
     counts, items = _bin_scratch(g, height, width, fdata.device)
     tid = torch.empty((height, width), dtype=torch.int32, device=fdata.device)
-    _launch("tidpass", fdata.data_ptr(), flags.data_ptr(), g,
+    _launch("tidpass", fdata.data_ptr(), flags.data_ptr(), _ptr(fdbg), g,
             counts.data_ptr(), items.data_ptr(), zb_sign.data_ptr(), height,
-            width, row0, gid0, float(sign), tid.data_ptr())
+            width, row0, gid0, float(sign), tid.data_ptr(),
+            counter="tidpass" + ("" if fdbg is None else "_dbg"))
     return tid
 
 

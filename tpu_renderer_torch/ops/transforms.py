@@ -9,6 +9,8 @@ translation in the last row (transformation.py:123-136, 219-227).
 Matrices are float32 tensors built on the CPU: they are a handful of scalars
 per frame, and building them on the host keeps the per-frame matrices
 bit-identical whichever device renders. Callers move them with ``.to(device)``.
+The camera builders also take ``dtype=torch.float64``: the host form of the
+camera matrices that the debug overlay draws with (models/camera.py).
 
 Parity map (reference transformation.py):
   scale:207  translation:219  rotate_xyz:230  looka_at_translate:77
@@ -18,6 +20,8 @@ Parity map (reference transformation.py):
   perspectives registry:346  bound_box:35  normalize:46
 """
 from __future__ import annotations
+
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -36,11 +40,11 @@ __all__ = [
 _F32 = torch.float32
 
 
-def _t(x, device=None):
-    """Scalar / array / tensor -> float32 tensor (CPU unless ``device``)."""
+def _t(x, device=None, dtype=_F32):
+    """Scalar / array / tensor -> ``dtype`` tensor (CPU unless ``device``)."""
     if isinstance(x, torch.Tensor):
-        return x.to(dtype=_F32, device=device or x.device)
-    return torch.tensor(np.asarray(x), dtype=_F32, device=device)
+        return x.to(dtype=dtype, device=device or x.device)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def matmul(a, b):
@@ -134,10 +138,10 @@ rotate = rotate_xyz
 # Look-at family
 # --------------------------------------------------------------------------
 
-def looka_at_translate(eye):
+def looka_at_translate(eye, dtype=_F32):
     """Look-at translation part (reference transformation.py:77-80)."""
-    m = torch.eye(4, dtype=_F32)
-    m[3, :3] = -_t(eye)
+    m = torch.eye(4, dtype=dtype)
+    m[3, :3] = -_t(eye, dtype=dtype)
     return m
 
 
@@ -150,23 +154,64 @@ def _cross3(a, b):
                         a[0] * b[1] - a[1] * b[0]])
 
 
-def _look_at_rotate(eye, center, up, forward_sign):
-    forward = normalize(_t(center) - _t(eye)).reshape(-1)
-    right = normalize(_cross3(_t(up), forward)).reshape(-1)
-    new_up = _cross3(forward, right)
-    rot = torch.eye(4, dtype=_F32)
+def _fma(a, b, c):
+    """a*b + c of three Python floats, rounded once: exact rational
+    arithmetic, then the one correctly rounded conversion to a float."""
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _unit_f64(v):
+    """v / |v| of a 3-vector of Python floats (zero stays zero), with
+    |v| = sqrt(fma(z, z, fma(y, y, x*x)))."""
+    x, y, z = v
+    n = float(np.sqrt(_fma(z, z, _fma(y, y, x * x))))
+    n = n if n != 0 else 1.0
+    return [x / n, y / n, z / n]
+
+
+def _cross_f64(a, b):
+    """a × b of 3-vectors of Python floats, each component
+    fma(a_i, b_j, -(a_j * b_i))."""
+    return [_fma(a[i], b[j], -(a[j] * b[i]))
+            for i, j in ((1, 2), (2, 0), (0, 1))]
+
+
+def _look_at_axes_f64(eye, center, up):
+    """The float64 look-at axes (right, new_up, forward) as the JAX
+    package's x64 host matrices compute them. That package builds them
+    through XLA's CPU backend, which contracts the norm's sum of squares
+    and the cross products' a*b - c*d into fused multiply-adds (measured:
+    rounded op by op, the norm differs by an ulp on about one vector in
+    twenty, the cross product on more than half); these are the contracted
+    forms, so the overlay's matrices equal that package's bit for bit."""
+    f64 = lambda a: [float(c) for c in _t(a, dtype=torch.float64)]
+    eye, center, up = f64(eye), f64(center), f64(up)
+    forward = _unit_f64([c - e for c, e in zip(center, eye)])
+    right = _unit_f64(_cross_f64(up, forward))
+    return right, _cross_f64(forward, right), forward
+
+
+def _look_at_rotate(eye, center, up, forward_sign, dtype):
+    if dtype == torch.float64:
+        right, new_up, forward = (torch.tensor(a, dtype=dtype) for a in
+                                  _look_at_axes_f64(eye, center, up))
+    else:
+        forward = normalize(_t(center) - _t(eye)).reshape(-1)
+        right = normalize(_cross3(_t(up), forward)).reshape(-1)
+        new_up = _cross3(forward, right)
+    rot = torch.eye(4, dtype=dtype)
     rot[:3, :3] = torch.stack((right, new_up, forward_sign * forward), dim=1)
     return rot
 
 
-def look_at_rotate_lh(eye, center, up):
+def look_at_rotate_lh(eye, center, up, dtype=_F32):
     """LH look-at rotation part (reference transformation.py:83-89)."""
-    return _look_at_rotate(eye, center, up, -1.0)
+    return _look_at_rotate(eye, center, up, -1.0, dtype)
 
 
-def look_at_rotate_rh(eye, center, up):
+def look_at_rotate_rh(eye, center, up, dtype=_F32):
     """RH look-at rotation part (reference transformation.py:92-98)."""
-    return _look_at_rotate(eye, center, up, 1.0)
+    return _look_at_rotate(eye, center, up, 1.0, dtype)
 
 
 def lookAtLH(eye, center, up=(0, 1, 0)):
@@ -190,15 +235,16 @@ def lookAtRH(eye, center, up=(0, 1, 0)):
 # Viewport & projections
 # --------------------------------------------------------------------------
 
-def ViewPort(resolution, far, near, x_offset=0, y_offset=0):
+def ViewPort(resolution, far, near, x_offset=0, y_offset=0, dtype=_F32):
     """NDC -> screen matrix, translation in last row (transformation.py:123-136).
 
     ``resolution`` is (height, width) like the reference.
     """
     height, width = resolution
-    hw, hh = _t(width) / 2, _t(height) / 2
-    hd = (_t(far) - _t(near)) / 2
-    m = torch.zeros((4, 4), dtype=_F32)
+    t = lambda x: _t(x, dtype=dtype)
+    hw, hh = t(width) / 2, t(height) / 2
+    hd = (t(far) - t(near)) / 2
+    m = torch.zeros((4, 4), dtype=dtype)
     m[0, 0] = hw
     m[1, 1] = hh
     m[2, 2] = hd
@@ -209,12 +255,12 @@ def ViewPort(resolution, far, near, x_offset=0, y_offset=0):
     return m
 
 
-def opengl_orthographicLH(fov, aspect_ratio, z_near, z_far):
+def opengl_orthographicLH(fov, aspect_ratio, z_near, z_far, dtype=_F32):
     """OpenGL LH orthographic projection (transformation.py:139-154)."""
-    z_near, z_far = _t(z_near), _t(z_far)
-    half_height = torch.tan(torch.deg2rad(_t(fov) / 2.0)) * z_near
+    z_near, z_far = _t(z_near, dtype=dtype), _t(z_far, dtype=dtype)
+    half_height = torch.tan(torch.deg2rad(_t(fov, dtype=dtype) / 2.0)) * z_near
     half_width = half_height * aspect_ratio
-    m = torch.zeros((4, 4), dtype=_F32)
+    m = torch.zeros((4, 4), dtype=dtype)
     m[0, 0] = 1.0 / half_width
     m[1, 1] = 1.0 / half_height
     m[2, 2] = -2.0 / (z_far - z_near)
@@ -223,39 +269,43 @@ def opengl_orthographicLH(fov, aspect_ratio, z_near, z_far):
     return m
 
 
-def _perspective(fovy, aspect, m22, m32, m23):
-    f = 1.0 / torch.tan(torch.deg2rad(_t(fovy)) / 2.0)
-    m = torch.zeros((4, 4), dtype=_F32)
+def _perspective(fovy, aspect, m22, m32, m23, dtype):
+    f = 1.0 / torch.tan(torch.deg2rad(_t(fovy, dtype=dtype)) / 2.0)
+    m = torch.zeros((4, 4), dtype=dtype)
     m[0, 0] = f / aspect
     m[1, 1] = f
-    m[2, 2] = _t(m22)
-    m[2, 3] = _t(m23)
-    m[3, 2] = _t(m32)
+    m[2, 2] = _t(m22, dtype=dtype)
+    m[2, 3] = _t(m23, dtype=dtype)
+    m[3, 2] = _t(m32, dtype=dtype)
     return m
 
 
-def opengl_perspectiveLH(fovy, aspect, z_near, z_far):
+def opengl_perspectiveLH(fovy, aspect, z_near, z_far, dtype=_F32):
     """OpenGL LH perspective (transformation.py:157-165)."""
-    n, f = _t(z_near), _t(z_far)
-    return _perspective(fovy, aspect, -(f + n) / (f - n), 2.0 * f * n / (f - n), 1.0)
+    n, f = _t(z_near, dtype=dtype), _t(z_far, dtype=dtype)
+    return _perspective(fovy, aspect, -(f + n) / (f - n),
+                        2.0 * f * n / (f - n), 1.0, dtype)
 
 
-def opengl_perspectiveRH(fovy, aspect, z_near, z_far):
+def opengl_perspectiveRH(fovy, aspect, z_near, z_far, dtype=_F32):
     """OpenGL RH perspective (transformation.py:168-176)."""
-    n, f = _t(z_near), _t(z_far)
-    return _perspective(fovy, aspect, -(f + n) / (f - n), -2.0 * f * n / (f - n), -1.0)
+    n, f = _t(z_near, dtype=dtype), _t(z_far, dtype=dtype)
+    return _perspective(fovy, aspect, -(f + n) / (f - n),
+                        -2.0 * f * n / (f - n), -1.0, dtype)
 
 
-def directx_perspectiveRH(fovy, aspect, z_near, z_far):
+def directx_perspectiveRH(fovy, aspect, z_near, z_far, dtype=_F32):
     """DirectX RH perspective (transformation.py:179-190)."""
-    n, f = _t(z_near), _t(z_far)
-    return _perspective(fovy, aspect, f / (n - f), n * f / (n - f), -1.0)
+    n, f = _t(z_near, dtype=dtype), _t(z_far, dtype=dtype)
+    return _perspective(fovy, aspect, f / (n - f), n * f / (n - f), -1.0,
+                        dtype)
 
 
-def directx_perspectiveLH(fovy, aspect, z_near, z_far):
+def directx_perspectiveLH(fovy, aspect, z_near, z_far, dtype=_F32):
     """DirectX LH perspective (transformation.py:193-204)."""
-    n, f = _t(z_near), _t(z_far)
-    return _perspective(fovy, aspect, -f / (f - n), n * f / (f - n), 1.0)
+    n, f = _t(z_near, dtype=dtype), _t(z_far, dtype=dtype)
+    return _perspective(fovy, aspect, -f / (f - n), n * f / (f - n), 1.0,
+                        dtype)
 
 
 #: Projection registry keyed by (SUBSYSTEM, PROJECTION_TYPE, SYSTEM), the same

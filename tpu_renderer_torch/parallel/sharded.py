@@ -85,7 +85,10 @@ def render_frame_sharded(cfg: SceneConfig, dyn, mesh, ops=rc.KERNELS):
     Returns (frame_u8 (H, W, 3), zbuf, tid, stencil), each the whole frame
     on every rank. tid holds shard-major global ids: face index within the
     shard's slice of each model, shards padded as :func:`pad_models_for_tris`.
-    Serves the general, flat, gouraud and pbr shaders.
+    Serves the general, flat, gouraud and pbr shaders. With a debug camera
+    (``cfg.has_debug_camera``, ``dyn["debug_camera"]`` on every rank), K1's
+    z-only mode and K7 clip in its space too; no overlay is drawn, as in
+    the JAX package's sharded frame.
     """
     if cfg.shader not in (SHADER_GENERAL,) + SLIM_SHADERS:
         raise NotImplementedError(f"sharded {cfg.shader!r} frames are not "
