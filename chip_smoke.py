@@ -66,6 +66,22 @@ exits non-zero without the final line):
    mesh's pixels. It is timed against the flagship without them in
    interleaved orbit pairs and profiled (``tr.overlay``'s host range); then
    a wireframe render with the debug camera must match its plain path.
+8. supersampling, ``stats()`` and the host API: ``Scene.stats()`` on the
+   phase-4 frame (each model's total its face count, the counters summing
+   to at least total - 1, ``rendered`` the distinct ids of the model in
+   tid, every counter equal to ``face_statistics`` on CPU copies of the
+   same scene and tid); the flagship with ``supersample = 2`` (2048²
+   inside) through ``Scene.render()``, which must launch K1-K4 and match
+   its plain-path render at the bars above and show more distinct colours
+   than the frame at ss = 1, timed against ss = 1 in SSAA_PAIRS interleaved
+   SSAA_ORBIT-frame orbit pairs and profiled (``tr.ssaa`` and the kernels
+   alone); gouraud at ss = 2 through K5; ss = 4 (4096²) once, against its
+   plain path, with the coarse-list scratch and the device's peak memory;
+   K1-K5 timed at 2048² and 4096² beside their bounds (``needed_bytes``);
+   then the flagship mesh written with ``utils.objwrite.write_obj`` and
+   loaded with the native loader (built with g++) and the Python parser,
+   which must agree, and ``utils.profiling.trace`` around two frames, whose
+   ``summarize_device_trace`` must name K1-K4.
 
 Before the last line it prints the card's ``name, power.limit`` line and
 one JSON object with the per-kernel records (each with its launches in
@@ -562,24 +578,29 @@ _WRAPPER_KERNELS = {"visibility": ("coarse_bins", "visibility"),
                     "sample_textures": ("sample",)}
 
 
-def _alone_ms(fn, wrapper, runs=3, tries=3):
+def _alone_ms(fn, wrapper, runs=3, tries=3, strict=True):
     """Device time per call of the kernels that ``wrapper`` launches through
     ``fn``, without the wrapper's host work (checks, allocation): a
-    profile of ``runs`` calls, summed over the wrapper's kernels of each
-    one's mean time. A trace can come back short of some events: then the
-    profile is taken again, up to ``tries`` times, until every kernel of
-    the wrapper has exactly ``runs`` events. If every trace is short, the
-    last one's means stand (each event is one launch); it raises when a
-    kernel has no event or more than ``runs``."""
+    profile of ``runs`` calls, each in a ``tr.alone`` range, summed over the
+    wrapper's kernels of each one's mean time. A trace can come back short
+    of some events: then the profile is taken again, up to ``tries`` times,
+    until every kernel of the wrapper has exactly ``runs`` events. If every
+    trace is short, the last one's means stand (each event is one launch);
+    when a kernel has no event or more than ``runs``, it raises, or with
+    ``strict=False`` returns None (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = _WRAPPER_KERNELS.get(wrapper, (wrapper,))
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # CPU activity too: after a profile of both (``_profile``), one of
+        # CUDA activity alone recorded no kernel event on the H100.
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
-                fn()
+                with torch.profiler.record_function("tr.alone"):
+                    fn()
             torch.cuda.synchronize()
         times = {name: [] for name in names}
         for e in prof.events():
@@ -590,6 +611,8 @@ def _alone_ms(fn, wrapper, runs=3, tries=3):
         if all(len(t) == runs for t in times.values()):
             break
     if not all(0 < len(t) <= runs for t in times.values()):
+        if not strict:
+            return None
         raise RuntimeError(f"{wrapper}: a profile of {runs} calls has "
                            f"{ {k: len(v) for k, v in times.items()} } "
                            f"events of {names}")
@@ -806,15 +829,23 @@ PATH_KERNELS = {
 
 def _check_render(scene, frame, debug):
     """Hold the scene's last render to the same frame through the plain
-    versions: tid >= 99.9%, stencil equal, frame >= 99.9%. Returns
-    (tid match, frame match, foreground share)."""
+    versions: tid >= 99.9%, stencil equal, frame >= 99.9%; a supersampled
+    render (``scene.supersample`` > 1, no debug shader or camera) through
+    ``render_ssaa`` at the scaled size. Returns (tid match, frame match,
+    foreground share)."""
     import torch
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
 
     tid, stencil = scene.last_tid, scene.last_stencil
-    cfg, dyn = scene._prepare()
-    if debug:
+    ss = (scene.supersample if not debug and scene.debug_camera is None
+          else 1)
+    h, w = scene.resolution
+    cfg, dyn = scene._prepare(resolution=(h * ss, w * ss))
+    if ss > 1:
+        f_p, _, tid_p, st_p = pl.render_ssaa(cfg, dyn, ss, ops=rc.PLAIN)
+        f_p = f_p.cpu().numpy()
+    elif debug:
         f_p, _, tid_p, st_p = pl.render_debug_frame(cfg, dyn, scene.shader,
                                                      ops=rc.PLAIN)
         f_p = f_p.cpu().numpy()
@@ -825,7 +856,8 @@ def _check_render(scene, frame, debug):
         f_p = f_p.cpu().numpy()
     tid_match = (tid == tid_p).float().mean().item()
     frame_match = float((frame == f_p).all(-1).mean())
-    if frame.shape != (*RES, 3) or tid_match < 0.999 or frame_match < 0.999 \
+    if frame.shape != (*RES, 3) or tid.shape != tid_p.shape \
+            or tid_match < 0.999 or frame_match < 0.999 \
             or not torch.equal(stencil, st_p):
         raise AssertionError(f"{scene.shader}: frame vs plain path: tid "
                              f"{tid_match}, frame {frame_match}, stencil "
@@ -905,6 +937,18 @@ def _merge_share(render, n_frames=2):
     return {"traced_ms": wall, "merge_ms": merges,
             "merge_share": sum(merges.values()) / wall,
             "tidpass_host_ms": tidpass}
+
+
+def to_device(tree, device):
+    """A copy of a packed scene's dict/list tree with every tensor moved to
+    ``device``."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 def _run_key(shader, shape, debug):
@@ -1195,6 +1239,258 @@ def _debug_phase(tr, scene, start, records):
           f"foreground {fg:.3f}", flush=True)
 
 
+#: Interleaved orbit pairs (ss = 1, ss = 2) of phase 8, and frames per
+#: orbit.
+SSAA_PAIRS = 3
+SSAA_ORBIT = 10
+#: K1-K5 as phase 8 times them at the supersampled sizes.
+SSAA_CASES = ("visibility", "gbuffer", "sample_textures", "stencil",
+              "gbuffer_slim_gouraud")
+
+
+def _ssaa_kernel_times(scene, ss):
+    """K1-K5 (K5 in the gouraud layout) at the scene's ss-scaled size, on
+    inputs built through the kernels: {case: (wrapper ms, alone ms, bound
+    ms, bound by, MB)}, and K1's and K4's coarse-list scratch bytes."""
+    import torch
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import raster_cuda as rc
+    from tpu_renderer_torch.ops.shadow import prepare_quads
+
+    h, w = scene.resolution[0] * ss, scene.resolution[1] * ss
+    cfg, dyn = scene._prepare(resolution=(h, w))
+    cam_m = pl._cam_matrices(cfg, dyn["camera"], scene.device)
+    faces, attrs = pl._build_face_batch(cfg, dyn, cam_m)
+    fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
+    zb_sign, tid = rc.visibility(fdata, flags, h, w, cfg.system)
+    adata = rc.pack_face_attrs(attrs)
+    gb = rc.gbuffer(fdata, adata, tid)
+    qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
+    zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])
+    inputs = {
+        "visibility": (fdata, flags, h, w, cfg.system),
+        "gbuffer": (fdata, adata, tid),
+        "sample_textures": (tid, gb[rc.GB_IU].contiguous(),
+                            gb[rc.GB_IV].contiguous(),
+                            *pl.texture_tables(cfg, dyn, attrs)),
+        "stencil": (qdata, qi, zb_sign, cfg.system, *zc),
+        "gbuffer_slim_gouraud": (fdata, rc.pack_slim_attrs(attrs, "gouraud"),
+                                 tid, "gouraud"),
+    }
+    del gb
+    out = {}
+    for case in SSAA_CASES:
+        args = inputs[case]
+        kern = getattr(rc, wrapper_of(case))
+        got = kern(*args)
+        torch.cuda.synchronize()
+        ms = _time_ms(lambda: kern(*args))
+        # Late in the script, some profiles of these wrappers at 2048^2
+        # and 4096^2 on the H100 held no kernel event: such a time is not
+        # measured.
+        alone = _alone_ms(lambda: kern(*args), wrapper_of(case), tries=5,
+                          strict=False)
+        bound_ms, bound_by, nbytes, _ = bound(case, args, {}, got, zb_sign)
+        out[case] = (round(ms, 4),
+                     "not measured" if alone is None else round(alone, 4),
+                     round(bound_ms, 4), bound_by, round(nbytes / 1e6, 2))
+        del got
+    scratch = {"K1": rc.bin_scratch_bytes(fdata.shape[0], h, w),
+               "K4": rc.bin_scratch_bytes(qdata.shape[0], h, w)}
+    return out, scratch
+
+
+def _stats_check(scene):
+    """Phase 8's stats() checks on the scene's last (one-device, ss = 1)
+    render. Returns (stats, ms of the stats() call)."""
+    import torch
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = scene.stats()
+    ms = (time.perf_counter() - t0) * 1e3
+    cfg, dyn = scene._prepare()
+    tid = scene.last_tid
+    cpu = pl.face_statistics(cfg, to_device(dyn, "cpu"), tid.cpu())
+    ids = torch.unique(tid[tid >= 0])
+    start = 0
+    for i, (mc, model, s, c) in enumerate(zip(cfg.models, scene.models,
+                                              stats, cpu)):
+        rest = sum(s[k] for k in ("rendered", "backface_culled",
+                                  "degenerate", "offscreen",
+                                  "occluded_or_clipped"))
+        owned = int(((ids >= start) & (ids < start + mc.num_faces)).sum())
+        differ = {k: (s[k], int(v)) for k, v in c.items() if s[k] != int(v)}
+        if (s["total"] != model.num_faces or rest < s["total"] - 1
+                or s["rendered"] != owned or differ):
+            raise AssertionError(f"stats() of model {i}: {s}; distinct ids "
+                                 f"{owned}; differ from the CPU {differ}")
+        start += mc.num_faces
+    return stats, ms
+
+
+def _host_api_check(tr, scene):
+    """The flagship mesh through utils.objwrite.write_obj, then the native
+    loader (built with g++) against the Python parser; then
+    utils.profiling.trace around two frames, whose summarize_device_trace
+    must name K1-K4. Returns a line of results."""
+    import torch
+    from tpu_renderer_torch.models import native
+    from tpu_renderer_torch.utils import objwrite, profiling
+
+    mesh = scene.models[0]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_host_")
+    try:
+        path = os.path.join(tmp, "flagship.obj")
+        fa = mesh.face_array
+        objwrite.write_obj(path, mesh.vertices[:, :3], mesh.uv[:, :2],
+                           mesh.normals, [[tuple(int(i) for i in c[:3])
+                                           for c in f] for f in fa])
+        t0 = time.perf_counter()
+        if not native.native_available():
+            raise AssertionError(f"native loader: {native.build_error()}")
+        t1 = time.perf_counter()
+        nat = tr.Model.load_model(path, use_native=True)
+        t2 = time.perf_counter()
+        py = tr.Model.load_model(path, use_native=False)
+        t3 = time.perf_counter()
+        for attr in ("vertices", "uv", "normals", "face_array"):
+            a, b = getattr(nat, attr), getattr(py, attr)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"native loader: {attr} differs from "
+                                     "the Python parser")
+        if not np.array_equal(nat.face_array, fa):
+            raise AssertionError("written mesh: faces differ from the mesh")
+        with profiling.trace(os.path.join(tmp, "trace")) as log_dir:
+            for _ in range(2):
+                scene.render()
+            torch.cuda.synchronize()
+        summary = profiling.summarize_device_trace(log_dir)
+        named = {m.group(1) for _, name, _ in summary
+                 for m in [_OUR_KERNEL.search(name)] if m}
+        if not {"visibility", "gbuffer", "sample", "stencil"} <= named:
+            raise AssertionError(f"device trace names {sorted(named)}")
+        top = [(round(ms, 4), _OUR_KERNEL.search(name).group(1), src)
+               for ms, name, src in summary if _OUR_KERNEL.search(name)]
+        return (f"native loader {native.LIB_PATH.rsplit(os.sep, 1)[-1]} "
+                f"(g++ build and load {(t1 - t0) * 1e3:.2f} ms) equal to the "
+                f"Python parser ({mesh.num_faces} faces: "
+                f"{(t2 - t1) * 1e3:.2f} against {(t3 - t2) * 1e3:.2f} ms); "
+                f"trace of 2 frames: our kernels (ms, kernel, launching "
+                f"range) {top[:8]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _ssaa_phase(tr, scene, start):
+    """Phase 8 (module docstring) on the flagship ``scene`` (general, no
+    skybox, no debug camera)."""
+    import torch
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    spread = lambda xs: (f"median {statistics.median(xs):.3f} "
+                         f"[{min(xs):.3f}, {max(xs):.3f}]")
+    scene.shader, scene.skybox, scene.supersample = "general", None, 1
+    scene.camera.set_position(start)
+    frame1 = scene.render()
+    stats, stats_ms = _stats_check(scene)
+    shown = [{k: v for k, v in s.items() if k != "by_error"} for s in stats]
+    print(f"[8 stats] {shown}; equal to face_statistics on the CPU, "
+          f"rendered = distinct ids in tid; stats() {stats_ms:.2f} ms",
+          flush=True)
+
+    scene.supersample = 2
+    rc.reset_launches()
+    frame = scene.render()
+    torch.cuda.synchronize()
+    launched = {k: rc.LAUNCHES[k] for k in PATH_KERNELS["general"]}
+    if min(launched.values()) < 1:
+        raise AssertionError(f"ss=2 path skipped a kernel: {launched}")
+    t0 = time.perf_counter()
+    tid_match, frame_match, _ = _check_render(scene, frame, debug=False)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    u1 = len(np.unique(frame1.reshape(-1, 3), axis=0))
+    u2 = len(np.unique(frame.reshape(-1, 3), axis=0))
+    if u2 <= u1:
+        raise AssertionError(f"ss=2: {u2} colours, not more than {u1}")
+    one_ms, ss_ms = [], []
+    for _ in range(SSAA_PAIRS):
+        scene.supersample = 1
+        one_ms.append(_orbit_ms(scene, SSAA_ORBIT))
+        scene.supersample = 2
+        ss_ms.append(_orbit_ms(scene, SSAA_ORBIT))
+    diff = [b - a for a, b in zip(one_ms, ss_ms)]
+    prof = _profile(scene, n_frames=3)
+    lead = sorted(prof["host"].items(), key=lambda kv: -kv[1])[:4]
+    print(f"[8 ssaa 2] {2 * RES[0]}x{2 * RES[1]} inside: launches "
+          f"{launched}; vs plain path tid {tid_match:.6f}, frame "
+          f"{frame_match:.6f}, stencil equal (plain path and comparison "
+          f"{plain_ms:.1f} ms); "
+          f"colours {u2} against {u1} at ss=1; "
+          f"ms/frame (host clock, {SSAA_PAIRS} interleaved {SSAA_ORBIT}-frame "
+          f"orbit pairs): ss=2 {spread(ss_ms)}, ss=1 {spread(one_ms)}, "
+          f"ss=2 - ss=1 {spread(diff)}; traced wall {prof['wall']:.2f}, "
+          f"device busy {prof['busy']:.3f} ms/frame; ssaa host "
+          f"{prof['host'].get('ssaa', 0.0):.3f}, span "
+          f"{prof['device_span'].get('ssaa', 0.0):.3f} ms/frame; leading "
+          f"host stages {lead}; kernels {prof['kernels']}", flush=True)
+
+    scene.camera.set_position(start)
+    scene.shader = "gouraud"
+    rc.reset_launches()
+    frame = scene.render()
+    torch.cuda.synchronize()
+    launched = {k: rc.LAUNCHES[k] for k in PATH_KERNELS["slim"]}
+    if min(launched.values()) < 1:
+        raise AssertionError(f"ss=2 gouraud skipped a kernel: {launched}")
+    tid_match, frame_match, _ = _check_render(scene, frame, debug=False)
+    print(f"[8 ssaa 2 gouraud] launches {launched}; vs plain path tid "
+          f"{tid_match:.6f}, frame {frame_match:.6f}, stencil equal",
+          flush=True)
+    scene.shader = "general"
+    # The plain path's cached blocks go back to the card first, so the
+    # profiles below run with the card's memory free.
+    torch.cuda.empty_cache()
+    times, scratch = _ssaa_kernel_times(scene, 2)
+    print(f"[8 kernels ss=2] (wrapper ms, alone ms, bound ms, by, MB) "
+          f"{times}; coarse-list scratch B {scratch}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scene.supersample = 4
+    rc.reset_launches()
+    frame = scene.render()
+    torch.cuda.synchronize()
+    launched = {k: rc.LAUNCHES[k] for k in PATH_KERNELS["general"]}
+    if min(launched.values()) < 1:
+        raise AssertionError(f"ss=4 path skipped a kernel: {launched}")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        scene.render()
+    torch.cuda.synchronize()
+    ss4_ms = (time.perf_counter() - t0) / 3 * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    times, scratch = _ssaa_kernel_times(scene, 4)
+    t0 = time.perf_counter()
+    tid_match, frame_match, _ = _check_render(scene, frame, debug=False)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.empty_cache()
+    print(f"[8 ssaa 4] {4 * RES[0]}x{4 * RES[1]} inside: launches "
+          f"{launched}; vs plain path tid {tid_match:.6f}, frame "
+          f"{frame_match:.6f}, stencil equal; {ss4_ms:.2f} ms/frame (host "
+          f"clock, 3 frames), plain path and comparison {plain_ms:.1f} "
+          f"ms; coarse-list "
+          f"scratch B {scratch}; peak device memory of the kernel renders "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    print(f"[8 kernels ss=4] (wrapper ms, alone ms, bound ms, by, MB) "
+          f"{times}", flush=True)
+    scene.supersample = 1
+    scene.camera.set_position(start)
+    print(f"[8 host api] {_host_api_check(tr, scene)}", flush=True)
+
+
 def main():
     import torch
 
@@ -1370,6 +1666,9 @@ def main():
 
     # 7. the debug camera: its clip space, its frustum overlay, the gizmos
     _debug_phase(tr, scene, start, records)
+
+    # 8. supersampling, stats() and the host API
+    _ssaa_phase(tr, scene, start)
 
     unread = [n for n, r in records.items() if not r["launches"]]
     if unread:

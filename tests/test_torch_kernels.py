@@ -802,3 +802,50 @@ def test_shader_render_on_card_matches_cpu(shader):
     assert rc.LAUNCHES["lines"] == (1 if shader == "wireframe" else 0)
     frame_cpu = build_scene(tt, gz_torch, shader=shader, device="cpu").render()
     assert (frame_gpu == frame_cpu).all(-1).mean() >= 0.999
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shader", ["general", "gouraud"])
+def test_ssaa_render_on_card_matches_cpu(card, shader):
+    """Scene(supersample=2) on the card through K1-K4 (K5 for gouraud) at
+    twice the resolution, against the CPU: tid >= 99.9%, stencil equal,
+    frame >= 99.9% (tests/test_torch_ssaa_stats.py holds the CPU frame to
+    the JAX package)."""
+    rc.reset_launches()
+    scene = build_scene(tt, gz_torch, shader=shader, supersample=2)
+    frame = scene.render()
+    torch.cuda.synchronize()
+    path = chip_smoke.PATH_KERNELS["general" if shader == "general"
+                                   else "slim"]
+    assert min(rc.LAUNCHES[k] for k in path) == 1
+    cpu = build_scene(tt, gz_torch, shader=shader, supersample=2,
+                      device="cpu")
+    want = cpu.render()
+    assert frame.shape == want.shape == (*RES, 3)
+    assert tuple(scene.last_tid.shape) == (2 * RES[0], 2 * RES[1])
+    assert (scene.last_tid.cpu() == cpu.last_tid).float().mean() >= 0.999
+    assert torch.equal(scene.last_stencil.cpu(), cpu.last_stencil)
+    assert (frame == want).all(-1).mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_stats_on_card_match_cpu(card):
+    """Scene.stats() on the card against face_statistics on CPU copies of
+    the same packed scene and tid."""
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    scene = build_scene(tt, gz_torch)
+    scene.render()
+    cfg, dyn = scene._prepare()
+    want = pl.face_statistics(cfg, chip_smoke.to_device(dyn, "cpu"),
+                              scene.last_tid.cpu())
+    got = scene.stats()
+    assert [{k: int(v) for k, v in s.items()} for s in want] == \
+        [{k: v for k, v in s.items() if k != "by_error"} for s in got]
+    assert [s["total"] for s in got] == [12, 2]

@@ -3,9 +3,11 @@
 - importing tpu_renderer_torch pulls in neither JAX nor tpu_renderer;
 - Scene renders on CUDA by default, so without CUDA both
   Scene(device="cuda") and Scene() raise, and device="cpu" is an explicit
-  request; features not ported yet (supersampling, ``stats()``, sharded
-  wireframe frames) raise NotImplementedError, also in scenes that carry a
-  debug camera or gizmos;
+  request; the one feature not ported, the sharded wireframe frame (the
+  JAX package has none either), raises NotImplementedError, also in a
+  scene with gizmos; supersampling and ``stats()`` work in scenes with a
+  debug camera or gizmos (tests/test_torch_ssaa_stats.py holds them to the
+  JAX package);
 - the numpy host code (OBJ loader, EdgeTable, gizmos, texture stacks,
   transforms) matches the JAX package's.
 
@@ -37,7 +39,13 @@ def test_import_pulls_in_no_jax():
             "tpu_renderer_torch.ops.pipeline, tpu_renderer_torch.ops.cubemap, "
             "tpu_renderer_torch.ops.overlay, tpu_renderer_torch.ops.lines, "
             "tpu_renderer_torch.parallel.mesh, "
-            "tpu_renderer_torch.parallel.sharded\n"
+            "tpu_renderer_torch.parallel.sharded, "
+            "tpu_renderer_torch.models.face, tpu_renderer_torch.models.native, "
+            "tpu_renderer_torch.utils.image, "
+            "tpu_renderer_torch.utils.objwrite, "
+            "tpu_renderer_torch.utils.profiling, "
+            "tpu_renderer_torch.transformation, "
+            "tpu_renderer_torch.plane_intersection\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'tpu_renderer.')) or m == 'tpu_renderer']\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -70,16 +78,56 @@ def _sharded_wireframe_with_gizmo():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: tt.Scene(device="cpu", debug_camera=tt.Camera((1, 1, 1)),
-                     supersample=2),
-    lambda: tt.Scene(tt.Camera((0, 0, 3), show=True), device="cpu").stats(),
-    lambda: tt.Scene(device="cpu", supersample=2),
-    lambda: tt.Scene(device="cpu").stats(),
     _sharded_wireframe_with_gizmo,
-], ids=["debug_camera", "camera_gizmo", "supersample", "stats", "gizmo"])
+], ids=["gizmo"])
 def test_unported_features_raise(make):
     with pytest.raises(NotImplementedError):
         make()
+
+
+def _small_scene(camera=None, **kw):
+    scene = tt.Scene(camera or tt.Camera((2, 2.5, 4), near=0.01, far=50),
+                     resolution=(24, 32), device="cpu", **kw)
+    scene.add_model(gz_torch.make_cube())
+    scene.add_model(gz_torch.make_floor(2.0, y=-0.6))
+    return scene
+
+
+def _debug_camera_supersample_warns():
+    scene = _small_scene(debug_camera=tt.Camera((1, 1, 1)), supersample=2)
+    with pytest.warns(RuntimeWarning, match="debug-camera"):
+        assert scene.render().shape == (24, 32, 3)
+
+
+def _stats_before_render_raises():
+    with pytest.raises(RuntimeError, match="render"):
+        _small_scene(camera=tt.Camera((0, 0, 3), show=True)).stats()
+
+
+def _supersample_renders_native_shape():
+    scene = _small_scene(supersample=2)
+    assert scene.render().shape == (24, 32, 3)
+    assert tuple(scene.last_tid.shape) == (48, 64)
+
+
+def _stats_after_render():
+    scene = _small_scene()
+    scene.render()
+    stats = scene.stats()
+    assert [s["total"] for s in stats] == [12, 2]
+    assert all(set(s["by_error"]) and isinstance(s["rendered"], int)
+               for s in stats)
+
+
+@pytest.mark.parametrize("check", [
+    _debug_camera_supersample_warns, _stats_before_render_raises,
+    _supersample_renders_native_shape, _stats_after_render,
+], ids=["debug_camera_supersample", "stats_before_render",
+        "supersample_shape", "stats_after_render"])
+def test_ported_features(check):
+    """Supersampling and stats() work; what they cannot do is refused as
+    the JAX package refuses it."""
+    check()
 
 
 def test_obj_loader_and_edge_table_match(tmp_path):

@@ -5,13 +5,16 @@ This package imports torch and numpy, never JAX and never ``tpu_renderer``.
 It renders textured, normal-mapped, shadowed scenes with the general
 Blinn-Phong shader, the flat, gouraud, PBR, wireframe and points shaders,
 over a color or a cubemap skybox (``CubeMap``), with an optional debug
-camera (its clip space and its frustum overlay) and camera/light gizmos.
-On a CUDA device (the
-default) it runs seven hand-written CUDA kernels (``ops/raster_cuda.py``,
-sources in ``csrc/``, built at first use); with ``device="cpu"`` it runs
-their plain PyTorch versions. ``render_frame_sharded`` splits one frame
-over a ``(rows, tris)`` mesh of torch.distributed ranks
-(``make_render_mesh``).
+camera (its clip space and its frustum overlay), camera/light gizmos,
+supersampling (``Scene(supersample=N)``) and per-model statistics
+(``Scene.stats()``). On a CUDA device (the default) it runs seven
+hand-written CUDA kernels (``ops/raster_cuda.py``, sources in ``csrc/``,
+built at first use); with ``device="cpu"`` it runs their plain PyTorch
+versions. ``render_frame_sharded`` splits one frame over a ``(rows,
+tris)`` mesh of torch.distributed ranks (``make_render_mesh``). The host
+side matches the JAX package's too: ``Face``, the native OBJ loader
+(``Model.load_model(use_native=...)``), the reference-style module aliases
+and ``utils`` (frame IO, an OBJ writer, profiling).
 
     import tpu_renderer_torch as tr
     from tpu_renderer_torch.models.gizmos import make_floor
@@ -25,6 +28,9 @@ over a ``(rows, tris)`` mesh of torch.distributed ranks
                      subsystem=tr.SUBSYSTEM.OPENGL)        # on the card
     scene.add_model(floor)
     frame = scene.render()          # (H, W, 3) uint8
+    scene.supersample = 2           # 2048x2048 inside, box-filtered down
+    frame = scene.render()
+    stats = scene.stats()           # per-model face counters
 
 Precision: geometry runs in float32 with TF32 off everywhere — the GPU form
 of the JAX package's ``precision="highest"`` rule (ops/transforms.py:55-62
@@ -36,10 +42,13 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
+import sys as _sys  # noqa: E402
+
 from tpu_renderer_torch import constants  # noqa: E402,F401
 from tpu_renderer_torch.constants import (PROJECTION_TYPE, SUBSYSTEM,  # noqa: E402
                                           SYSTEM)
 from tpu_renderer_torch.models.camera import Camera, Light  # noqa: E402
+from tpu_renderer_torch.models.face import Face  # noqa: E402
 from tpu_renderer_torch.models.model import Model  # noqa: E402
 from tpu_renderer_torch.models.scene import Scene  # noqa: E402
 from tpu_renderer_torch.ops.errors import Errors  # noqa: E402
@@ -55,12 +64,23 @@ from tpu_renderer_torch.parallel.mesh import make_render_mesh  # noqa: E402
 from tpu_renderer_torch.parallel.sharded import (  # noqa: E402
     render_frame_sharded)
 
+# Reference-style module aliases: the reference is imported as
+# ``from transformation import scale`` / ``from obj.lightning import
+# Lightning`` (main.py:6-10); the same paths exist under this package.
+from tpu_renderer_torch.ops import lightning  # noqa: E402,F401
+from tpu_renderer_torch.ops import frustum as plane_intersection  # noqa: E402
+from tpu_renderer_torch.ops import transforms as transformation  # noqa: E402
+
+_sys.modules[__name__ + ".transformation"] = transformation
+_sys.modules[__name__ + ".plane_intersection"] = plane_intersection
+
 __all__ = [
-    "Model", "Camera", "Light", "Scene", "CubeMap", "Lightning", "Errors",
-    "scale", "translation", "rotate", "rotate_xyz",
+    "Model", "Camera", "Light", "Scene", "CubeMap", "Lightning", "Face",
+    "Errors", "scale", "translation", "rotate", "rotate_xyz",
     "SYSTEM", "SUBSYSTEM", "PROJECTION_TYPE", "SHADER_GENERAL", "SHADER_FLAT",
     "SHADER_GOURAUD", "SHADER_PBR", "SHADER_WIREFRAME", "SHADER_POINTS",
-    "constants", "make_render_mesh", "render_frame_sharded",
+    "transformation", "plane_intersection", "constants", "lightning",
+    "make_render_mesh", "render_frame_sharded",
 ]
 
 __version__ = "0.1.0"

@@ -187,3 +187,24 @@ class Light(PositionedObject, _TransformMixin):
         self.linear = linear
         self.quadratic = quadratic
         self._init_transform(**kwargs)
+
+    @staticmethod
+    def reflect(I, N):  # noqa: E741 — reference naming (core.py:493-495)
+        """Unit reflection of the rows of ``I`` about the normals ``N``."""
+        I, N = T._t(I), T._t(N)
+        return T.normalize(I - 2.0 * (N * I).sum(1)[..., None] * N)
+
+    @staticmethod
+    def smoothstep(edge0, edge1, x_array):
+        """Hermite smoothstep (reference core.py:497-515), for spot cones."""
+        x = torch.clamp((T._t(x_array) - edge0) / (edge1 - edge0), 0.0, 1.0)
+        return x * x * (3 - 2 * x)
+
+    def attenuation(self, fragment_position):
+        """1 / (c + d*(l + q*d)) point-light falloff (reference
+        core.py:517-524); fragment_position: (N, 3). Returns (N, 1)."""
+        distance = torch.linalg.vector_norm(
+            T._t(self.position) - T._t(fragment_position), dim=1)
+        denom = self.constant + distance * (self.linear
+                                            + self.quadratic * distance)
+        return (1.0 / denom)[..., None]

@@ -11,7 +11,6 @@ Deviations from the reference (deliberate, SURVEY.md §2 quirks):
 - No mutable ``silhouette`` set. Silhouette extraction is a batched tensor
   computation over the precomputed :class:`EdgeTable` (built once per mesh),
   replacing the per-face Python XOR loop (reference triangular.py:294-302).
-- No per-face ``Face`` views and no native OBJ parser (not ported yet).
 - The ``tangent`` flag for normal maps is an explicit attribute
   (``Model.normal_map_is_tangent``) in addition to the reference's dtype
   metadata trick (core.py:94, read back at core.py:180).
@@ -165,16 +164,38 @@ class Model:
     # ------------------------------------------------------------------ IO
 
     @classmethod
-    def load_model(cls, name, shadowing: bool = True) -> "Model":
+    def load_model(cls, name, shadowing: bool = True,
+                   use_native: Optional[bool] = None) -> "Model":
         """Parse a Wavefront OBJ file (https://paulbourke.net/dataformats/obj/).
 
         Same grammar subset and index conventions as the reference
         (core.py:257-318): ``v`` padded to w=1, ``vt`` padded to 3 components,
         polygons fan-triangulated, the active material's group index appended
         as a 4th column per corner, 1-based indices shifted to 0-based with
-        negative (relative) indices passed through. Pure Python: the JAX
-        package's C++ parser is not part of the port.
+        negative (relative) indices passed through.
+
+        ``use_native``: True parses with the C++ loader (models/native.py)
+        and raises RuntimeError when it does not build, False with the
+        Python parser, None (default) with the C++ loader where it builds
+        and the Python parser elsewhere; both give identical arrays.
         """
+        if use_native is not False:
+            from tpu_renderer_torch.models import native
+
+            parsed = native.load_obj_native(name)
+            if parsed is not None:
+                vertices, uv, normals, faces, mtllib, groups = parsed
+                materials = {"default": Material()}
+                if mtllib:
+                    mtl_path = os.path.join(os.path.dirname(name), mtllib)
+                    if os.path.exists(mtl_path):
+                        materials |= cls.parse_mtl(mtl_path)
+                return cls(vertices, uv, normals, faces, shadowing,
+                           materials=materials, material_group=groups)
+            if use_native:
+                raise RuntimeError("native OBJ loader unavailable: "
+                                   f"{native.build_error()}")
+
         vertices, faces, normals, uv = [], [], [], []
         mtl = "default"
         mtl_group = ["default"]
@@ -329,6 +350,14 @@ class Model:
         return out
 
     # ------------------------------------------------------------ geometry
+
+    @property
+    def faces(self):
+        """Generator of per-triangle :class:`Face` views (reference
+        core.py:253-255). The render path uses :attr:`face_array`."""
+        from tpu_renderer_torch.models.face import Face
+
+        return (Face(self, *face.T) for face in self._faces)
 
     @property
     def face_array(self) -> np.ndarray:

@@ -4,7 +4,8 @@ Counterpart of ``tpu_renderer/models/scene.py`` (reference core.py:558-640)
 on one device: the six shaders (general, flat, gouraud, pbr, wireframe,
 points), optional shadow volumes, a color or cubemap-skybox background, a
 debug camera (its clip space in the rasterizer, and its frustum drawn over
-the frame on the host) and the camera and light gizmos (``show=True``).
+the frame on the host), the camera and light gizmos (``show=True``),
+supersampling (``supersample``) and per-model statistics (``stats()``).
 Fixed reference quirks kept from the JAX package: ``shadows=`` is honored
 and ``Model.shadowing`` gates which models cast shadows; camera/light
 bindings live on the Scene instance; default camera/light are fresh per
@@ -12,12 +13,12 @@ Scene.
 
 ``device`` defaults to ``"cuda"``: a Scene renders on the card unless the
 caller asks for the CPU (``device="cpu"``, the plain versions of the
-kernels). On a host without CUDA, ``Scene()`` raises RuntimeError. Features
-of the JAX package that are not ported yet (supersampling, ``stats()``)
-raise NotImplementedError.
+kernels). On a host without CUDA, ``Scene()`` raises RuntimeError.
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -29,12 +30,17 @@ from tpu_renderer_torch.models.camera import Camera, Light
 from tpu_renderer_torch.models.model import Model
 from tpu_renderer_torch.ops import raster_cuda as rc
 from tpu_renderer_torch.ops import transforms as T
+from tpu_renderer_torch.ops import pipeline as pl
 from tpu_renderer_torch.ops.cubemap import CubeMap
-from tpu_renderer_torch.ops.overlay import draw_view_frustum
+from tpu_renderer_torch.ops.errors import Errors
+from tpu_renderer_torch.ops.overlay import (draw_points, draw_view_frustum,
+                                            draw_wireframe)
 from tpu_renderer_torch.ops.pipeline import (DEBUG_SHADERS, ModelConfig,
                                              SceneConfig, SHADER_GENERAL,
-                                             SHADERS, _span, render_core,
-                                             render_debug_frame, render_frame)
+                                             SHADER_GOURAUD, SHADERS, _span,
+                                             face_statistics, render_core,
+                                             render_debug_frame, render_frame,
+                                             render_ssaa)
 
 __all__ = ["Scene"]
 
@@ -121,8 +127,6 @@ class Scene:
                  device="cuda"):
         if shader not in SHADERS:
             raise ValueError(f"unknown shader {shader!r}; one of {SHADERS}")
-        if int(supersample) != 1:
-            raise NotImplementedError("supersampling is not ported yet")
         if (skymap is not None and not isinstance(skymap, CubeMap)
                 and np.shape(skymap) != (3,)):
             raise ValueError("skymap takes a CubeMap or an RGB color")
@@ -137,6 +141,9 @@ class Scene:
         #: Draw the debug camera's frustum over the frame like the reference
         #: (core.py:638) whenever a debug camera is present.
         self.debug_overlay = True
+        #: Supersampling factor, read at render time: render at ss x the
+        #: resolution, box-filter down before quantization.
+        self.supersample = int(supersample)
         self._packets: Dict[int, dict] = {}
         self.camera = camera if camera is not None else Camera(
             position=(0, 0, 1), center=(0, 0, 0))
@@ -298,12 +305,15 @@ class Scene:
 
     # -------------------------------------------------------------- render
 
-    def _prepare(self):
-        """Pack the scene into (static SceneConfig, dict of tensors)."""
+    def _prepare(self, resolution=None):
+        """Pack the scene into (static SceneConfig, dict of tensors), at
+        ``resolution`` (default the scene's; the SSAA render passes the
+        scaled one). The per-model packets stay cached."""
         packets = [self._pack_model(m) for m in self.models]
         background, bg_color = self._background()
         cfg = SceneConfig(
-            resolution=self.resolution, system=self.system,
+            resolution=tuple(resolution or self.resolution),
+            system=self.system,
             subsystem=self.subsystem, shadows=self.shadows,
             cam_projection_type=self.camera.projection_type,
             backface_culling=self.camera.backface_culling,
@@ -339,7 +349,31 @@ class Scene:
         with both cameras' float64 host matrices, then flip, gamma 0.8 and
         uint8 run in numpy. ``last_zbuf`` is then the z-buffer as the
         overlay left it, a float64 CPU tensor. Wireframe and points draw no
-        overlay, as in the JAX package."""
+        overlay, as in the JAX package.
+
+        With ``supersample`` = ss > 1 (scene.py:797-819 of the JAX package)
+        the frame renders at ss times the resolution and is box-filtered
+        down (``pipeline.render_ssaa``); ``last_*`` then hold the buffers at
+        the scaled size. With the wireframe or points shader, or a debug
+        camera, ss is ignored with a RuntimeWarning and the frame renders at
+        its own size."""
+        ss = self.supersample
+        if ss > 1 and (self.shader in DEBUG_SHADERS
+                       or self.debug_camera is not None):
+            # The debug shaders' splats are exact per pixel, and the overlay
+            # draws on the pre-flip frame at its own size.
+            reason = ("wireframe/points shader" if self.shader in
+                      DEBUG_SHADERS else "debug-camera overlay")
+            warnings.warn(
+                f"supersample={ss} is ignored with a {reason}; rendering at "
+                "native resolution", RuntimeWarning, stacklevel=2)
+        elif ss > 1:
+            h, w = self.resolution
+            cfg, dyn = self._prepare(resolution=(h * ss, w * ss))
+            out, zbuf, tid, stencil = render_ssaa(cfg, dyn, ss)
+            self.last_zbuf, self.last_tid, self.last_stencil = \
+                zbuf, tid, stencil
+            return out.cpu().numpy()
         cfg, dyn = self._prepare()
         if self.shader in DEBUG_SHADERS:
             return self._render_debug_shader(cfg, dyn)
@@ -376,6 +410,81 @@ class Scene:
         self.last_zbuf, self.last_tid, self.last_stencil = zbuf, tid, stencil
         return out.cpu().numpy()
 
+    def _render_debug_shader_host(self, cfg, dyn) -> np.ndarray:
+        """Host-loop wireframe / points shaders (scene.py:900-951 of the
+        JAX package), in float64 numpy: the oracle the device path (K6 and
+        the scatter-max splat) is held to. The gouraud path still resolves
+        the z-buffer through ``render_core``."""
+        _, zbuf, tid, stencil = render_core(
+            dataclasses.replace(cfg, shader=SHADER_GOURAUD), dyn)
+        zb = zbuf.cpu().numpy().astype(np.float64)
+        self.last_zbuf, self.last_tid, self.last_stencil = \
+            torch.from_numpy(zb), tid, stencil
+
+        h, w = self.resolution
+        cam_host = pl._cam_matrices(cfg, dyn["camera"], "cpu")
+        frame = pl._background(cfg, dyn, cam_host, h, w, self.device)
+        frame = frame.cpu().numpy().astype(np.float64)
+
+        mvp = np.asarray(self.camera.MVP, np.float64)
+        vp = np.asarray(self.camera.viewport, np.float64)
+        near, far = self.camera.near, self.camera.far
+        tris, normals = [], []
+        for m in self.models:
+            v = m.vertices.astype(np.float64) @ mvp
+            v = v / v[:, [3]]
+            v = v @ vp
+            # The reference linearizes vertex z before its wireframe and
+            # points shaders run (triangular.py:96, then :269/:277): the z
+            # test compares against the linearized z-buffer.
+            v[:, 2] = (2 * near * far) / (far + near - v[:, 2] * (far - near))
+            fv = m.face_array[:, :, 0]
+            tris.append(v[fv][:, :, :3])
+            world = m.vertices[:, :3].astype(np.float64)
+            n = np.cross(world[fv[:, 1]] - world[fv[:, 0]],
+                         world[fv[:, 2]] - world[fv[:, 0]])
+            norm = np.linalg.norm(n, axis=1, keepdims=True)
+            normals.append(n / np.where(norm == 0, 1, norm))
+        tris = np.concatenate(tris)
+        normals = np.concatenate(normals)
+
+        if self.shader == "wireframe":
+            draw_wireframe(frame, zb, tris)
+        else:
+            draw_points(frame, tris, self.camera.position, normals)
+        return (np.clip(frame[::-1] ** 0.8, 0, 1) * 255).astype(np.uint8)
+
     def stats(self):
-        """Per-model render statistics (scene.py:856 of the JAX package)."""
-        raise NotImplementedError("Scene.stats() is not ported yet")
+        """Per-model render statistics from the last render()
+        (scene.py:856-887 of the JAX package; the reference's per-face
+        Errors printout, core.py:634-636): a list of dicts of ints, each
+        with ``by_error``, the discard counters keyed by :class:`Errors`.
+
+        It packs the scene again and reruns the vertex stage against the
+        cached ``last_tid`` (``pipeline.face_statistics``), at the scene's
+        own resolution also after a supersampled render, whose ``last_tid``
+        has the scaled size, as the JAX package does. A debug helper, not
+        for a render loop. Raises RuntimeError before any render.
+        """
+        if self.last_tid is None:
+            raise RuntimeError("render() must run before stats()")
+        cfg, dyn = self._prepare()
+        raw = face_statistics(cfg, dyn, torch.as_tensor(self.last_tid,
+                                                        device=self.device))
+        if not raw:
+            return []
+        keys = list(raw[0])
+        # One host sync for every counter of every model.
+        values = torch.stack([s[k] for s in raw for k in keys]).tolist()
+        out = []
+        for i in range(len(raw)):
+            d = dict(zip(keys, values[i * len(keys):(i + 1) * len(keys)]))
+            d["by_error"] = {
+                Errors.BACK_FACE_CULLING: d["backface_culled"],
+                Errors.EMPTY_B: d["degenerate"],
+                Errors.WRONG_MIN_MAX: d["offscreen"],
+                # Fragment-level discards collapse in the batched pipeline.
+                Errors.CLIPPED | Errors.EMPTY_Z: d["occluded_or_clipped"],
+            }
+            out.append(d)
+        return out

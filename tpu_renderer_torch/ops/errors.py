@@ -3,8 +3,9 @@
 The reference returns an ``Errors`` flag from each per-face ``rasterize`` call
 and Scene.render tallies them per model (core.py:624-636). In the batched
 pipeline these become boolean masks folded into face validity
-(ops/vertex.gather_faces). The per-model tally (``Scene.stats`` in the JAX
-package) is not ported yet; the enum is kept for API parity.
+(ops/vertex.gather_faces). ``Scene.stats()`` tallies them per model after a
+render (``pipeline.face_statistics``) and keys its ``by_error`` counters by
+these flags.
 """
 from enum import Flag, auto
 

@@ -20,14 +20,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["extract_frustum_planes", "extract_frustum_planes_host",
-           "clip_polygon", "clipping"]
+__all__ = ["normalize_plane", "extract_frustum_planes",
+           "extract_frustum_planes_host", "line_plane_intersection",
+           "is_visible", "clipping", "clip_polygon", "get_parameterized",
+           "LEFT", "RIGHT", "BOTTOM", "TOP", "NEAR", "FAR", "P_MAX"]
+
+# Plane indices (reference plane_intersection.py:10-15).
+LEFT, RIGHT, BOTTOM, TOP, NEAR, FAR = range(6)
+
+#: Vertex capacity of one padded clipped polygon in the JAX package: a
+#: convex quad clipped by six planes has at most 4 + 6 = 10 vertices.
+#: ``clip_polygon`` takes any capacity; the shadow quads use
+#: ``shadow.QUAD_PMAX``.
+P_MAX = 16
 
 
 def _dot4(a, p):
     """Row-wise 4-component dot product in a fixed left-to-right order."""
     return ((a[..., 0] * p[0] + a[..., 1] * p[1]) + a[..., 2] * p[2]) \
         + a[..., 3] * p[3]
+
+
+def normalize_plane(plane):
+    """Plane coefficients scaled to unit norm (plane_intersection.py:
+    17-21)."""
+    plane = torch.as_tensor(plane)
+    return plane / torch.linalg.vector_norm(plane)
 
 
 def extract_frustum_planes(matrix):
@@ -56,6 +74,37 @@ def extract_frustum_planes_host(matrix):
     planes = np.stack([col(3) + col(0), col(3) - col(0), col(3) + col(1),
                        col(3) - col(1), col(3) + col(2), col(3) - col(2)])
     return planes / np.linalg.norm(planes, axis=-1, keepdims=True)
+
+
+def line_plane_intersection(p1, p2, plane):
+    """Intersection of the segment ``p1 -> p2`` with a plane
+    (plane_intersection.py:24-36). Returns (point, valid) instead of None:
+    ``valid`` is False for a parallel segment (|denominator| < 1e-10) or an
+    intersection outside [0, 1]."""
+    p1, p2 = torch.as_tensor(p1), torch.as_tensor(p2)
+    plane = torch.as_tensor(plane, dtype=p1.dtype)
+    direction = p2 - p1
+    denom = plane @ direction
+    parallel = denom.abs() < 1e-10
+    weight = -(plane @ p1) / torch.where(parallel, torch.ones_like(denom),
+                                         denom)
+    valid = (~parallel) & (weight >= 0) & (weight <= 1)
+    return p1 + weight * direction, valid
+
+
+def is_visible(point, plane):
+    """Half-space test (plane_intersection.py:39-40)."""
+    point = torch.as_tensor(point)
+    return torch.as_tensor(plane, dtype=point.dtype) @ point >= 0
+
+
+def get_parameterized(planes):
+    """Print planes as GeoGebra-pasteable equations
+    (plane_intersection.py:89-97)."""
+    for plane in np.asarray(planes):
+        coords = "xyz "
+        eq = " + ".join(f"{coef:.2f}{var}" for coef, var in zip(plane, coords))
+        print(eq.replace("+ -", "- ") + "= 0")
 
 
 def _clip_one_plane(verts, count, plane):

@@ -10,8 +10,13 @@ The frustum is the NDC cube carried to the world by inv(MVP) of the debug
 camera, each face clipped against the main camera's frustum, drawn as red
 lines with the ±1 pixel half blend; while the main camera is outside the
 debug frustum, back faces are dashed (the reference's ``arange // 13 & 1``,
-frustums.py:78-82). ``draw_axis`` needs Pillow, which the card's host
-lacks, and is not ported.
+frustums.py:78-82).
+
+``draw_axis`` draws the world axes with text labels (reference axes.py);
+it imports Pillow when called, so the rest of the module needs no image
+library. ``draw_wireframe`` and ``draw_points`` are the host-loop forms of
+the wireframe and points shaders (reference triangular.py:269-283), the
+oracle of the device path (``Scene._render_debug_shader_host``).
 """
 from __future__ import annotations
 
@@ -20,7 +25,12 @@ import numpy as np
 from tpu_renderer_torch.ops.frustum import clipping
 from tpu_renderer_torch.ops.lines import bresenham_line
 
-__all__ = ["Frustum", "draw_view_frustum"]
+__all__ = ["Frustum", "draw_view_frustum", "draw_axis", "draw_wireframe",
+           "draw_points"]
+
+#: The font of the axis labels, as the reference's axes.py names it; a
+#: host without it draws with Pillow's default font.
+AXIS_FONT = "/usr/share/fonts/truetype/freefont/FreeSans.ttf"
 
 
 class Frustum:
@@ -115,3 +125,102 @@ def draw_view_frustum(frame, camera_m, debug_m, camera_position, near, far,
                 z_buffer[x, ys] = z
                 frame[xs, y] = frame[xs, y] * 0.5 + color / 2
                 frame[x, ys] = frame[x, ys] * 0.5 + color / 2
+
+
+def draw_axis(frame, camera_m, z_buffer, sign, font_path=None):
+    """World ±X/Y/Z axes with coloured lines and text labels (reference
+    axes.py:8-69, off by default there, core.py:639).
+
+    frame: (H, W, 3) in [0, 1]; camera_m: a dict with ``MVP`` and
+    ``viewport``; z_buffer: (H, W), modified in place. Returns the frame in
+    [0, 1], like the reference, which goes through a Pillow image.
+    """
+    from PIL import Image, ImageDraw, ImageFont
+
+    mvp = np.asarray(camera_m["MVP"], np.float64)
+    viewport = np.asarray(camera_m["viewport"], np.float64)
+
+    def transformer(vert):
+        vert = np.asarray(vert, np.float64) @ mvp
+        vert = vert / vert[..., [3]]
+        return vert @ viewport
+
+    axes = {
+        "x": (transformer([[-1, 0, 0, 1], [1, 0, 0, 1]]), (255, 0, 0),
+              transformer([1.05, 0, 0, 1]), transformer([-1.2, 0, 0, 1])),
+        "y": (transformer([[0, -1, 0, 1], [0, 1, 0, 1]]), (0, 255, 0),
+              transformer([0, 1.05, 0, 1]), transformer([0, -1.2, 0, 1])),
+        "z": (transformer([[0, 0, -1, 1], [0, 0, 1, 1]]), (0, 0, 255),
+              transformer([-0.05, 0, 1.05, 1]),
+              transformer([-0.05, 0, -1.2, 1])),
+    }
+
+    image = Image.fromarray((frame * 255).astype(np.uint8))
+    draw = ImageDraw.Draw(image)
+    try:
+        font = ImageFont.truetype(font_path or AXIS_FONT, 20)
+        font = ImageFont.TransposedFont(font, Image.Transpose.FLIP_TOP_BOTTOM)
+    except OSError:
+        font = ImageFont.load_default()
+
+    for name, (_, col, pos_label, neg_label) in axes.items():
+        draw.text((pos_label[0], pos_label[1]), f"+{name.upper()}",
+                  font=font, fill=col)
+        draw.text((neg_label[0], neg_label[1]), f"-{name.upper()}",
+                  font=font, fill=col)
+
+    out = np.array(image)
+    for name, (segment, col, _, _) in axes.items():
+        for yy, xx, zz in bresenham_line(segment[0, :3], segment[1, :3]):
+            for i in range(3):
+                xi = max(0, min(out.shape[0] - 4, int(xx)))
+                yi = max(0, min(out.shape[1] - 4, int(yy)))
+                if (z_buffer[xi + i, yi + i] - 1 / zz) * sign > 0:
+                    out[xi + i, yi + i] = col
+                    z_buffer[xi + i, yi + i] = zz
+    return out / 255
+
+
+def draw_wireframe(frame, z_buffer, screen_faces,
+                   color=(64 / 255, 64 / 255, 128 / 255)):
+    """Wireframe shading (reference triangular.py:269-274): DDA edges whose
+    z, linearized by the caller, is tested against the linearized z-buffer
+    with a strict ``> 0``. frame and z_buffer are modified in place.
+
+    screen_faces: (F, 3, 3) post-viewport vertex xyz per face. The
+    reference writes the colour (64, 64, 128) into its float frame, on a
+    255 scale; here it is scaled to [0, 1].
+    """
+    h, w = z_buffer.shape
+    color = np.asarray(color)
+    for tri in screen_faces:
+        for i in range(3):
+            p1, p2 = tri[i], tri[(i + 1) % 3]
+            for yy, xx, zz in bresenham_line(p1, p2):
+                xi, yi = int(xx), int(yy)
+                if 0 < xi < h - 1 and 0 < yi < w - 1 and \
+                        (z_buffer[xi, yi] - zz) > 0:
+                    frame[xi, yi] = color
+                    z_buffer[xi, yi] = zz
+    return frame
+
+
+def draw_points(frame, screen_faces, camera_position, world_normals):
+    """Vertex-point shading (reference triangular.py:277-283): each edge's
+    endpoints in red and blue, for the faces whose world normal faces the
+    camera direction. frame is modified in place; colours in [0, 1]."""
+    h, w = frame.shape[:2]
+    cam_dir = -np.asarray(camera_position, np.float64)
+    n = np.linalg.norm(cam_dir)
+    cam_dir = cam_dir / (n if n else 1.0)
+    for tri, normal in zip(screen_faces, world_normals):
+        if normal @ cam_dir <= 0:
+            continue
+        pts = tri.astype(np.int32)
+        for i in range(3):
+            p1, p2 = pts[i], pts[(i + 1) % 3]
+            if 0 <= p1[1] < h and 0 <= p1[0] < w:
+                frame[p1[1], p1[0]] = (1.0, 0, 0)
+            if 0 <= p2[1] < h and 0 <= p2[0] < w:
+                frame[p2[1], p2[0]] = (0, 0, 1.0)
+    return frame

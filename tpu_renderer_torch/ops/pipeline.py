@@ -15,6 +15,11 @@ branches of ``tpu_renderer/ops/pipeline.py``.
        (a color, or the cubemap skybox)             _background, ops/cubemap.py
     -> vertical flip, gamma 0.8, uint8              render_frame
 
+Supersampling (``render_ssaa``) runs the same path on a ``SceneConfig``
+whose resolution is already ss-scaled, then box-filters the float frame
+down by ss before the flip. ``face_statistics`` counts, per model, how each
+face fared in the last frame's winner ids (``Scene.stats``).
+
 The wireframe and points shaders (``render_debug_frame``) run the gouraud
 path for the z-buffer, re-run the vertex stage over every face, and draw
 edges through K6 (``raster_cuda.lines``) or vertex splats through a
@@ -56,13 +61,15 @@ from tpu_renderer_torch.ops import shading as sh
 from tpu_renderer_torch.ops.cubemap import fill_frame_from_skybox
 from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.shadow import _cross, prepare_quads
-from tpu_renderer_torch.ops.transforms import normalize
+from tpu_renderer_torch.ops.transforms import bound_box_batch, normalize
 from tpu_renderer_torch.ops.vertex import (_rowvec, gather_faces,
+                                           screen_normal_z,
                                            transform_vertices)
 from tpu_renderer_torch.parallel.mesh import all_reduce
 
 __all__ = ["SceneConfig", "ModelConfig", "render_core", "render_frame",
-           "render_debug_frame", "texture_tables", "SHADER_GENERAL",
+           "render_ssaa", "render_debug_frame", "face_statistics",
+           "texture_tables", "SHADER_GENERAL",
            "SHADER_FLAT", "SHADER_GOURAUD", "SHADER_PBR", "SHADER_WIREFRAME",
            "SHADER_POINTS", "SHADERS", "SLIM_SHADERS", "DEBUG_SHADERS"]
 
@@ -445,6 +452,74 @@ def render_frame(cfg: SceneConfig, dyn, ops=rc.KERNELS):
     """One frame: (frame_u8 (H, W, 3), zbuf, tid, stencil)."""
     frame, zbuf, tid, stencil = render_core(cfg, dyn, ops)
     return _quantize(frame), zbuf, tid, stencil
+
+
+def render_ssaa(cfg: SceneConfig, dyn, ss, ops=rc.KERNELS):
+    """A supersampled frame (pipeline.render_ssaa_jit :1049 of the JAX
+    package): ``cfg.resolution`` is already ss-scaled; the float frame is
+    box-filtered down by ``ss`` before the flip, gamma and quantize.
+    Returns (frame_u8 (H/ss, W/ss, 3), zbuf, tid, stencil), the buffers at
+    the scaled size."""
+    frame, zbuf, tid, stencil = render_core(cfg, dyn, ops)
+    with _span("ssaa"):
+        hh, ww = frame.shape[0], frame.shape[1]
+        frame = frame.reshape(hh // ss, ss, ww // ss, ss, 3).mean(dim=(1, 3))
+    return _quantize(frame), zbuf, tid, stencil
+
+
+def face_statistics(cfg: SceneConfig, dyn, tid):
+    """Per-model face counters from a frame's winner ids ``tid``
+    (pipeline.face_statistics :1060 of the JAX package; the reference's
+    per-face Errors tally, core.py:624-636), on the tensors' device.
+
+    Returns a list, one dict per model, of 0-d int64 tensors: total,
+    rendered (faces that own at least one pixel of ``tid``),
+    backface_culled, degenerate (EMPTY_B), offscreen (WRONG_MIN_MAX, an
+    empty clamped bbox) and occluded_or_clipped (the rest: the reference's
+    fragment-level CLIPPED and EMPTY_Z outcomes collapse here). The vertex
+    stage runs again at ``cfg.resolution``.
+    """
+    height, width = cfg.resolution
+    device = tid.device
+    cam_m = _cam_matrices(cfg, dyn["camera"], device)
+    # Pixels per global face id; background pixels (tid < 0) go to a spare
+    # slot g_total and add 0, as JAX's clip(tid, -1) with mode="drop" does.
+    g_total = sum(md["vid"].shape[0] for md in dyn["models"])
+    ids = tid.reshape(-1).long()
+    fg = ids >= 0
+    owned = torch.zeros(g_total + 1, dtype=torch.int32, device=device)
+    owned.index_add_(0, torch.where(fg, ids, g_total), fg.to(torch.int32))
+
+    stats = []
+    offset = 0
+    for md in dyn["models"]:
+        va = transform_vertices(md["verts"], cam_m["MVP"], cam_m["viewport"],
+                                dyn["camera"]["near"], dyn["camera"]["far"])
+        vid = md["vid"].long()
+        n = vid.shape[0]
+        screen = va["screen"][vid]
+        sx, sy, sz = screen[..., 0], screen[..., 1], screen[..., 2]
+        real = md["pad_valid"]
+        culled = (real & (screen_normal_z(sx, sy, sz) < 0)
+                  if cfg.backface_culling else torch.zeros_like(real))
+        v0x, v0y = sx[:, 1] - sx[:, 0], sy[:, 1] - sy[:, 0]
+        v1x, v1y = sx[:, 2] - sx[:, 0], sy[:, 2] - sy[:, 0]
+        d01 = v0x * v1x + v0y * v1y
+        denom = ((v0x * v0x + v0y * v0y) * (v1x * v1x + v1y * v1y)
+                 - d01 * d01)
+        degenerate = real & ~culled & (denom == 0)
+        _, box_valid = bound_box_batch(torch.stack([sx, sy], -1), height,
+                                       width)
+        offscreen = real & ~culled & ~degenerate & ~box_valid
+        rendered = real & (owned[offset:offset + n] > 0)
+        leftover = real & ~culled & ~degenerate & ~offscreen & ~rendered
+        stats.append({"total": real.sum(), "rendered": rendered.sum(),
+                      "backface_culled": culled.sum(),
+                      "degenerate": degenerate.sum(),
+                      "offscreen": offscreen.sum(),
+                      "occluded_or_clipped": leftover.sum()})
+        offset += n
+    return stats
 
 
 def render_debug_frame(cfg: SceneConfig, dyn, kind, ops=rc.KERNELS):

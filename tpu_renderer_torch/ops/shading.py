@@ -8,6 +8,11 @@ included: ambient-only shadowed result ``clip(0.05, 1)``
 spot cone smoothstep cos20°→cos10° (:157-161), the specular factor arriving
 pre-scaled by 255 (core.py:145-153), and flat/gouraud writing a 0..255-scale
 intensity into the float frame (:174-182).
+
+``pixel_barycentric``, ``sample_texture`` and ``tangent_basis_normal`` are
+the per-pixel forms of the reference's Face fetches (core.py:138-224):
+the render path computes them inside K2 and K3, these plain functions
+remain as API surface and for checks.
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ import torch
 from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.transforms import normalize
 
-__all__ = ["smoothstep", "mix", "shade_general", "shade_flat",
+__all__ = ["pixel_barycentric", "sample_texture", "tangent_basis_normal",
+           "smoothstep", "mix", "shade_general", "shade_flat",
            "shade_gouraud", "shade_gouraud_n", "fresnel_schlick",
            "distribution_ggx", "geometry_schlick_ggx", "geometry_smith",
            "shade_pbr"]
@@ -36,6 +42,81 @@ def smoothstep(edge0, edge1, x):
 def mix(x, y, a):
     """Linear interpolation (reference triangular.py:391-395)."""
     return x * (1 - a) + y * a
+
+
+def pixel_barycentric(aff, inv_w, row0=0):
+    """Screen and perspective-corrected barycentrics for every pixel.
+
+    aff: (H, W, 9) the winning face's affine barycentric coefficients per
+    pixel (vertex.gather_faces); inv_w: (H, W, 3); ``row0`` offsets the
+    rows into the whole frame. Returns (bar, pb), both (H, W, 3): ``pb`` is
+    the reference's ``screen_perspective`` (core.py:155-160), bar * (1/w)
+    renormalized.
+    """
+    H, W = aff.shape[:2]
+    cols = torch.arange(W, dtype=torch.float32, device=aff.device)[None, :]
+    rows = torch.arange(H, dtype=torch.float32,
+                        device=aff.device)[:, None] + row0
+    v = aff[..., 0] * cols + aff[..., 1] * rows + aff[..., 2]
+    w = aff[..., 3] * cols + aff[..., 4] * rows + aff[..., 5]
+    bar = torch.stack([1.0 - v - w, v, w], dim=-1)
+    scaled = bar * inv_w
+    return bar, scaled / scaled.sum(-1, keepdim=True)
+
+
+def sample_texture(texture, pb, uv):
+    """Nearest-texel fetch with the reference's UV mapping (get_UV,
+    core.py:138-143): the column from the interpolated u, the row from 1 −
+    the interpolated v, each clipped at max=1 only, truncated, and wrapped
+    like numpy's negative indices.
+
+    texture: (TH, TW, C); pb: (H, W, 3) perspective-corrected barycentrics;
+    uv: (H, W, 3, 2) per-corner (u, v). Returns (H, W, C).
+    """
+    from tpu_renderer_torch.ops.raster_cuda import _wrap_clamped
+
+    th, tw = texture.shape[0], texture.shape[1]
+    iu = (pb * uv[..., 0]).sum(-1)
+    iv = (pb * uv[..., 1]).sum(-1)
+    col = _wrap_clamped(torch.clamp(iu, max=1.0) * (tw - 1), float(tw))
+    row = _wrap_clamped((1.0 - torch.clamp(iv, max=1.0)) * (th - 1),
+                        float(th))
+    return texture[row, col]
+
+
+def _inv3x3(m):
+    """Batched closed-form 3x3 inverse by the adjugate; m: (..., 3, 3)."""
+    r0, r1, r2 = m[..., 0, :], m[..., 1, :], m[..., 2, :]
+    c0 = torch.linalg.cross(r1, r2)
+    c1 = torch.linalg.cross(r2, r0)
+    c2 = torch.linalg.cross(r0, r1)
+    det = (r0 * c0).sum(-1, keepdim=True)[..., None]
+    return torch.stack([c0, c1, c2], dim=-1) / det
+
+
+def tangent_basis_normal(sampled, pb, world, uv, normals):
+    """World-space normal from a tangent-space normal-map sample, by the
+    per-pixel TBN of Face.tangent_ (core.py:191-224): solve A @ [T B] =
+    [du dv] with A's rows (b − a, c − a, n), then rotate the sample by the
+    (T, B, n) basis.
+
+    sampled: (H, W, 3) in [-1, 1]; pb: (H, W, 3); world: (H, W, 3, 3)
+    triangle world xyz; uv: (H, W, 3, 2); normals: (H, W, 3, 3) vertex
+    normals.
+    """
+    n = normalize(torch.einsum("...k,...kc->...c", pb, normals))
+    a = world[..., 0, :]
+    A = torch.stack([world[..., 1, :] - a, world[..., 2, :] - a, n], dim=-2)
+    AI = _inv3x3(A)
+    zero = torch.zeros_like(uv[..., 0, 0])
+    du = torch.stack([uv[..., 1, 0] - uv[..., 0, 0],
+                      uv[..., 2, 0] - uv[..., 0, 0], zero], dim=-1)
+    dv = torch.stack([uv[..., 1, 1] - uv[..., 0, 1],
+                      uv[..., 2, 1] - uv[..., 0, 1], zero], dim=-1)
+    tangent = normalize(torch.einsum("...ij,...j->...i", AI, du))
+    bitangent = normalize(torch.einsum("...ij,...j->...i", AI, dv))
+    basis = torch.stack([tangent, bitangent, n], dim=-1)    # columns T, B, n
+    return torch.einsum("...ij,...j->...i", basis, sampled)
 
 
 def shade_general(pix, light, camera_position, *, shadows_mask=None):

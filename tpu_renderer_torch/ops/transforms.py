@@ -17,7 +17,13 @@ Parity map (reference transformation.py):
   look_at_rotate_lh:83  look_at_rotate_rh:92  lookAtLH:52  lookAtRH:101
   ViewPort:123  opengl_orthographicLH:139  opengl_perspectiveLH:157
   opengl_perspectiveRH:168  directx_perspectiveRH:179  directx_perspectiveLH:193
-  perspectives registry:346  bound_box:35  normalize:46
+  FPSViewRH:266  perspective_matrix_3point:294  perspective_matrix_2point:314
+  perspectives registry:346  barycentric:12  bound_box:35  normalize:46
+
+``FPSViewRH`` and the two- and three-point perspectives are functions the
+reference exports but never calls; they are kept as API surface for its
+users and return float32 numpy matrices, built on the host like the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -29,11 +35,13 @@ import torch
 from tpu_renderer_torch.constants import PROJECTION_TYPE, SUBSYSTEM, SYSTEM
 
 __all__ = [
-    "matmul", "normalize", "bound_box_batch", "scale", "translation",
-    "rotate_xyz", "rotate", "looka_at_translate", "look_at_translate",
-    "look_at_rotate_lh", "look_at_rotate_rh", "lookAtLH", "lookAtRH",
-    "ViewPort", "opengl_orthographicLH", "opengl_perspectiveLH",
-    "opengl_perspectiveRH", "directx_perspectiveLH", "directx_perspectiveRH",
+    "matmul", "normalize", "barycentric", "barycentric_batch", "bound_box",
+    "bound_box_batch", "scale", "translation", "rotate_xyz", "rotate",
+    "looka_at_translate", "look_at_translate", "look_at_rotate_lh",
+    "look_at_rotate_rh", "lookAtLH", "lookAtRH", "FPSViewRH", "ViewPort",
+    "opengl_orthographicLH", "opengl_perspectiveLH", "opengl_perspectiveRH",
+    "directx_perspectiveLH", "directx_perspectiveRH",
+    "perspective_matrix_2point", "perspective_matrix_3point",
     "perspectives", "SYSTEM", "SUBSYSTEM",
 ]
 
@@ -67,6 +75,61 @@ def normalize(a, axis=-1, order=2):
     l2 = torch.linalg.vector_norm(a, ord=order, dim=axis, keepdim=True)
     l2 = torch.where(l2 == 0, torch.ones_like(l2), l2)
     return a / l2
+
+
+def barycentric(a, b, c, p):
+    """Barycentric coordinates of points ``p`` (N, 2) in the 2D triangle
+    (a, b, c), by the reference's dot products in float32
+    (transformation.py:12-32). Returns ((N, 3), valid): the reference
+    returns None on a degenerate triangle; here ``valid`` (a 0-d bool) is
+    False and ``bar`` holds inf/NaN."""
+    a, b, c, p = _t(a), _t(b), _t(c), _t(p)
+    v0, v1, v2 = b - a, c - a, p - a
+    d00 = v0 @ v0
+    d01 = v0 @ v1
+    d11 = v1 @ v1
+    d20 = v2 @ v0
+    d21 = v2 @ v1
+    denom = d00 * d11 - d01 * d01
+    inv_denom = 1.0 / denom
+    v = (d11 * d20 - d01 * d21) * inv_denom
+    w = (d00 * d21 - d01 * d20) * inv_denom
+    return torch.stack([1.0 - v - w, v, w], dim=-1), denom != 0
+
+
+def barycentric_batch(tri_xy, p):
+    """Batched ``barycentric``: triangles ``tri_xy`` (..., 3, 2), pixels
+    ``p`` (N, 2). Returns (bar (..., N, 3), valid (...,))."""
+    tri_xy, p = _t(tri_xy), _t(p)
+    a, b, c = tri_xy[..., 0, :], tri_xy[..., 1, :], tri_xy[..., 2, :]
+    v0, v1 = b - a, c - a                          # (..., 2)
+    v2 = p - a[..., None, :]                       # (..., N, 2)
+    d00 = (v0 * v0).sum(-1)
+    d01 = (v0 * v1).sum(-1)
+    d11 = (v1 * v1).sum(-1)
+    d20 = (v2 * v0[..., None, :]).sum(-1)          # (..., N)
+    d21 = (v2 * v1[..., None, :]).sum(-1)
+    denom = d00 * d11 - d01 * d01
+    inv_denom = 1.0 / denom
+    v = (d11[..., None] * d20 - d01[..., None] * d21) * inv_denom[..., None]
+    w = (d00[..., None] * d21 - d01[..., None] * d20) * inv_denom[..., None]
+    return torch.stack([1.0 - v - w, v, w], dim=-1), denom != 0
+
+
+def bound_box(vert_xy, height, width):
+    """Screen-clamped bounding box of the points ``vert_xy`` (K, 2)
+    (reference transformation.py:35-43). Returns (box, valid): box =
+    ceil([min_x, max_x, min_y, max_y]) as int32, x clamped to [0, width]
+    and y to [0, height]; valid is False where the clamped box is empty
+    (the reference returns None there, triangular.py:69-70)."""
+    vert_xy = _t(vert_xy)
+    min_x = torch.clamp(vert_xy[..., 0].min(), min=0)
+    max_x = torch.clamp(vert_xy[..., 0].max(), max=width)
+    min_y = torch.clamp(vert_xy[..., 1].min(), min=0)
+    max_y = torch.clamp(vert_xy[..., 1].max(), max=height)
+    valid = ~((min_x > max_x) | (min_y > max_y))
+    box = torch.ceil(torch.stack([min_x, max_x, min_y, max_y]))
+    return box.to(torch.int32), valid
 
 
 def bound_box_batch(tri_xy, height, width):
@@ -229,6 +292,54 @@ def lookAtRH(eye, center, up=(0, 1, 0)):
     m = look_at_rotate_rh(eye, center, up)
     m[3, :3] = matmul(eye, m[:3, :3])
     return m
+
+
+def FPSViewRH(eye, pitch, yaw):
+    """First-person RH view matrix (reference transformation.py:266-291),
+    float32 numpy; pitch in [-90, 90] and yaw in [0, 360) degrees."""
+    f32 = np.float32
+    eye = np.asarray(eye, f32)
+    pitch = np.deg2rad(f32(pitch))
+    yaw = np.deg2rad(f32(yaw))
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    xaxis = np.array([cy, 0, -sy], f32)
+    yaxis = np.array([sy * sp, cp, cy * sp], f32)
+    zaxis = np.array([sy * cp, -sp, cp * cy], f32)
+    m = np.eye(4, dtype=f32)
+    m[:3, :3] = np.stack([xaxis, yaxis, zaxis], axis=1)
+    m[3, :3] = [-(xaxis @ eye), -(yaxis @ eye), -(zaxis @ eye)]
+    return m
+
+
+def _persp_d(d, aspect_ratio, fov_y):
+    """The projection both multi-point perspectives start from."""
+    f32 = np.float32
+    f = f32(1.0) / np.tan(f32(fov_y) / f32(2.0))
+    d0, d1 = f32(d[0]), f32(d[1])
+    return np.array([[f / f32(aspect_ratio), 0, 0, 0],
+                     [0, f, 0, 0],
+                     [0, 0, (d1 + d0) / (d1 - d0),
+                      f32(-2) * d0 * d1 / (d1 - d0)],
+                     [0, 0, 1, 0]], f32)
+
+
+def perspective_matrix_3point(d, aspect_ratio, fov_y, angles):
+    """Three-point perspective (reference transformation.py:294-311),
+    float32 numpy: the projection conjugated by a rotation about z."""
+    a0 = np.float32(angles[0])
+    c, s = np.cos(a0), np.sin(a0)
+    rot = np.array([[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                   np.float32)
+    return rot @ _persp_d(d, aspect_ratio, fov_y) @ np.linalg.inv(rot)
+
+
+def perspective_matrix_2point(d, aspect_ratio, fov_y, eye_sep):
+    """Two-point perspective (reference transformation.py:314-331), float32
+    numpy: the projection after a horizontal shift of -eye_sep / 2."""
+    trans = np.eye(4, dtype=np.float32)
+    trans[0, 2] = -np.float32(eye_sep) / np.float32(2)
+    return trans @ _persp_d(d, aspect_ratio, fov_y)
 
 
 # --------------------------------------------------------------------------
