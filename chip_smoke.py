@@ -30,10 +30,15 @@ exits non-zero without the final line):
 4. end to end, general shader: the flagship frame — a seeded procedural
    shadow-casting mesh of 4,992 faces with 1024² diffuse and tangent-space
    normal maps over a textured floor, point light, shadow volumes,
-   1024×1024, LH/OpenGL — through ``Scene.render()``; K1-K4's launch counts
-   must rise, and tid, stencil and frame must match the same render through
-   the plain versions; then a camera orbit is timed, and a few frames are
+   1024×1024, LH/OpenGL — through ``Scene.render()``, whose first frame
+   captures the compiled program (ops/compiled.py) and whose second
+   replays it; K1-K4's launch counts must rise in the replay, and tid,
+   stencil and frame must match the same render through the plain
+   versions; then a camera orbit of ``Scene.render()`` frames is timed,
+   and a few frames through the eager entry points (``render_eager``) are
    profiled (device busy share, each stage's host time and device span);
+   every later profile runs eager frames too, so the ``tr.<stage>`` ranges
+   keep their meaning, while every ``Scene.render()`` time is compiled;
 5. the other shaders: the same frame through ``Scene.render()`` under
    flat, gouraud, pbr, wireframe and points, and under the general shader
    over a seeded procedural cubemap skybox (6 × 512² faces); each render
@@ -77,11 +82,30 @@ exits non-zero without the final line):
    SSAA_ORBIT-frame orbit pairs and profiled (``tr.ssaa`` and the kernels
    alone); gouraud at ss = 2 through K5; ss = 4 (4096²) once, against its
    plain path, with the coarse-list scratch and the device's peak memory;
-   K1-K5 timed at 2048² and 4096² beside their bounds (``needed_bytes``);
-   then the flagship mesh written with ``utils.objwrite.write_obj`` and
-   loaded with the native loader (built with g++) and the Python parser,
-   which must agree, and ``utils.profiling.trace`` around two frames, whose
-   ``summarize_device_trace`` must name K1-K4.
+   K1-K5 timed at 2048² and 4096² beside their bounds (``needed_bytes``),
+   each as its wrapper (CUDA events) and as the device time per call of a
+   captured graph of 20 wrapper calls (``_graph_ms``: no profile, whose
+   events went missing there); then the flagship mesh written with
+   ``utils.objwrite.write_obj`` and loaded with the native loader (built
+   with g++) and the Python parser, which must agree, and
+   ``utils.profiling.trace`` around two eager frames, whose
+   ``summarize_device_trace`` must name K1-K4 (and around two compiled
+   frames, whose kernels it lists without a bar);
+9. the compiled frame, for each of ``COMPILED_PATHS`` (general, flat,
+   gouraud, pbr, wireframe, points, general over the cubemap, ss = 2 and
+   the debug camera's ``render_core_jit``): a COMPILED_ORBIT-frame orbit
+   of the camera and the light, then one frame after new vertex positions
+   and a new diffuse map of the same shape, each through the compiled
+   entry point and the eager one, which must be equal in frame, zbuf, tid
+   and stencil; one capture for the key, its ms and its graph pool's
+   bytes; no host sync in a replay (``_assert_no_sync``); a replay's
+   launches, which must be the capture's tally and cover the path's
+   kernels; ms/frame (pack, render, frame to the host) compiled against
+   eager in COMPILED_PAIRS interleaved orbit pairs, host clock; over an
+   untraced stretch of compiled frames, the device's busy share (the
+   graph's replay alone, timed with CUDA events, over the frame's host
+   ms) and the device ms between CUDA events around each call; and the
+   host clock's split of a compiled frame (``_compiled_split``).
 
 Before the last line it prints the card's ``name, power.limit`` line and
 one JSON object with the per-kernel records (each with its launches in
@@ -234,6 +258,17 @@ def orbit_position(t, radius=5.05, height=3.0):
                     dtype=np.float32)
 
 
+def _stencil_constants(dyn, device):
+    """K4's depth constants for the scene's camera, a (3,) float32 tensor
+    on ``device`` (the frame stages them: pipeline.frame_inputs)."""
+    import torch
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    return torch.tensor(rc.stencil_scalars(dyn["camera"]["near"],
+                                           dyn["camera"]["far"]),
+                        device=device)
+
+
 def kernel_inputs(scene):
     """Every kernel's inputs at the scene's shapes, keyed by case (K5 once
     per layout), as (args, kwargs): the stage calls of pipeline.render_core
@@ -253,13 +288,13 @@ def kernel_inputs(scene):
     gb = rc.gbuffer_plain(fdata, adata, tid)
     tables = pl.texture_tables(cfg, dyn, attrs)
     qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
-    zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])
+    zc = _stencil_constants(dyn, scene.device)
     inputs = {
         "visibility": (fdata, flags, h, w, cfg.system),
         "gbuffer": (fdata, adata, tid),
         "sample_textures": (tid, gb[rc.GB_IU].contiguous(),
                             gb[rc.GB_IV].contiguous(), *tables),
-        "stencil": (qdata, qi, zb_sign, cfg.system, *zc),
+        "stencil": (qdata, qi, zb_sign, cfg.system, zc),
     }
     for layout in rc.SLIM_CHANNELS:
         inputs[f"gbuffer_slim_{layout}"] = (
@@ -466,11 +501,11 @@ def needed_bytes(case, args, kw, out):
     if kind == "stencil":
         # The active quads' rows and every quad's flag; zb where the
         # stencil is nonzero (a lower count: there the output certainly
-        # depends on it).
+        # depends on it); the three depth constants.
         qi = args[1]
         active = int((qi[:, 5] > 0).sum())
         return (n + active * (rc.Q_COLS + rc.QI_COLS) * 4 + qi.shape[0] * 4
-                + int((outs[0] != 0).sum()) * 4)
+                + int((outs[0] != 0).sum()) * 4 + 3 * 4)
     if kind == "lines":
         # The active edges' rows and every edge's flag; zbuf on the pixels
         # where some edge's DDA pixel lands.
@@ -578,7 +613,7 @@ _WRAPPER_KERNELS = {"visibility": ("coarse_bins", "visibility"),
                     "sample_textures": ("sample",)}
 
 
-def _alone_ms(fn, wrapper, runs=3, tries=3, strict=True):
+def _alone_ms(fn, wrapper, runs=3, tries=3):
     """Device time per call of the kernels that ``wrapper`` launches through
     ``fn``, without the wrapper's host work (checks, allocation): a
     profile of ``runs`` calls, each in a ``tr.alone`` range, summed over the
@@ -586,8 +621,7 @@ def _alone_ms(fn, wrapper, runs=3, tries=3, strict=True):
     of some events: then the profile is taken again, up to ``tries`` times,
     until every kernel of the wrapper has exactly ``runs`` events. If every
     trace is short, the last one's means stand (each event is one launch);
-    when a kernel has no event or more than ``runs``, it raises, or with
-    ``strict=False`` returns None (not measured)."""
+    when a kernel has no event or more than ``runs``, it raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -611,12 +645,30 @@ def _alone_ms(fn, wrapper, runs=3, tries=3, strict=True):
         if all(len(t) == runs for t in times.values()):
             break
     if not all(0 < len(t) <= runs for t in times.values()):
-        if not strict:
-            return None
         raise RuntimeError(f"{wrapper}: a profile of {runs} calls has "
                            f"{ {k: len(v) for k, v in times.items()} } "
                            f"events of {names}")
     return sum(statistics.mean(t) for t in times.values()) / 1e3
+
+
+def _graph_ms(fn, calls=20, runs=5):
+    """Device ms per call of ``fn`` (a kernel wrapper on fixed inputs):
+    ``calls`` calls captured into one CUDA graph, whose replay is timed
+    with CUDA events (``_time_ms``: median of ``runs`` after a warm-up), so
+    no host work and no profiler is in the time. The capture's launches
+    count nowhere (``raster_cuda.counting_into``)."""
+    import torch
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with rc.counting_into({}), torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = _time_ms(graph.replay, runs) / calls
+    del graph
+    return ms
 
 
 def _same(a, b):
@@ -743,24 +795,44 @@ def _assert_no_sync(fn):
     torch.cuda.synchronize()
 
 
+def render_eager(scene):
+    """Scene.render()'s frame through the eager entry points (stage, then
+    the body op by op, no graph), so that a profile's ``tr.<stage>`` ranges
+    time each stage as the host runs it. Returns the uint8 frame."""
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    debug = scene.shader in pl.DEBUG_SHADERS
+    ss = scene.supersample if not debug and scene.debug_camera is None else 1
+    h, w = scene.resolution
+    cfg, dyn = scene._prepare(resolution=(h * ss, w * ss))
+    if ss > 1:
+        return pl.render_ssaa(cfg, dyn, ss)[0].cpu().numpy()
+    if debug:
+        return pl.render_debug_frame(cfg, dyn, scene.shader)[0].cpu().numpy()
+    if scene.debug_camera is not None and scene.debug_overlay:
+        return scene._render_overlay(cfg, dyn, ops=rc.KERNELS)[0]
+    return pl.render_frame(cfg, dyn)[0].cpu().numpy()
+
+
 def _profile(scene, n_frames=5):
-    """Where a frame's time goes: torch.profiler over a few Scene.render()
-    calls, all per frame in ms. ``busy`` sums the device's kernel and copy
-    events, so ``busy / wall`` is the device's busy share; ``host`` is each
-    pipeline stage's host time and ``device_span`` its span on the device
-    (the tr.* ranges of ops/pipeline.py); ``top`` the largest device
-    events by name."""
+    """Where an eager frame's time goes: torch.profiler over a few
+    ``render_eager`` frames, all per frame in ms. ``busy`` sums the
+    device's kernel and copy events, so ``busy / wall`` is the device's
+    busy share; ``host`` is each pipeline stage's host time and
+    ``device_span`` its span on the device (the tr.* ranges of
+    ops/pipeline.py); ``top`` the largest device events by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    scene.render()
+    render_eager(scene)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_frames):
-            scene.render()
+            render_eager(scene)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_frames
     host, span, device = {}, {}, {}
@@ -1216,10 +1288,11 @@ def _debug_phase(tr, scene, start, records):
           f"{tid_match:.6f}, frame {frame_match:.6f}, stencil equal; "
           f"foreground {fg:.3f}; overlay red px {red}; the debug camera "
           f"moves {moved} of {int(mesh.sum())} mesh px ({share:.4f}); gizmo "
-          f"px (light, camera) {gizmo_px}; ms/frame (host clock, "
-          f"{DEBUG_PAIRS} interleaved {DEBUG_ORBIT}-frame orbit pairs): "
-          f"debug {spread(debug_ms)}, general {spread(general_ms)}, debug - "
-          f"general {spread(diff)}; traced wall {prof['wall']:.2f}, device "
+          f"px (light, camera) {gizmo_px}; Scene.render ms/frame "
+          f"(compiled, host clock, {DEBUG_PAIRS} interleaved "
+          f"{DEBUG_ORBIT}-frame orbit pairs): debug {spread(debug_ms)}, "
+          f"general {spread(general_ms)}, debug - general {spread(diff)}; "
+          f"eager profile: traced wall {prof['wall']:.2f}, device "
           f"busy {prof['busy']:.3f} ms/frame; overlay host "
           f"{prof['host'].get('overlay', 0.0):.3f} ms/frame; leading host "
           f"stages {lead}; kernels {prof['kernels']}", flush=True)
@@ -1250,8 +1323,12 @@ SSAA_CASES = ("visibility", "gbuffer", "sample_textures", "stencil",
 
 def _ssaa_kernel_times(scene, ss):
     """K1-K5 (K5 in the gouraud layout) at the scene's ss-scaled size, on
-    inputs built through the kernels: {case: (wrapper ms, alone ms, bound
-    ms, bound by, MB)}, and K1's and K4's coarse-list scratch bytes."""
+    inputs built through the kernels: {case: (wrapper ms, graph ms, bound
+    ms, bound by, MB)}, and K1's and K4's coarse-list scratch bytes. The
+    graph ms is the kernels' device time per call from a captured graph of
+    wrapper calls (``_graph_ms``): late in the script, profiles of these
+    wrappers at 2048² and 4096² on the H100 came back without some kernel
+    events, which a graph timed with CUDA events does not depend on."""
     import torch
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
@@ -1266,14 +1343,14 @@ def _ssaa_kernel_times(scene, ss):
     adata = rc.pack_face_attrs(attrs)
     gb = rc.gbuffer(fdata, adata, tid)
     qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
-    zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])
+    zc = _stencil_constants(dyn, scene.device)
     inputs = {
         "visibility": (fdata, flags, h, w, cfg.system),
         "gbuffer": (fdata, adata, tid),
         "sample_textures": (tid, gb[rc.GB_IU].contiguous(),
                             gb[rc.GB_IV].contiguous(),
                             *pl.texture_tables(cfg, dyn, attrs)),
-        "stencil": (qdata, qi, zb_sign, cfg.system, *zc),
+        "stencil": (qdata, qi, zb_sign, cfg.system, zc),
         "gbuffer_slim_gouraud": (fdata, rc.pack_slim_attrs(attrs, "gouraud"),
                                  tid, "gouraud"),
     }
@@ -1285,15 +1362,10 @@ def _ssaa_kernel_times(scene, ss):
         got = kern(*args)
         torch.cuda.synchronize()
         ms = _time_ms(lambda: kern(*args))
-        # Late in the script, some profiles of these wrappers at 2048^2
-        # and 4096^2 on the H100 held no kernel event: such a time is not
-        # measured.
-        alone = _alone_ms(lambda: kern(*args), wrapper_of(case), tries=5,
-                          strict=False)
+        graph_ms = _graph_ms(lambda: kern(*args))
         bound_ms, bound_by, nbytes, _ = bound(case, args, {}, got, zb_sign)
-        out[case] = (round(ms, 4),
-                     "not measured" if alone is None else round(alone, 4),
-                     round(bound_ms, 4), bound_by, round(nbytes / 1e6, 2))
+        out[case] = (round(ms, 4), round(graph_ms, 4), round(bound_ms, 4),
+                     bound_by, round(nbytes / 1e6, 2))
         del got
     scratch = {"K1": rc.bin_scratch_bytes(fdata.shape[0], h, w),
                "K4": rc.bin_scratch_bytes(qdata.shape[0], h, w)}
@@ -1362,23 +1434,30 @@ def _host_api_check(tr, scene):
                                      "the Python parser")
         if not np.array_equal(nat.face_array, fa):
             raise AssertionError("written mesh: faces differ from the mesh")
-        with profiling.trace(os.path.join(tmp, "trace")) as log_dir:
-            for _ in range(2):
-                scene.render()
-            torch.cuda.synchronize()
-        summary = profiling.summarize_device_trace(log_dir)
-        named = {m.group(1) for _, name, _ in summary
-                 for m in [_OUR_KERNEL.search(name)] if m}
-        if not {"visibility", "gbuffer", "sample", "stencil"} <= named:
-            raise AssertionError(f"device trace names {sorted(named)}")
-        top = [(round(ms, 4), _OUR_KERNEL.search(name).group(1), src)
-               for ms, name, src in summary if _OUR_KERNEL.search(name)]
+        named = {}
+        for how, render in (("eager", render_eager),
+                            ("compiled", lambda s: s.render())):
+            with profiling.trace(os.path.join(tmp, how)) as log_dir:
+                for _ in range(2):
+                    render(scene)
+                torch.cuda.synchronize()
+            summary = profiling.summarize_device_trace(log_dir)
+            named[how] = sorted({m.group(1) for _, name, _ in summary
+                                 for m in [_OUR_KERNEL.search(name)] if m})
+            if how == "eager":
+                top = [(round(ms, 4), _OUR_KERNEL.search(name).group(1), src)
+                       for ms, name, src in summary
+                       if _OUR_KERNEL.search(name)]
+        if not {"visibility", "gbuffer", "sample",
+                "stencil"} <= set(named["eager"]):
+            raise AssertionError(f"device trace names {named}")
         return (f"native loader {native.LIB_PATH.rsplit(os.sep, 1)[-1]} "
                 f"(g++ build and load {(t1 - t0) * 1e3:.2f} ms) equal to the "
                 f"Python parser ({mesh.num_faces} faces: "
                 f"{(t2 - t1) * 1e3:.2f} against {(t3 - t2) * 1e3:.2f} ms); "
-                f"trace of 2 frames: our kernels (ms, kernel, launching "
-                f"range) {top[:8]}")
+                f"trace of 2 eager frames: our kernels (ms, kernel, "
+                f"launching range) {top[:8]}; our kernels a trace names, by "
+                f"frame kind: {named}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1428,9 +1507,10 @@ def _ssaa_phase(tr, scene, start):
           f"{frame_match:.6f}, stencil equal (plain path and comparison "
           f"{plain_ms:.1f} ms); "
           f"colours {u2} against {u1} at ss=1; "
-          f"ms/frame (host clock, {SSAA_PAIRS} interleaved {SSAA_ORBIT}-frame "
-          f"orbit pairs): ss=2 {spread(ss_ms)}, ss=1 {spread(one_ms)}, "
-          f"ss=2 - ss=1 {spread(diff)}; traced wall {prof['wall']:.2f}, "
+          f"Scene.render ms/frame (compiled, host clock, {SSAA_PAIRS} "
+          f"interleaved {SSAA_ORBIT}-frame orbit pairs): ss=2 "
+          f"{spread(ss_ms)}, ss=1 {spread(one_ms)}, ss=2 - ss=1 "
+          f"{spread(diff)}; eager profile: traced wall {prof['wall']:.2f}, "
           f"device busy {prof['busy']:.3f} ms/frame; ssaa host "
           f"{prof['host'].get('ssaa', 0.0):.3f}, span "
           f"{prof['device_span'].get('ssaa', 0.0):.3f} ms/frame; leading "
@@ -1453,7 +1533,8 @@ def _ssaa_phase(tr, scene, start):
     # profiles below run with the card's memory free.
     torch.cuda.empty_cache()
     times, scratch = _ssaa_kernel_times(scene, 2)
-    print(f"[8 kernels ss=2] (wrapper ms, alone ms, bound ms, by, MB) "
+    print(f"[8 kernels ss=2] (wrapper ms, graph ms (device ms per call, "
+          f"20 calls captured and replayed, CUDA events), bound ms, by, MB) "
           f"{times}; coarse-list scratch B {scratch}", flush=True)
 
     torch.cuda.synchronize()
@@ -1479,16 +1560,214 @@ def _ssaa_phase(tr, scene, start):
     torch.cuda.empty_cache()
     print(f"[8 ssaa 4] {4 * RES[0]}x{4 * RES[1]} inside: launches "
           f"{launched}; vs plain path tid {tid_match:.6f}, frame "
-          f"{frame_match:.6f}, stencil equal; {ss4_ms:.2f} ms/frame (host "
-          f"clock, 3 frames), plain path and comparison {plain_ms:.1f} "
-          f"ms; coarse-list "
-          f"scratch B {scratch}; peak device memory of the kernel renders "
-          f"{peak / 2**30:.2f} GiB", flush=True)
-    print(f"[8 kernels ss=4] (wrapper ms, alone ms, bound ms, by, MB) "
+          f"{frame_match:.6f}, stencil equal; {ss4_ms:.2f} ms/frame "
+          f"(Scene.render, compiled, host clock, 3 frames), plain path and "
+          f"comparison {plain_ms:.1f} ms; coarse-list scratch B {scratch}; "
+          f"peak device memory of the kernel renders (the graph's pool "
+          f"included) {peak / 2**30:.2f} GiB", flush=True)
+    print(f"[8 kernels ss=4] (wrapper ms, graph ms, bound ms, by, MB) "
           f"{times}", flush=True)
     scene.supersample = 1
     scene.camera.set_position(start)
     print(f"[8 host api] {_host_api_check(tr, scene)}", flush=True)
+
+
+#: Phase 9's paths, each with the PATH_KERNELS entry its frame launches:
+#: Scene.render's compiled entry points on the flagship (five shaders,
+#: general over the cubemap, ss = 2, and the debug camera's render_core).
+COMPILED_PATHS = {"general": "general", "flat": "slim", "gouraud": "slim",
+                  "pbr": "slim", "wireframe": "wireframe", "points": "slim",
+                  "cubemap": "general", "ssaa2": "general",
+                  "debug_core": "overlay"}
+#: Frames of phase 9's orbits, and its interleaved (compiled, eager) pairs.
+COMPILED_ORBIT = 10
+COMPILED_PAIRS = 5
+
+
+def light_position(t):
+    """Phase 9's light path: the flagship light's position turned by ``t``
+    about the y axis."""
+    return np.array([5 * np.cos(t), 5.0, 5 * np.sin(t)], dtype=np.float32)
+
+
+def compiled_entries(scene, path, sky, dbg_cam):
+    """Set the flagship ``scene`` up for a phase-9 path. Returns (prepare,
+    compiled, eager): ``prepare()`` packs the scene (at twice its
+    resolution for ss = 2); both entry points take (cfg, dyn) and return
+    the four outputs."""
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    debug = path in pl.DEBUG_SHADERS
+    scene.shader = path if debug or path in pl.SLIM_SHADERS else "general"
+    scene.skybox = sky if path == "cubemap" else None
+    scene.debug_camera = dbg_cam if path == "debug_core" else None
+    ss = 2 if path == "ssaa2" else 1
+    h, w = scene.resolution
+    prepare = lambda: scene._prepare(resolution=(h * ss, w * ss))
+    if ss > 1:
+        return (prepare, lambda c, d: pl.render_ssaa_jit(c, d, ss),
+                lambda c, d: pl.render_ssaa(c, d, ss))
+    if debug:
+        return (prepare, lambda c, d: pl.render_debug_frame_jit(c, d, path),
+                lambda c, d: pl.render_debug_frame(c, d, path))
+    if path == "debug_core":
+        return prepare, pl.render_core_jit, pl.render_core
+    return prepare, pl.render_frame_jit, pl.render_frame
+
+
+def _orbit_frames(scene, prepare, fn, n_frames, events=None):
+    """ms per frame (host clock) of ``n_frames`` frames of phase 9's orbit
+    through ``fn``: the camera and the light move, the scene is packed, the
+    frame is rendered and brought to the host. Given a list ``events``,
+    the CUDA events recorded just before and after each ``fn`` call are
+    appended to it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        t = 2 * np.pi * i / n_frames
+        scene.camera.set_position(orbit_position(t))
+        scene.light.set_position(light_position(t))
+        cfg, dyn = prepare()
+        if events is not None:
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+        out = fn(cfg, dyn)
+        if events is not None:
+            b.record()
+            events.append((a, b))
+        out[0].cpu()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n_frames * 1e3
+
+
+def _compiled_split(scene, prepare, jit, n_frames):
+    """Host ms per compiled frame of phase 9's orbit, step by step: ``pack``
+    (``Scene._prepare``), ``stage`` (``pipeline.frame_inputs``, timed on
+    its own: the part of ``call`` that composes the camera's inputs),
+    ``call`` (the compiled entry point: staging, the copies into the static
+    buffers, the replay's launch, the output clones; it returns before the
+    device is done) and ``to_host`` (the frame to the host, which waits
+    for the device)."""
+    import torch
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    split = dict.fromkeys(("pack", "stage", "call", "to_host"), 0.0)
+    torch.cuda.synchronize()
+    for i in range(n_frames):
+        t = 2 * np.pi * i / n_frames
+        scene.camera.set_position(orbit_position(t))
+        scene.light.set_position(light_position(t))
+        t0 = time.perf_counter()
+        cfg, dyn = prepare()
+        t1 = time.perf_counter()
+        pl.frame_inputs(cfg, dyn)
+        t2 = time.perf_counter()
+        out = jit(cfg, dyn)
+        t3 = time.perf_counter()
+        out[0].cpu()
+        t4 = time.perf_counter()
+        for k, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            split[k] += dt * 1e3 / n_frames
+    return {k: round(v, 3) for k, v in split.items()}
+
+
+def _compiled_phase(tr, scene, start, sky):
+    """Phase 9 (module docstring) on the flagship ``scene``, which it
+    leaves as it found it (general, no skybox, no debug camera, the
+    camera at ``start``)."""
+    import torch
+    from tpu_renderer_torch.ops import compiled
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    spread = lambda xs: (f"median {statistics.median(xs):.3f} "
+                         f"[{min(xs):.3f}, {max(xs):.3f}]")
+    mesh = scene.models[0]
+    mat = mesh.materials["default"]
+    verts0, kd0 = mesh.vertices, mat.map_Kd
+    light0 = scene.light.position.copy()
+    rng = np.random.default_rng(SEED + 9)
+    kd1 = (np.round(rng.random(kd0.shape) * 255) / 255).astype(np.float32)
+    moved = (mesh @ tr.translation([0.05, 0.02, 0.0])).vertices
+    dbg_cam = flagship_debug_camera(tr)
+
+    def assets(vertices, kd):
+        mesh.vertices, mat.map_Kd = vertices, kd
+        mesh.bump_version()
+
+    for path, kernels in COMPILED_PATHS.items():
+        assets(verts0, kd0)
+        prepare, jit, eager = compiled_entries(scene, path, sky, dbg_cam)
+        compiled.clear_compiled()
+        builds = compiled.CACHE.builds
+        for i in range(COMPILED_ORBIT + 1):
+            if i < COMPILED_ORBIT:
+                t = 2 * np.pi * i / COMPILED_ORBIT
+                scene.camera.set_position(orbit_position(t))
+                scene.light.set_position(light_position(t))
+            else:
+                # New vertex positions and a new diffuse map of the same
+                # shape: inputs of the program, not its key.
+                assets(moved, kd1)
+            cfg, dyn = prepare()
+            got = jit(cfg, dyn)
+            want = eager(cfg, dyn)
+            differ = [name for name, a, b in zip(
+                ("frame", "zbuf", "tid", "stencil"), got, want)
+                if not _same(a, b)]
+            if differ:
+                raise AssertionError(f"[9 {path}] frame {i}: the replay "
+                                     f"differs from the eager frame in "
+                                     f"{differ}")
+        prog = compiled.CACHE.last
+        captures = compiled.CACHE.builds - builds
+        if captures != 1 or prog.calls != COMPILED_ORBIT + 1:
+            raise AssertionError(f"[9 {path}]: {captures} captures for "
+                                 f"{prog.calls} frames")
+        _assert_no_sync(lambda: jit(cfg, dyn))
+        rc.reset_launches()
+        jit(cfg, dyn)
+        torch.cuda.synchronize()
+        replayed = {k: n for k, n in rc.LAUNCHES.items() if n}
+        if (replayed != prog.launches
+                or not all(replayed.get(k) for k in PATH_KERNELS[kernels])):
+            raise AssertionError(f"[9 {path}]: a replay launched {replayed}, "
+                                 f"its capture recorded {prog.launches}")
+        assets(verts0, kd0)
+        comp_ms, eager_ms = [], []
+        for _ in range(COMPILED_PAIRS):
+            comp_ms.append(_orbit_frames(scene, prepare, jit, COMPILED_ORBIT))
+            eager_ms.append(_orbit_frames(scene, prepare, eager,
+                                          COMPILED_ORBIT))
+        diff = [c - e for c, e in zip(comp_ms, eager_ms)]
+        events = []
+        wall = _orbit_frames(scene, prepare, jit, 2 * COMPILED_ORBIT, events)
+        bracket = sum(a.elapsed_time(b) for a, b in events) / len(events)
+        replay_ms = _time_ms(prog.graph.replay)
+        split = _compiled_split(scene, prepare, jit, COMPILED_ORBIT)
+        print(f"[9 {path}] {COMPILED_ORBIT}-frame camera and light orbit, "
+              f"then new vertices and a new diffuse map: every replay equal "
+              f"to the eager frame (frame, zbuf, tid, stencil); 1 capture "
+              f"for all {prog.calls} compiled frames of the path, "
+              f"{prog.capture_ms:.1f} ms (warm-up and capture); graph pool {prog.pool_bytes / 2**20:.1f} MiB; "
+              f"no host sync in a replay; launches per replay "
+              f"{prog.launches}; ms/frame (pack, render, frame to the host; "
+              f"host clock; {COMPILED_PAIRS} interleaved {COMPILED_ORBIT}-"
+              f"frame orbit pairs): compiled {spread(comp_ms)}, eager "
+              f"{spread(eager_ms)}, compiled - eager {spread(diff)}; "
+              f"{2 * COMPILED_ORBIT} untraced compiled frames: "
+              f"{wall:.3f} ms/frame; the graph's replay alone "
+              f"{replay_ms:.4f} ms (CUDA events), so the device is busy "
+              f"{replay_ms / wall:.3f} of the frame; {bracket:.3f} ms/frame "
+              f"between CUDA events around each call (an upper bound: it "
+              f"holds the host's staging inside the call too); host split "
+              f"(ms/frame) {split}", flush=True)
+    assets(verts0, kd0)
+    scene.shader, scene.skybox, scene.debug_camera = "general", None, None
+    scene.camera.set_position(start)
+    scene.light.set_position(light0)
+    compiled.clear_compiled()
 
 
 def main():
@@ -1572,7 +1851,9 @@ def main():
           f"{inputs['visibility'][0][0].shape[0]}", flush=True)
     del inputs
 
-    # 4. end to end through Scene.render()
+    # 4. end to end through Scene.render(): the first frame captures the
+    # general program, the second replays it
+    scene.render()
     rc.reset_launches()
     frame = scene.render()
     torch.cuda.synchronize()
@@ -1588,13 +1869,15 @@ def main():
     n_frames = 20
     dt = _orbit_ms(scene, n_frames) / 1e3
     print(f"[4 e2e] {RES[0]}x{RES[1]}, {sum(m.num_faces for m in scene.models)}"
-          f" faces: launches {launches}; vs plain path tid {tid_match:.6f}, "
-          f"frame {frame_match:.6f}, stencil equal; foreground {fg:.3f}, "
-          f"shadowed px {shadowed}; orbit {dt * 1e3:.2f} ms/frame = "
-          f"{1.0 / dt:.2f} fps (Scene.render, host clock, {n_frames} frames)",
+          f" faces: launches of one replay {launches}; vs plain path tid "
+          f"{tid_match:.6f}, frame {frame_match:.6f}, stencil equal; "
+          f"foreground {fg:.3f}, shadowed px {shadowed}; orbit "
+          f"{dt * 1e3:.2f} ms/frame = {1.0 / dt:.2f} fps (Scene.render, a "
+          f"replayed graph per frame, host clock, {n_frames} frames)",
           flush=True)
 
-    print(f"[4 profile] {json.dumps(_profile(scene))}", flush=True)
+    print(f"[4 profile, eager entry points] {json.dumps(_profile(scene))}",
+          flush=True)
 
     # 5. the other shaders and the cubemap background through Scene.render()
     sky = procedural_cubemap(tr)
@@ -1652,13 +1935,13 @@ def main():
                if shader == "wireframe" else "")
         print(f"[5 {shader}] launches {launched}; vs plain path tid "
               f"{tid_match:.6f}, frame {frame_match:.6f}, stencil equal; "
-              f"foreground {fg:.3f}{extra}; ms/frame (host clock, {PAIRS} "
-              f"interleaved {ORBIT}-frame orbit pairs): {shader} "
-              f"{spread(variant_ms)}, general {spread(general_ms)}, "
-              f"{shader} - general {spread(diff)}; traced wall "
-              f"{prof['wall']:.2f}, device busy {prof['busy']:.3f} ms/frame;"
-              f" leading host stages {lead}; kernels {prof['kernels']}"
-              f"{own}", flush=True)
+              f"foreground {fg:.3f}{extra}; Scene.render ms/frame "
+              f"(compiled, host clock, {PAIRS} interleaved {ORBIT}-frame "
+              f"orbit pairs): {shader} {spread(variant_ms)}, general "
+              f"{spread(general_ms)}, {shader} - general {spread(diff)}; "
+              f"eager profile: traced wall {prof['wall']:.2f}, device busy "
+              f"{prof['busy']:.3f} ms/frame; leading host stages {lead}; "
+              f"kernels {prof['kernels']}{own}", flush=True)
 
     # 6. sharded frames on meshes of ranks that share the card
     scene.skybox = None
@@ -1669,6 +1952,9 @@ def main():
 
     # 8. supersampling, stats() and the host API
     _ssaa_phase(tr, scene, start)
+
+    # 9. the compiled frame: each path's program replayed against eager
+    _compiled_phase(tr, scene, start, sky)
 
     unread = [n for n, r in records.items() if not r["launches"]]
     if unread:

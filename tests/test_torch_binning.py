@@ -56,9 +56,10 @@ def scene_inputs():
     fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
     zb, _ = rc.visibility_plain(fdata, flags, h, w, cfg.system)
     qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
-    zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])
+    zc = torch.tensor(rc.stencil_scalars(dyn["camera"]["near"],
+                                         dyn["camera"]["far"]))
     return {"faces": (fdata, flags, h, w, cfg.system),
-            "quads": (qdata, qi, zb, cfg.system, *zc)}
+            "quads": (qdata, qi, zb, cfg.system, zc)}
 
 
 # ------------------------------------------------------------- K1
@@ -276,7 +277,7 @@ def _inside(qdata, rows, cols):
 
 def _quad_cases(scene_inputs, case):
     if case == "scene":
-        qdata, qi, zb, sign, *zc = scene_inputs["quads"]
+        qdata, qi, zb, sign, zc = scene_inputs["quads"]
         return qdata, qi, zb, sign, zc, 0
     if case == "random":
         rng = np.random.default_rng(11)
@@ -284,9 +285,10 @@ def _quad_cases(scene_inputs, case):
                                  corners=[(15, 15), (16, 16), (47, 31)])
         zb = torch.from_numpy(rng.uniform(0.1, 50, (48, 96)).astype(
             np.float32))
-        return qdata, qi, zb, 1, rc.stencil_scalars(0.1, 50.0), 0
+        zc = torch.tensor(rc.stencil_scalars(0.1, 50.0))
+        return qdata, qi, zb, 1, zc, 0
     row0 = 40 if case == "long-row0" else 0
-    qdata, qi, zb, sign, *zc = long_quad_list(13, row0)
+    qdata, qi, zb, sign, zc = long_quad_list(13, row0)
     return qdata, qi, zb, sign, zc, row0
 
 
@@ -373,7 +375,7 @@ def staged_stencil(qdata, qi, zb, sign, nf2, fpn, fmn, row0=0):
 def test_staged_design_equals_stencil_plain(scene_inputs, case):
     qdata, qi, zb, sign, zc, row0 = _quad_cases(scene_inputs, case)
     got = staged_stencil(qdata, qi, zb, sign, *zc, row0=row0)
-    want = rc.stencil_plain(qdata, qi, zb, sign, *zc, row0=row0)
+    want = rc.stencil_plain(qdata, qi, zb, sign, zc, row0=row0)
     assert torch.equal(got, want)
     assert (want != 0).any()
 

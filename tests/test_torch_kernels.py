@@ -28,7 +28,12 @@ This file imports no JAX, so it also runs on the card's host:
   non-finite edges, endpoints one ulp from integers, depths equal to the
   z-buffer, many edges through one tile); on the card, the coarse lists of
   K1, K4 and K7 (csrc/bins.cu) equal ``coarse_bins_plain``, and the
-  wrappers of K1, K4, K6 and K7 never synchronise with the host.
+  wrappers of K1, K4, K6 and K7 never synchronise with the host;
+- the compiled frame on the card (``PATHS``, ``path_scene``; the CPU side
+  is test_torch_compiled.py): over an orbit every replay equals the eager
+  frame in all four outputs, with one capture, each replay adding the
+  launches its capture recorded; a replay never synchronises; K4 reads its
+  depth constants through its pointer at every replay of a captured graph.
 
 ``build_scene`` is the shared procedural test scene: test_torch_slice.py
 and test_torch_modules.py build the same scene in the JAX package.
@@ -92,6 +97,67 @@ def build_scene(pkg, gizmos, resolution=RES, **scene_kw):
     scene.add_model(cube)
     scene.add_model(floor)
     return scene
+
+
+#: The compiled frame's paths (pipeline.*_jit): five shaders, general over
+#: a cubemap, ss = 2, and the debug camera's render_core.
+PATHS = tuple(chip_smoke.COMPILED_PATHS)
+SIDES = ("left", "right", "top", "bottom", "front", "back")
+
+
+def sky_faces(seed=0, t=16):
+    """Seeded 8-bit-quantized (t, t, 3) cubemap faces."""
+    rng = np.random.default_rng(seed)
+    return {s: (np.round(rng.random((t, t, 3)) * 255) / 255).astype(np.float32)
+            for s in SIDES}
+
+
+def path_scene(pkg, gizmos, path, skymap=None, **kw):
+    """build_scene set up for one compiled path in either package: its
+    shader, the cubemap ``skymap`` (the port's CubeMap of sky_faces() by
+    default) for "cubemap", a debug camera (DEBUG_CAM) for "debug_core"."""
+    if path in ("flat", "gouraud", "pbr", "wireframe", "points"):
+        kw["shader"] = path
+    if path == "cubemap":
+        kw["skymap"] = skymap or tt.CubeMap(**sky_faces())
+    if path == "debug_core":
+        kw["debug_camera"] = pkg.Camera(**DEBUG_CAM)
+    return build_scene(pkg, gizmos, **kw)
+
+
+def prepared(scene, path):
+    """(cfg, dyn) of ``scene`` for ``path``: ss = 2 packs at twice the
+    scene's resolution."""
+    if path == "ssaa2":
+        h, w = scene.resolution
+        return scene._prepare(resolution=(2 * h, 2 * w))
+    return scene._prepare()
+
+
+def eager_outputs(cfg, dyn, path):
+    """A path's four outputs through the eager entry points."""
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    if path == "ssaa2":
+        return pl.render_ssaa(cfg, dyn, 2)
+    if path in ("wireframe", "points"):
+        return pl.render_debug_frame(cfg, dyn, path)
+    if path == "debug_core":
+        return pl.render_core(cfg, dyn)
+    return pl.render_frame(cfg, dyn)
+
+
+def jit_outputs(cfg, dyn, path):
+    """A path's four outputs through the compiled entry points."""
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    if path == "ssaa2":
+        return pl.render_ssaa_jit(cfg, dyn, 2)
+    if path in ("wireframe", "points"):
+        return pl.render_debug_frame_jit(cfg, dyn, path)
+    if path == "debug_core":
+        return pl.render_core_jit(cfg, dyn)
+    return pl.render_frame_jit(cfg, dyn)
 
 
 # ------------------------------------------------------------- adversarial
@@ -284,7 +350,8 @@ def long_quad_list(seed=0, row0=0):
     over the frame, edges through the crowded tile's and its neighbours'
     corner pixel centres; the tile left of the crowded one is all
     background, every other tile holds geometry at seeded depths and some
-    background pixels. Returns (qdata, qi, zb_sign, sign, nf2, fpn, fmn)."""
+    background pixels. Returns (qdata, qi, zb_sign, sign, zc), zc the
+    (3,) float32 depth constants (nf2, fpn, fmn)."""
     rng = np.random.default_rng(seed)
     h, w = ADV_RES
     lo, hi = CROWDED
@@ -299,7 +366,7 @@ def long_quad_list(seed=0, row0=0):
     zb[rng.random((h, w)) < 0.1] = np.inf
     zb[lo:hi, 0:lo] = np.inf
     return (qdata, qi, torch.from_numpy(zb.astype(np.float32)), 1,
-            *rc.stencil_scalars(0.1, 50.0))
+            torch.tensor(rc.stencil_scalars(0.1, 50.0)))
 
 
 #: The depth of the adversarial z-buffer's band where some edges lie at
@@ -501,14 +568,15 @@ def stage_inputs():
     adata = rc.pack_face_attrs(attrs)
     gb = rc.gbuffer_plain(fdata, adata, tid)
     qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
-    zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])
+    zc = torch.tensor(rc.stencil_scalars(dyn["camera"]["near"],
+                                         dyn["camera"]["far"]))
     inputs = {
         "visibility": (fdata, flags, h, w, cfg.system),
         "gbuffer": (fdata, adata, tid),
         "sample_textures": (tid, gb[rc.GB_IU].contiguous(),
                             gb[rc.GB_IV].contiguous(),
                             *pl.texture_tables(cfg, dyn, attrs)),
-        "stencil": (qdata, qi, zb, cfg.system, *zc),
+        "stencil": (qdata, qi, zb, cfg.system, zc),
         "lines": pl._wireframe_lines(
             *pl._debug_vertices(dyn, cam_m)[:3],
             torch.cat([md["pad_valid"] for md in dyn["models"]]),
@@ -522,7 +590,7 @@ def stage_inputs():
     for case, args_kw in shard.items():
         inputs[SHARD_CASES[case]] = args_kw
     (_, _, zb_rows, _), kw = shard["tidpass"]
-    inputs["stencil-row0"] = ((qdata, qi, zb_rows, cfg.system, *zc),
+    inputs["stencil-row0"] = ((qdata, qi, zb_rows, cfg.system, zc),
                               {"row0": kw["row0"]})
     inputs["visibility-long"] = ((*long_face_list(1), -1), {})
     inputs["visibility_z-long-row0"] = (
@@ -791,15 +859,20 @@ def test_render_on_card_matches_cpu():
 @pytest.mark.parametrize("shader", ["flat", "gouraud", "pbr", "wireframe",
                                     "points"])
 def test_shader_render_on_card_matches_cpu(shader):
-    """Every shader on the card (Scene's default device) against the CPU."""
+    """Every shader on the card (Scene's default device) against the CPU.
+    A first frame of its key launches each kernel twice: once in the
+    program's warm-up, once in its first replay."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    from tpu_renderer_torch.ops import compiled
+
+    compiled.clear_compiled()
     rc.reset_launches()
     scene = build_scene(tt, gz_torch, shader=shader)
     assert scene.device.type == "cuda"
     frame_gpu = scene.render()
-    assert rc.LAUNCHES["gbuffer_slim"] == 1
-    assert rc.LAUNCHES["lines"] == (1 if shader == "wireframe" else 0)
+    assert rc.LAUNCHES["gbuffer_slim"] == 2
+    assert rc.LAUNCHES["lines"] == (2 if shader == "wireframe" else 0)
     frame_cpu = build_scene(tt, gz_torch, shader=shader, device="cpu").render()
     assert (frame_gpu == frame_cpu).all(-1).mean() >= 0.999
 
@@ -816,14 +889,18 @@ def test_ssaa_render_on_card_matches_cpu(card, shader):
     """Scene(supersample=2) on the card through K1-K4 (K5 for gouraud) at
     twice the resolution, against the CPU: tid >= 99.9%, stencil equal,
     frame >= 99.9% (tests/test_torch_ssaa_stats.py holds the CPU frame to
-    the JAX package)."""
+    the JAX package). The first frame of its key launches each kernel in
+    the warm-up and in the first replay."""
+    from tpu_renderer_torch.ops import compiled
+
+    compiled.clear_compiled()
     rc.reset_launches()
     scene = build_scene(tt, gz_torch, shader=shader, supersample=2)
     frame = scene.render()
     torch.cuda.synchronize()
     path = chip_smoke.PATH_KERNELS["general" if shader == "general"
                                    else "slim"]
-    assert min(rc.LAUNCHES[k] for k in path) == 1
+    assert min(rc.LAUNCHES[k] for k in path) == 2
     cpu = build_scene(tt, gz_torch, shader=shader, supersample=2,
                       device="cpu")
     want = cpu.render()
@@ -849,3 +926,74 @@ def test_stats_on_card_match_cpu(card):
     assert [{k: int(v) for k, v in s.items()} for s in want] == \
         [{k: v for k, v in s.items() if k != "by_error"} for s in got]
     assert [s["total"] for s in got] == [12, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", PATHS)
+def test_replay_equals_eager_on_card(card, path):
+    """A compiled path on the card over 3 frames of a camera and light
+    orbit: one capture; each frame equals the eager frame of the same
+    inputs in all four outputs (equal values, NaN where NaN); the capture
+    recorded one launch of each kernel of the path, and every replay adds
+    exactly those to LAUNCHES."""
+    from tpu_renderer_torch.ops import compiled
+
+    compiled.clear_compiled()
+    builds = compiled.CACHE.builds
+    scene = path_scene(tt, gz_torch, path)
+    kernels = chip_smoke.PATH_KERNELS[chip_smoke.COMPILED_PATHS[path]]
+    want_launches = {k: 1 for k in kernels}
+    for i in range(3):
+        t = 2 * np.pi * i / 3
+        scene.camera.set_position((4 * np.cos(t), 2.5, 4 * np.sin(t)))
+        scene.light.set_position((3 * np.cos(-t), 4, 3 * np.sin(-t)))
+        cfg, dyn = prepared(scene, path)
+        rc.reset_launches()
+        got = jit_outputs(cfg, dyn, path)
+        torch.cuda.synchronize()
+        prog = compiled.CACHE.last
+        assert prog.launches == want_launches
+        if i:
+            assert {k: n for k, n in rc.LAUNCHES.items() if n} == \
+                want_launches
+        want = eager_outputs(cfg, dyn, path)
+        assert chip_smoke._same(tuple(got), tuple(want))
+        assert (got[2] >= 0).any()
+    assert compiled.CACHE.builds == builds + 1 and prog.calls == 3
+
+
+@pytest.mark.cuda
+def test_replay_does_not_sync_on_card(card):
+    """A replay (staging, copies, the graph, the output clones) never waits
+    for the device."""
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    cfg, dyn = build_scene(tt, gz_torch)._prepare()
+    pl.render_frame_jit(cfg, dyn)
+    chip_smoke._assert_no_sync(lambda: pl.render_frame_jit(cfg, dyn))
+
+
+@pytest.mark.cuda
+def test_stencil_reads_its_constants_at_replay_on_card(cuda_inputs):
+    """K4 reads (nf2, fpn, fmn) through its pointer: one launch captured
+    into a graph, replayed after other cameras' constants are copied into
+    its buffer, equals stencil_plain with those constants as Python floats
+    each time."""
+    (qdata, qi, zb, sign, zc), _ = cuda_inputs["stencil"]
+    consts = zc.clone()
+    rc.stencil(qdata, qi, zb, sign, consts)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with rc.counting_into({}), torch.cuda.graph(graph):
+        out = rc.stencil(qdata, qi, zb, sign, consts)
+    shadowed = []
+    for near, far in ((0.01, 50.0), (0.5, 20.0), (1.0, 8.0)):
+        scalars = rc.stencil_scalars(near, far)
+        consts.copy_(torch.tensor(scalars))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = rc.stencil_plain(qdata.cpu(), qi.cpu(), zb.cpu(), sign,
+                                scalars)
+        assert torch.equal(out.cpu(), want)
+        shadowed.append(int((want != 0).sum()))
+    assert shadowed[0] > 0 and len(set(shadowed)) > 1

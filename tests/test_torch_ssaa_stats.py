@@ -54,10 +54,9 @@ from tpu_renderer_torch.models import gizmos as gz_torch
 from tpu_renderer_torch.ops import pipeline as pl_torch
 
 from test_torch_kernels import (  # noqa: E402,F401
-    RES, build_scene, one_torch_thread)
+    RES, build_scene, one_torch_thread, sky_faces)
 
 H, W = RES
-SIDES = ("left", "right", "top", "bottom", "front", "back")
 COUNTERS = ("total", "rendered", "backface_culled", "degenerate",
             "offscreen", "occluded_or_clipped")
 
@@ -68,12 +67,6 @@ class ArrayCubeMap(cm_jax.CubeMap):
     @staticmethod
     def load_texture(face):
         return face
-
-
-def sky_faces(seed=0, t=16):
-    rng = np.random.default_rng(seed)
-    return {s: (np.round(rng.random((t, t, 3)) * 255) / 255).astype(np.float32)
-            for s in SIDES}
 
 
 def _np(tree):

@@ -10,7 +10,12 @@ supersampling (``Scene(supersample=N)``) and per-model statistics
 (``Scene.stats()``). On a CUDA device (the default) it runs seven
 hand-written CUDA kernels (``ops/raster_cuda.py``, sources in ``csrc/``,
 built at first use); with ``device="cpu"`` it runs their plain PyTorch
-versions. ``render_frame_sharded`` splits one frame over a ``(rows,
+versions. ``Scene.render()`` runs each frame as a compiled program, the
+counterpart of the JAX package's jitted frame: on the card a CUDA graph
+captured once per static key and replayed with each frame's camera,
+light, vertices and textures (``render_frame_jit``, ``render_ssaa_jit``,
+``render_core_jit``, ``render_debug_frame_jit``, ``face_statistics_jit``;
+``clear_compiled()`` frees the programs). ``render_frame_sharded`` splits one frame over a ``(rows,
 tris)`` mesh of torch.distributed ranks (``make_render_mesh``). The host
 side matches the JAX package's too: ``Face``, the native OBJ loader
 (``Model.load_model(use_native=...)``), the reference-style module aliases
@@ -54,10 +59,16 @@ from tpu_renderer_torch.models.scene import Scene  # noqa: E402
 from tpu_renderer_torch.ops.errors import Errors  # noqa: E402
 from tpu_renderer_torch.ops.lightning import Lightning  # noqa: E402
 from tpu_renderer_torch.ops.cubemap import CubeMap  # noqa: E402
+from tpu_renderer_torch.ops.compiled import clear_compiled  # noqa: E402
 from tpu_renderer_torch.ops.pipeline import (SHADER_FLAT,  # noqa: E402
                                              SHADER_GENERAL, SHADER_GOURAUD,
                                              SHADER_PBR, SHADER_POINTS,
-                                             SHADER_WIREFRAME)
+                                             SHADER_WIREFRAME,
+                                             face_statistics_jit,
+                                             render_core_jit,
+                                             render_debug_frame_jit,
+                                             render_frame_jit,
+                                             render_ssaa_jit)
 from tpu_renderer_torch.ops.transforms import (rotate, rotate_xyz,  # noqa: E402
                                                scale, translation)
 from tpu_renderer_torch.parallel.mesh import make_render_mesh  # noqa: E402
@@ -80,7 +91,9 @@ __all__ = [
     "SYSTEM", "SUBSYSTEM", "PROJECTION_TYPE", "SHADER_GENERAL", "SHADER_FLAT",
     "SHADER_GOURAUD", "SHADER_PBR", "SHADER_WIREFRAME", "SHADER_POINTS",
     "transformation", "plane_intersection", "constants", "lightning",
-    "make_render_mesh", "render_frame_sharded",
+    "make_render_mesh", "render_frame_sharded", "render_frame_jit",
+    "render_ssaa_jit", "render_core_jit", "render_debug_frame_jit",
+    "face_statistics_jit", "clear_compiled",
 ]
 
 __version__ = "0.1.0"

@@ -54,6 +54,14 @@
 //
 // The rows start at row0 (a block of frame rows, pixel math in global
 // coordinates), and so do the quads' tile lists.
+//
+// The depth constants (nf2, fpn, fmn) = (2*near*far, far+near, far-near),
+// float32 values composed on the host (raster_cuda.stencil_scalars), are
+// read through a device pointer, zc[0:3], and not passed by value: a frame
+// captured into a CUDA graph (ops/compiled.py) replays with the camera's
+// near and far of each frame, which a by-value argument would freeze.
+// sign * nf2 is exact for sign = +-1, so the test is the one the plain
+// version evaluates.
 #include "common.cuh"
 
 namespace {
@@ -87,7 +95,7 @@ __global__ void __launch_bounds__(BLOCK)
                    const int* __restrict__ bin_counts,
                    const int* __restrict__ bin_items, int n_quads,
                    const float* __restrict__ zb_sign, int height, int width,
-                   int row0, float sign_nf2, float fpn, float fmn,
+                   int row0, float sign, const float* __restrict__ zc,
                    int* __restrict__ out) {
     __shared__ __align__(16) float s_q[BLOCK * SQ_COLS];
     __shared__ int s_idx[BLOCK];
@@ -104,6 +112,9 @@ __global__ void __launch_bounds__(BLOCK)
         if (in_frame) out[p] = 0;
         return;
     }
+    const float sign_nf2 = sign * zc[0];
+    const float fpn = zc[1];
+    const float fmn = zc[2];
     const int tx0 = blockIdx.x * TILE;
     const int ty0 = row0 + blockIdx.y * TILE;
     const float r = static_cast<float>(row0 + row);
@@ -170,7 +181,7 @@ __global__ void __launch_bounds__(BLOCK)
 TR_EXPORT int tr_stencil(const float* qdata, const int* qi, int n_quads,
                          int* bin_counts, int* bin_items,
                          const float* zb_sign, int height, int width, int row0,
-                         float sign_nf2, float fpn, float fmn, int* stencil,
+                         float sign, const float* zc, int* stencil,
                          void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const int rc = launch_coarse_bins(BIN_QUADS, nullptr, qi, n_quads, height,
@@ -180,6 +191,6 @@ TR_EXPORT int tr_stencil(const float* qdata, const int* qi, int n_quads,
     const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE);
     stencil_kernel<<<grid, block, 0, st>>>(
         qdata, qi, bin_counts, bin_items, n_quads, zb_sign, height, width,
-        row0, sign_nf2, fpn, fmn, stencil);
+        row0, sign, zc, stencil);
     return (int)cudaGetLastError();
 }

@@ -14,6 +14,14 @@ Scene.
 ``device`` defaults to ``"cuda"``: a Scene renders on the card unless the
 caller asks for the CPU (``device="cpu"``, the plain versions of the
 kernels). On a host without CUDA, ``Scene()`` raises RuntimeError.
+
+``render()`` and ``stats()`` go through the compiled entry points
+(``pipeline.render_frame_jit``, ``render_ssaa_jit``, ``render_core_jit``,
+``render_debug_frame_jit``, ``face_statistics_jit``), as the JAX package's
+Scene goes through its jitted ones: on the card each frame replays a CUDA
+graph captured once per static key (ops/compiled.py); a camera or light
+move, new vertex positions or new texels of the same shape replay the same
+graph.
 """
 from __future__ import annotations
 
@@ -28,19 +36,16 @@ from tpu_renderer_torch.constants import SUBSYSTEM, SYSTEM
 from tpu_renderer_torch.models import gizmos
 from tpu_renderer_torch.models.camera import Camera, Light
 from tpu_renderer_torch.models.model import Model
-from tpu_renderer_torch.ops import raster_cuda as rc
 from tpu_renderer_torch.ops import transforms as T
 from tpu_renderer_torch.ops import pipeline as pl
 from tpu_renderer_torch.ops.cubemap import CubeMap
 from tpu_renderer_torch.ops.errors import Errors
 from tpu_renderer_torch.ops.overlay import (draw_points, draw_view_frustum,
                                             draw_wireframe)
-from tpu_renderer_torch.ops.pipeline import (DEBUG_SHADERS, ModelConfig,
-                                             SceneConfig, SHADER_GENERAL,
-                                             SHADER_GOURAUD, SHADERS, _span,
-                                             face_statistics, render_core,
-                                             render_debug_frame, render_frame,
-                                             render_ssaa)
+from tpu_renderer_torch.ops.pipeline import (
+    DEBUG_SHADERS, ModelConfig, SceneConfig, SHADER_GENERAL, SHADER_GOURAUD,
+    SHADERS, _span, face_statistics_jit, render_core, render_core_jit,
+    render_debug_frame_jit, render_frame_jit, render_ssaa_jit)
 
 __all__ = ["Scene"]
 
@@ -353,10 +358,14 @@ class Scene:
 
         With ``supersample`` = ss > 1 (scene.py:797-819 of the JAX package)
         the frame renders at ss times the resolution and is box-filtered
-        down (``pipeline.render_ssaa``); ``last_*`` then hold the buffers at
-        the scaled size. With the wireframe or points shader, or a debug
-        camera, ss is ignored with a RuntimeWarning and the frame renders at
-        its own size."""
+        down (``pipeline.render_ssaa_jit``); ``last_*`` then hold the
+        buffers at the scaled size. With the wireframe or points shader, or
+        a debug camera, ss is ignored with a RuntimeWarning and the frame
+        renders at its own size.
+
+        Every path runs a compiled program (``pipeline.*_jit``): on the
+        card a replayed CUDA graph, captured at the first frame of its
+        static key; if capture or replay fails, this raises."""
         ss = self.supersample
         if ss > 1 and (self.shader in DEBUG_SHADERS
                        or self.debug_camera is not None):
@@ -370,7 +379,7 @@ class Scene:
         elif ss > 1:
             h, w = self.resolution
             cfg, dyn = self._prepare(resolution=(h * ss, w * ss))
-            out, zbuf, tid, stencil = render_ssaa(cfg, dyn, ss)
+            out, zbuf, tid, stencil = render_ssaa_jit(cfg, dyn, ss)
             self.last_zbuf, self.last_tid, self.last_stencil = \
                 zbuf, tid, stencil
             return out.cpu().numpy()
@@ -382,15 +391,18 @@ class Scene:
             self.last_zbuf, self.last_tid, self.last_stencil = \
                 zbuf, tid, stencil
             return out
-        out, zbuf, tid, stencil = render_frame(cfg, dyn)
+        out, zbuf, tid, stencil = render_frame_jit(cfg, dyn)
         self.last_zbuf, self.last_tid, self.last_stencil = zbuf, tid, stencil
         return out.cpu().numpy()
 
-    def _render_overlay(self, cfg, dyn, ops=rc.KERNELS):
-        """The frame through ``ops`` (render_core's), then the debug
-        camera's frustum on the host. Returns (frame_u8 (H, W, 3) numpy,
-        zbuf float64 CPU tensor as the overlay left it, tid, stencil)."""
-        frame, zbuf, tid, stencil = render_core(cfg, dyn, ops)
+    def _render_overlay(self, cfg, dyn, ops=None):
+        """The pre-flip frame through ``render_core_jit`` (or, given
+        ``ops``, the eager ``render_core`` through them: the plain path a
+        test holds the frame to), then the debug camera's frustum on the
+        host. Returns (frame_u8 (H, W, 3) numpy, zbuf float64 CPU tensor as
+        the overlay left it, tid, stencil)."""
+        frame, zbuf, tid, stencil = (render_core_jit(cfg, dyn) if ops is None
+                                     else render_core(cfg, dyn, ops))
         with _span("overlay"):
             frame = frame.cpu().numpy().astype(np.float64)
             zb = zbuf.cpu().numpy().astype(np.float64)
@@ -405,8 +417,9 @@ class Scene:
     def _render_debug_shader(self, cfg, dyn) -> np.ndarray:
         """Wireframe / points shaders (reference triangular.py:269-283):
         K6 line coverage or the scatter-max point splat
-        (pipeline.render_debug_frame)."""
-        out, zbuf, tid, stencil = render_debug_frame(cfg, dyn, self.shader)
+        (pipeline.render_debug_frame_jit)."""
+        out, zbuf, tid, stencil = render_debug_frame_jit(cfg, dyn,
+                                                         self.shader)
         self.last_zbuf, self.last_tid, self.last_stencil = zbuf, tid, stencil
         return out.cpu().numpy()
 
@@ -414,16 +427,15 @@ class Scene:
         """Host-loop wireframe / points shaders (scene.py:900-951 of the
         JAX package), in float64 numpy: the oracle the device path (K6 and
         the scatter-max splat) is held to. The gouraud path still resolves
-        the z-buffer through ``render_core``."""
-        _, zbuf, tid, stencil = render_core(
+        the z-buffer through ``render_core_jit``."""
+        _, zbuf, tid, stencil = render_core_jit(
             dataclasses.replace(cfg, shader=SHADER_GOURAUD), dyn)
         zb = zbuf.cpu().numpy().astype(np.float64)
         self.last_zbuf, self.last_tid, self.last_stencil = \
             torch.from_numpy(zb), tid, stencil
 
         h, w = self.resolution
-        cam_host = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-        frame = pl._background(cfg, dyn, cam_host, h, w, self.device)
+        frame = pl._background(cfg, dyn, pl._stage(cfg, dyn), h, w)
         frame = frame.cpu().numpy().astype(np.float64)
 
         mvp = np.asarray(self.camera.MVP, np.float64)
@@ -461,7 +473,7 @@ class Scene:
         with ``by_error``, the discard counters keyed by :class:`Errors`.
 
         It packs the scene again and reruns the vertex stage against the
-        cached ``last_tid`` (``pipeline.face_statistics``), at the scene's
+        cached ``last_tid`` (``pipeline.face_statistics_jit``), at the scene's
         own resolution also after a supersampled render, whose ``last_tid``
         has the scaled size, as the JAX package does. A debug helper, not
         for a render loop. Raises RuntimeError before any render.
@@ -469,8 +481,8 @@ class Scene:
         if self.last_tid is None:
             raise RuntimeError("render() must run before stats()")
         cfg, dyn = self._prepare()
-        raw = face_statistics(cfg, dyn, torch.as_tensor(self.last_tid,
-                                                        device=self.device))
+        raw = face_statistics_jit(cfg, dyn, torch.as_tensor(
+            self.last_tid, device=self.device))
         if not raw:
             return []
         keys = list(raw[0])

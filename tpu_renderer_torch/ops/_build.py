@@ -51,8 +51,8 @@ _SIGNATURES = {
     "tr_sample_textures": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _P, _P, _P],
     # qdata, qi, n_quads, bin_counts, bin_items, zb_sign, H, W, row0,
-    # sign_nf2, fpn, fmn, stencil, stream
-    "tr_stencil": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P],
+    # sign, zc (3 floats on the card: nf2, fpn, fmn), stencil, stream
+    "tr_stencil": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     # kind (0 faces, 1 quads), fdata, flags or qi, n, H, W, row0,
     # bin_counts, bin_items, stream
     "tr_coarse_bins": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P],

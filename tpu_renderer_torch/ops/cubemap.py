@@ -8,11 +8,14 @@ triangles (:45-54), direction vectors map to (face, u, v) by major-axis
 selection (:63-80), and the frame fill interpolates rays from the NDC
 corners through the inverse rotation-only view-projection (:83-101).
 
-The 4x4 inverse and the corner products are composed on the host in
-float32, like the camera matrices (pipeline._cam_matrices), so a frame
-rendered on the card and its plain-path twin read the same rays. The
-per-pixel ray sums are written out term by term, so they round the same way
-on the CPU and on the card.
+The 4x4 inverse, the corner rays and the screen triangles' scalars are
+composed on the host in float32, like the camera matrices
+(pipeline.frame_inputs stages them with those: :func:`skybox_inputs`), so
+a frame rendered on the card and its plain-path twin read the same rays.
+The fill (:func:`fill_skybox`) then reads them as tensors on the device,
+so a frame captured into a CUDA graph replays with each frame's camera.
+The per-pixel ray sums are written out term by term, so they round the
+same way on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import torch
 from tpu_renderer_torch.ops.transforms import matmul
 
 __all__ = ["CubeMap", "cubemap_index", "sample_cubemap",
-           "sample_cubemap_packed", "fill_frame_from_skybox", "NDC_FACES"]
+           "sample_cubemap_packed", "fill_frame_from_skybox",
+           "skybox_inputs", "fill_skybox", "NDC_FACES"]
 
 #: Two triangles covering the NDC square (reference cube_map.py:45-54).
 NDC_FACES = np.array([
@@ -134,15 +138,12 @@ def sample_cubemap_packed(packed, vectors):
     return torch.stack([r, g, b], dim=-1) / 255.0
 
 
-def _corner_barycentric(corners_xy, height, width, device, row0=0):
-    """Screen barycentric of every pixel w.r.t. an int-cast NDC triangle
-    (cube_map.py:89's ``barycentric(*test[XY].astype(int), p)``), for the
-    ``height`` frame rows from ``row0``.
-
-    corners_xy: (3, 2) float32 host tensor. Returns (bar (H, W, 3),
-    cover (H, W) bool) on ``device``.
-    """
-    # Triangle scalars in float32 on the host (numpy rounds each op).
+def _triangle_scalars(corners_xy):
+    """The scalars of cube_map.py:89's ``barycentric(*test[XY].astype(int),
+    p)`` for an NDC triangle's screen corners (3, 2) float32: the corners
+    cast to int, then each product and sum in float32 on the host (numpy
+    rounds each op). Returns a (10,) float32 CPU tensor: ax, ay, v0x, v0y,
+    v1x, v1y, d00, d01, d11, 1 / denominator."""
     ax, ay, bx, by, cx, cy = corners_xy.to(torch.int32).to(
         torch.float32).reshape(-1).numpy()
     v0x, v0y = bx - ax, by - ay
@@ -151,8 +152,41 @@ def _corner_barycentric(corners_xy, height, width, device, row0=0):
     d01 = v0x * v1x + v0y * v1y
     d11 = v1x * v1x + v1y * v1y
     inv_denom = np.float32(1.0) / (d00 * d11 - d01 * d01)
-    ax, ay, v0x, v0y, v1x, v1y, d00, d01, d11, inv_denom = map(
-        float, (ax, ay, v0x, v0y, v1x, v1y, d00, d01, d11, inv_denom))
+    return torch.from_numpy(np.array(
+        [ax, ay, v0x, v0y, v1x, v1y, d00, d01, d11, inv_denom], np.float32))
+
+
+def skybox_inputs(cam_host):
+    """The host half of the skybox fill (reference cube_map.py:83-101):
+    the corner rays of the two NDC triangles through the inverse
+    rotation-only view-projection, and their screen triangles' scalars.
+
+    cam_host: the camera matrices (``lookat``, ``projection``,
+    ``viewport``, float32 CPU tensors). Returns (rays (2, 3, 3), tri (2,
+    10)) float32 CPU tensors, each triangle's scalars as
+    :func:`_triangle_scalars` orders them.
+    """
+    # Rotation-only view (the reference zeroes lookat's translation row).
+    view_rot = cam_host["lookat"].clone()
+    view_rot[3, :3] = 0.0
+    inv_vp = torch.linalg.inv(matmul(view_rot, cam_host["projection"]))
+    rays, tris = [], []
+    for i in range(2):
+        face = torch.from_numpy(NDC_FACES[i])
+        screen = matmul(face, cam_host["viewport"])
+        tris.append(_triangle_scalars(screen[:, :2]))
+        r = matmul(face, inv_vp)
+        rays.append((r / r[:, 3:4])[:, :3])
+    return torch.stack(rays), torch.stack(tris)
+
+
+def _corner_barycentric(tri, height, width, row0=0):
+    """Screen barycentric of every pixel of the ``height`` frame rows from
+    ``row0`` w.r.t. a triangle given by its scalars ``tri`` (10,) float32
+    on the device (:func:`skybox_inputs`). Returns (bar (H, W, 3),
+    cover (H, W) bool)."""
+    ax, ay, v0x, v0y, v1x, v1y, d00, d01, d11, inv_denom = tri.unbind()
+    device = tri.device
     cols = torch.arange(width, dtype=torch.float32, device=device)[None, :]
     rows = torch.arange(row0, row0 + height, dtype=torch.float32,
                         device=device)[:, None]
@@ -167,39 +201,40 @@ def _corner_barycentric(corners_xy, height, width, device, row0=0):
     return bar, (bar >= 0).all(dim=-1)
 
 
-def fill_frame_from_skybox(skybox, cam_host, resolution, device, row0=0):
-    """Full-frame skybox background (reference cube_map.py:83-101), or the
-    block of ``resolution[0]`` frame rows from ``row0``.
-
-    skybox: dict with ``packed`` (6, T, T) int32 texels on ``device``;
-    cam_host: the camera matrices on the host
-    (``lookat``, ``projection``, ``viewport``, float32 CPU tensors).
-    Returns (H, W, 3) float32 on ``device``; pixels outside both NDC
-    triangles are 0.
-    """
+def fill_skybox(packed, rays, tri, resolution, row0=0):
+    """The device half of the skybox fill: each pixel's ray from its NDC
+    triangle's corner rays, then one cubemap sample. ``packed`` (6, T, T)
+    int32 texels, ``rays`` and ``tri`` from :func:`skybox_inputs`, all on
+    one device; the ``resolution[0]`` frame rows from ``row0``. Returns
+    (H, W, 3) float32; pixels outside both NDC triangles are 0."""
     height, width = resolution
-    # Rotation-only view (the reference zeroes lookat's translation row).
-    view_rot = cam_host["lookat"].clone()
-    view_rot[3, :3] = 0.0
-    inv_vp = torch.linalg.inv(matmul(view_rot, cam_host["projection"]))
-
     # The two NDC triangles partition the frame: pick each pixel's ray first
     # (the second triangle wins on the shared diagonal, like the reference's
     # sequential overwrite), then sample the cubemap once.
     dirs, covers = [], []
     for i in range(2):
-        face = torch.from_numpy(NDC_FACES[i])
-        screen = matmul(face, cam_host["viewport"])
-        bar, cover = _corner_barycentric(screen[:, :2], height, width, device,
-                                         row0)
-        rays = matmul(face, inv_vp)
-        rays = (rays / rays[:, 3:4])[:, :3].to(device)
-        dirs.append(bar[..., 0:1] * rays[0] + bar[..., 1:2] * rays[1]
-                    + bar[..., 2:3] * rays[2])
+        bar, cover = _corner_barycentric(tri[i], height, width, row0)
+        r = rays[i]
+        dirs.append(bar[..., 0:1] * r[0] + bar[..., 1:2] * r[1]
+                    + bar[..., 2:3] * r[2])
         covers.append(cover)
     ray_dirs = torch.where(covers[1][..., None], dirs[1], dirs[0])
     covered = covers[0] | covers[1]
 
-    sampled = sample_cubemap_packed(skybox["packed"], ray_dirs)
+    sampled = sample_cubemap_packed(packed, ray_dirs)
     return torch.where(covered[..., None], sampled,
                        torch.zeros_like(sampled))
+
+
+def fill_frame_from_skybox(skybox, cam_host, resolution, device, row0=0):
+    """Full-frame skybox background (reference cube_map.py:83-101), or the
+    block of ``resolution[0]`` frame rows from ``row0``: the host's
+    :func:`skybox_inputs`, moved to ``device``, then :func:`fill_skybox`.
+
+    skybox: dict with ``packed`` (6, T, T) int32 texels on ``device``;
+    cam_host: the camera matrices on the host
+    (``lookat``, ``projection``, ``viewport``, float32 CPU tensors).
+    Returns (H, W, 3) float32 on ``device``.
+    """
+    rays, tri = (t.to(device) for t in skybox_inputs(cam_host))
+    return fill_skybox(skybox["packed"], rays, tri, resolution, row0)

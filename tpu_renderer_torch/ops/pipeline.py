@@ -41,24 +41,40 @@ Sharded (``parallel/sharded.py``, the JAX package's shard_map branches
 
 each merge under a ``tr.merge_<what>`` range (parallel/mesh.py).
 
-PyTorch runs eagerly, so there is no compiled program: ``SceneConfig``
-holds the static facts of a scene (resolution, handedness, per-model flags)
-and ``dyn`` the tensors. The kernels run where the tensors lie: on a CUDA
-device through the hand-written kernels, on the CPU through their plain
-versions.
+``SceneConfig`` holds the static facts of a scene (resolution,
+handedness, per-model flags) and ``dyn`` the tensors. The kernels run
+where the tensors lie: on a CUDA device through the hand-written kernels,
+on the CPU through their plain versions.
+
+Every entry point is "stage, then body". :func:`frame_inputs` composes on
+the host, in float32, what each frame derives from the camera: its
+matrices, near and far, its position, K4's depth constants, the debug
+camera's MVP and the skybox's corner rays; it packs them into one staging
+buffer. The bodies (``_core``, ``_frame``, ``_ssaa``, ``_debug_frame``,
+``_stats``) read only device tensors: the staged buffer's views and the
+rest of ``dyn`` (models, light, background), never the host camera. The
+eager functions (:func:`render_core`, :func:`render_frame`,
+:func:`render_ssaa`, :func:`render_debug_frame`, :func:`face_statistics`)
+move the buffer to ``dyn``'s device and run the body. Their ``*_jit``
+counterparts, the JAX package's compiled frame (pipeline.py:953-1060
+there), run the same body as a program of ops/compiled.py: on a CUDA
+device a CUDA graph captured once per static key and replayed with each
+frame's inputs, on the CPU the body over the program's static buffers.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 
 from tpu_renderer_torch.models.camera import camera_matrices
+from tpu_renderer_torch.ops import compiled
 from tpu_renderer_torch.ops import raster_cuda as rc
 from tpu_renderer_torch.ops import shading as sh
-from tpu_renderer_torch.ops.cubemap import fill_frame_from_skybox
+from tpu_renderer_torch.ops.cubemap import fill_skybox, skybox_inputs
 from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.shadow import _cross, prepare_quads
 from tpu_renderer_torch.ops.transforms import bound_box_batch, normalize
@@ -69,7 +85,9 @@ from tpu_renderer_torch.parallel.mesh import all_reduce
 
 __all__ = ["SceneConfig", "ModelConfig", "render_core", "render_frame",
            "render_ssaa", "render_debug_frame", "face_statistics",
-           "texture_tables", "SHADER_GENERAL",
+           "render_core_jit", "render_frame_jit", "render_ssaa_jit",
+           "render_debug_frame_jit", "face_statistics_jit", "frame_inputs",
+           "staged", "texture_tables", "SHADER_GENERAL",
            "SHADER_FLAT", "SHADER_GOURAUD", "SHADER_PBR", "SHADER_WIREFRAME",
            "SHADER_POINTS", "SHADERS", "SLIM_SHADERS", "DEBUG_SHADERS"]
 
@@ -120,7 +138,8 @@ class SceneConfig:
 def _cam_matrices(cfg: SceneConfig, cam, device, projection_type=None):
     """Camera matrices, composed on the CPU in float32, then moved: the
     scene's resolution and systems, with ``projection_type`` (default the
-    camera's, ``cfg.cam_projection_type``)."""
+    camera's, ``cfg.cam_projection_type``); also the camera's ``near`` and
+    ``far`` as 0-d float32 tensors, which the vertex stage reads."""
     if projection_type is None:
         projection_type = cfg.cam_projection_type
     m = camera_matrices(
@@ -128,6 +147,8 @@ def _cam_matrices(cfg: SceneConfig, cam, device, projection_type=None):
         cam["far"], projection_type=projection_type,
         system=cfg.system, subsystem=cfg.subsystem,
         resolution=cfg.resolution)
+    for k in ("near", "far"):
+        m[k] = torch.as_tensor(cam[k], dtype=torch.float32).reshape(())
     return {k: v.to(device) for k, v in m.items()}
 
 
@@ -141,15 +162,76 @@ def _debug_mvp(cfg: SceneConfig, dyn, device):
                          cfg.dbg_projection_type)["MVP"]
 
 
+def frame_inputs(cfg: SceneConfig, dyn):
+    """The host stage of a frame: everything it derives from the camera,
+    composed on the CPU in float32 as before (so the bits do not change),
+    packed into one staging buffer.
+
+    Entries: the camera's MVP, viewport, frustum_planes, near and far
+    (:func:`_cam_matrices`), its ``position``, K4's depth constants ``zc``
+    (raster_cuda.stencil_scalars), with a debug camera its ``dbg_MVP``, and
+    over a cubemap the corner rays ``sky_rays`` and triangle scalars
+    ``sky_tri`` (cubemap.skybox_inputs). Returns (buffer (N,) float32 CPU
+    tensor, layout: a tuple of (name, shape), the same for every frame of
+    a scene, which :func:`staged` reads the buffer with).
+    """
+    cam = _cam_matrices(cfg, dyn["camera"], "cpu")
+    parts = [(k, cam[k]) for k in ("MVP", "viewport", "frustum_planes",
+                                   "near", "far")]
+    parts.append(("position", torch.as_tensor(dyn["camera"]["position"],
+                                              dtype=torch.float32)))
+    parts.append(("zc", torch.tensor(rc.stencil_scalars(cam["near"],
+                                                        cam["far"]))))
+    if cfg.has_debug_camera:
+        parts.append(("dbg_MVP", _debug_mvp(cfg, dyn, "cpu")))
+    if cfg.background == "cubemap":
+        rays, tri = skybox_inputs(cam)
+        parts += [("sky_rays", rays), ("sky_tri", tri)]
+    layout = tuple((name, tuple(t.shape)) for name, t in parts)
+    buf = torch.cat([t.reshape(-1).to(torch.float32) for _, t in parts])
+    return buf, layout
+
+
+def staged(buf, layout):
+    """{name: view} of a staging buffer by its layout (:func:`frame_inputs`)
+    on whatever device the buffer lies: what a body reads."""
+    views, at = {}, 0
+    for name, shape in layout:
+        n = math.prod(shape)
+        views[name] = buf[at:at + n].view(shape)
+        at += n
+    return views
+
+
+def _device(dyn):
+    """The device a frame of ``dyn`` renders on: its light's."""
+    return dyn["light"]["position"].device
+
+
+def _stage(cfg: SceneConfig, dyn):
+    """Stage a frame for an eager body: the buffer moved to ``dyn``'s
+    device, as views."""
+    buf, layout = frame_inputs(cfg, dyn)
+    return staged(buf.to(_device(dyn)), layout)
+
+
+def _body_dyn(dyn):
+    """``dyn`` without the host camera entries, which only
+    :func:`frame_inputs` reads: the tensors a body and a program take."""
+    return {k: v for k, v in dyn.items()
+            if k not in ("camera", "debug_camera")}
+
+
 def _build_face_batch(cfg: SceneConfig, dyn, cam_m, dbg_mvp=None):
     """Vertex stage + per-face gathers for every model, concatenated
     (pipeline._build_face_batch :133 without the sampler-window fields;
-    the attrs carry what every shader reads, :218-229). With the debug
-    camera's ``dbg_mvp``, the raster dict also carries ``clip_dbg``, each
-    face's vertices in its clip space (:175-178).
-    Returns (raster dict, attrs dict) of per-face tensors."""
+    the attrs carry what every shader reads, :218-229). ``cam_m`` holds
+    MVP, viewport, near and far (:func:`_cam_matrices`, or the staged
+    views). With the debug camera's ``dbg_mvp``, the raster dict also
+    carries ``clip_dbg``, each face's vertices in its clip space
+    (:175-178). Returns (raster dict, attrs dict) of per-face tensors."""
     height, width = cfg.resolution
-    near, far = dyn["camera"]["near"], dyn["camera"]["far"]
+    near, far = cam_m["near"], cam_m["far"]
     raster_parts, attr_parts = [], []
     for m_i, (mc, md) in enumerate(zip(cfg.models, dyn["models"])):
         va = transform_vertices(md["verts"], cam_m["MVP"], cam_m["viewport"],
@@ -250,15 +332,14 @@ def _light(cfg: SceneConfig, dyn):
     return light
 
 
-def _background(cfg: SceneConfig, dyn, cam_host, height, width, device,
-                row0=0):
+def _background(cfg: SceneConfig, dyn, st, height, width, row0=0):
     """The fill of ``height`` frame rows from ``row0`` where no face won
     (pipeline._background :506): the background color, or the cubemap
-    skybox through the camera's rays."""
+    skybox through the camera's staged rays."""
     if cfg.background == "color":
         return dyn["background_color"].expand(height, width, 3)
-    return fill_frame_from_skybox(dyn["skybox"], cam_host, (height, width),
-                                  device, row0)
+    return fill_skybox(dyn["skybox"]["packed"], st["sky_rays"],
+                       st["sky_tri"], (height, width), row0)
 
 
 def _shade_gbuffer(cfg: SceneConfig, dyn, tid, stencil, gb, samp, samp_mask,
@@ -335,7 +416,8 @@ def _span(stage):
 def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS, *, local_height=None,
                 row0=0, tris_group=None, tris_idx=0):
     """Render the frame BEFORE flip/quantize, for the general, flat,
-    gouraud or pbr shader.
+    gouraud or pbr shader: stage on the host, then the body on ``dyn``'s
+    device.
 
     ``ops`` supplies the raster operations; the default runs the CUDA
     kernels on a CUDA device and their plain versions on the CPU.
@@ -349,27 +431,33 @@ def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS, *, local_height=None,
     the module docstring). Every rank of the group takes the same branches,
     so all call the same collectives in the same order.
     """
+    return _core(cfg, _body_dyn(dyn), _stage(cfg, dyn), ops,
+                 local_height=local_height, row0=row0, tris_group=tris_group,
+                 tris_idx=tris_idx)
+
+
+def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
+          tris_group=None, tris_idx=0):
+    """render_core's body: ``st`` the staged views, ``dyn`` without the
+    host camera."""
     height, width = cfg.resolution
     if local_height is None:
         local_height = height
     sign = cfg.system
-    device = dyn["light"]["position"].device
+    device = st["MVP"].device
     slim = cfg.shader in SLIM_SHADERS
     if not slim and cfg.shader != SHADER_GENERAL:
         raise ValueError(f"render_core draws no {cfg.shader!r} frames "
                          "(render_debug_frame does)")
-    cam_host = _cam_matrices(cfg, dyn["camera"], "cpu")
     shape = (local_height, width)
     if not cfg.models:
         # Empty scene: background only (the reference renders its fill).
-        frame = _background(cfg, dyn, cam_host, *shape, device, row0)
+        frame = _background(cfg, dyn, st, *shape, row0)
         zbuf = torch.full(shape, float("inf") * sign, device=device)
         tid = torch.full(shape, -1, dtype=torch.int32, device=device)
         return frame, zbuf, tid, torch.zeros_like(tid)
     with _span("vertex"):
-        cam_m = {k: v.to(device) for k, v in cam_host.items()}
-        faces, attrs = _build_face_batch(cfg, dyn, cam_m,
-                                         _debug_mvp(cfg, dyn, device))
+        faces, attrs = _build_face_batch(cfg, dyn, st, st.get("dbg_MVP"))
         fdata = rc.pack_faces(faces)
         flags = rc.face_flags(faces)
         fdbg = rc.pack_debug_planes(faces)
@@ -419,25 +507,22 @@ def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS, *, local_height=None,
         # Computed for every shader and returned; the slim shaders do not
         # read it (pipeline.py:878-939 of the JAX package).
         with _span("shadow_quads"):
-            prepared = prepare_quads(cfg, dyn, cam_m, tris_group, tris_idx)
+            prepared = prepare_quads(cfg, dyn, st, tris_group, tris_idx)
             if prepared is not None:
                 qdata, qi = rc.pack_quads(*prepared, height, width)
         if prepared is not None:
-            zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])
             with _span("stencil"):
-                stencil = ops.stencil(qdata, qi, zb_sign, sign, *zc,
+                stencil = ops.stencil(qdata, qi, zb_sign, sign, st["zc"],
                                       row0=row0)
             stencil = all_reduce(stencil, "sum", tris_group, "stencil")
 
     with _span("shade"):
-        cam_pos = torch.as_tensor(dyn["camera"]["position"],
-                                  dtype=torch.float32, device=device)
-        background = _background(cfg, dyn, cam_host, *shape, device, row0)
+        background = _background(cfg, dyn, st, *shape, row0)
         if slim:
-            frame = _shade_slim(cfg, dyn, tid, gb, cam_pos, background)
+            frame = _shade_slim(cfg, dyn, tid, gb, st["position"], background)
         else:
             frame = _shade_gbuffer(cfg, dyn, tid, stencil, gb, samp,
-                                   samp_mask, cam_pos, background)
+                                   samp_mask, st["position"], background)
     return frame, zb_sign * sign, tid, stencil
 
 
@@ -450,7 +535,11 @@ def _quantize(frame):
 
 def render_frame(cfg: SceneConfig, dyn, ops=rc.KERNELS):
     """One frame: (frame_u8 (H, W, 3), zbuf, tid, stencil)."""
-    frame, zbuf, tid, stencil = render_core(cfg, dyn, ops)
+    return _frame(cfg, _body_dyn(dyn), _stage(cfg, dyn), ops)
+
+
+def _frame(cfg, dyn, st, ops):
+    frame, zbuf, tid, stencil = _core(cfg, dyn, st, ops)
     return _quantize(frame), zbuf, tid, stencil
 
 
@@ -460,7 +549,11 @@ def render_ssaa(cfg: SceneConfig, dyn, ss, ops=rc.KERNELS):
     box-filtered down by ``ss`` before the flip, gamma and quantize.
     Returns (frame_u8 (H/ss, W/ss, 3), zbuf, tid, stencil), the buffers at
     the scaled size."""
-    frame, zbuf, tid, stencil = render_core(cfg, dyn, ops)
+    return _ssaa(cfg, _body_dyn(dyn), _stage(cfg, dyn), ss, ops)
+
+
+def _ssaa(cfg, dyn, st, ss, ops):
+    frame, zbuf, tid, stencil = _core(cfg, dyn, st, ops)
     with _span("ssaa"):
         hh, ww = frame.shape[0], frame.shape[1]
         frame = frame.reshape(hh // ss, ss, ww // ss, ss, 3).mean(dim=(1, 3))
@@ -479,9 +572,14 @@ def face_statistics(cfg: SceneConfig, dyn, tid):
     fragment-level CLIPPED and EMPTY_Z outcomes collapse here). The vertex
     stage runs again at ``cfg.resolution``.
     """
+    buf, layout = frame_inputs(cfg, dyn)
+    return _stats(cfg, _body_dyn(dyn), staged(buf.to(tid.device), layout),
+                  tid)
+
+
+def _stats(cfg, dyn, st, tid):
     height, width = cfg.resolution
     device = tid.device
-    cam_m = _cam_matrices(cfg, dyn["camera"], device)
     # Pixels per global face id; background pixels (tid < 0) go to a spare
     # slot g_total and add 0, as JAX's clip(tid, -1) with mode="drop" does.
     g_total = sum(md["vid"].shape[0] for md in dyn["models"])
@@ -493,8 +591,8 @@ def face_statistics(cfg: SceneConfig, dyn, tid):
     stats = []
     offset = 0
     for md in dyn["models"]:
-        va = transform_vertices(md["verts"], cam_m["MVP"], cam_m["viewport"],
-                                dyn["camera"]["near"], dyn["camera"]["far"])
+        va = transform_vertices(md["verts"], st["MVP"], st["viewport"],
+                                st["near"], st["far"])
         vid = md["vid"].long()
         n = vid.shape[0]
         screen = va["screen"][vid]
@@ -540,41 +638,105 @@ def render_debug_frame(cfg: SceneConfig, dyn, kind, ops=rc.KERNELS):
     """
     if kind not in DEBUG_SHADERS:
         raise ValueError(f"not a debug shader: {kind!r}")
-    _, zbuf, tid, stencil = render_core(
-        dataclasses.replace(cfg, shader=SHADER_GOURAUD), dyn, ops)
+    return _debug_frame(cfg, _body_dyn(dyn), _stage(cfg, dyn), kind, ops)
+
+
+def _debug_frame(cfg, dyn, st, kind, ops):
+    _, zbuf, tid, stencil = _core(
+        dataclasses.replace(cfg, shader=SHADER_GOURAUD), dyn, st, ops)
     height, width = cfg.resolution
-    device = zbuf.device
-    cam_host = _cam_matrices(cfg, dyn["camera"], "cpu")
-    frame = _background(cfg, dyn, cam_host, height, width, device)
+    frame = _background(cfg, dyn, st, height, width)
     if not cfg.models:
         return _quantize(frame), zbuf, tid, stencil
 
     with _span("debug_vertex"):
-        cam_m = {k: v.to(device) for k, v in cam_host.items()}
-        sx, sy, sz, fn, valid = _debug_vertices(dyn, cam_m)
+        sx, sy, sz, fn, valid = _debug_vertices(dyn, st)
     if kind == SHADER_WIREFRAME:
         with _span("lines"):
             mask = ops.lines(*_wireframe_lines(sx, sy, sz, valid, zbuf,
                                                height, width))
-            color = torch.tensor([64 / 255, 64 / 255, 128 / 255],
-                                 dtype=torch.float32, device=device)
+            color = _rgb(64 / 255, 64 / 255, 128 / 255, zbuf.device)
             frame = torch.where((mask > 0)[..., None], color, frame)
     else:
         with _span("points"):
-            frame = torch.where(*_point_splats(dyn, sx, sy, fn, valid, height,
+            frame = torch.where(*_point_splats(st, sx, sy, fn, valid, height,
                                                width), frame)
     return _quantize(frame), zbuf, tid, stencil
+
+
+def _rgb(r, g, b, device):
+    """A (3,) float32 colour made on ``device`` by fills: no copy from the
+    host, so a frame that holds it can be captured into a CUDA graph."""
+    return torch.stack([torch.full((), v, dtype=torch.float32, device=device)
+                        for v in (r, g, b)])
+
+
+def _jit(name, static, cfg, dyn, body, *tensors):
+    """Stage on the host, then run ``body(inputs, staged views)`` as the
+    program of ops/compiled.py keyed by (name, cfg, ``static``, the staging
+    layout; the device and every input's shape and dtype): ``inputs`` is
+    (dyn without the host camera, ``tensors``)."""
+    buf, layout = frame_inputs(cfg, dyn)
+    return compiled.call((name, cfg, static, layout),
+                         lambda inputs, b: body(inputs, staged(b, layout)),
+                         buf, (_body_dyn(dyn), tensors), _device(dyn))
+
+
+def render_frame_jit(cfg: SceneConfig, dyn):
+    """:func:`render_frame` as a compiled program (the JAX package's
+    ``render_frame_jit``, pipeline.py:953, which Scene.render calls at
+    scene.py:850): captured once per static key, replayed with each
+    frame's camera, light, vertices, textures and background."""
+    return _jit("render_frame", None, cfg, dyn,
+                lambda inputs, st: _frame(cfg, inputs[0], st, rc.KERNELS))
+
+
+def render_ssaa_jit(cfg: SceneConfig, dyn, ss):
+    """:func:`render_ssaa` as a compiled program (``render_ssaa_jit``,
+    pipeline.py:1049 of the JAX package; Scene.render at scene.py:816);
+    ``ss`` is part of the key."""
+    return _jit("render_ssaa", ss, cfg, dyn,
+                lambda inputs, st: _ssaa(cfg, inputs[0], st, ss, rc.KERNELS))
+
+
+def render_core_jit(cfg: SceneConfig, dyn):
+    """:func:`render_core` (one device) as a compiled program
+    (``render_core_jit``, pipeline.py:1043 of the JAX package): the
+    pre-flip float frame and the buffers, for the debug camera's host
+    overlay (scene.py:831) and the host debug shaders (:910)."""
+    return _jit("render_core", None, cfg, dyn,
+                lambda inputs, st: _core(cfg, inputs[0], st, rc.KERNELS))
+
+
+def render_debug_frame_jit(cfg: SceneConfig, dyn, kind):
+    """:func:`render_debug_frame` as a compiled program (the JAX package's
+    jitted ``render_debug_frame``, pipeline.py:956, static ``kind``;
+    Scene.render at scene.py:896)."""
+    if kind not in DEBUG_SHADERS:
+        raise ValueError(f"not a debug shader: {kind!r}")
+    return _jit("render_debug_frame", kind, cfg, dyn,
+                lambda inputs, st: _debug_frame(cfg, inputs[0], st, kind,
+                                                rc.KERNELS))
+
+
+def face_statistics_jit(cfg: SceneConfig, dyn, tid):
+    """:func:`face_statistics` as a compiled program (the JAX package's
+    jitted ``face_statistics``, pipeline.py:1060; Scene.stats at
+    scene.py:874); ``tid`` is an input, refilled in place."""
+    return _jit("face_statistics", None, cfg, dyn,
+                lambda inputs, st: _stats(cfg, inputs[0], st, inputs[1][0]),
+                tid)
 
 
 def _debug_vertices(dyn, cam_m):
     """The vertex stage over every face of every model, without culling or
     validity masks: per-face screen x, y and linearized z (F, 3) each, the
     unit world face normal (F, 3), and the mask (F,) of real (not padding)
-    faces."""
+    faces. ``cam_m`` holds MVP, viewport, near and far."""
     sxs, sys_, szs, fns, valids = [], [], [], [], []
     for md in dyn["models"]:
         va = transform_vertices(md["verts"], cam_m["MVP"], cam_m["viewport"],
-                                dyn["camera"]["near"], dyn["camera"]["far"])
+                                cam_m["near"], cam_m["far"])
         vid = md["vid"].long()
         screen = va["screen"][vid]
         sxs.append(screen[..., 0])
@@ -592,15 +754,18 @@ def _debug_vertices(dyn, cam_m):
 def _wireframe_lines(sx, sy, sz, valid, zbuf, height, width):
     """K6's arguments: the three directed edges of every face (vertices
     0->1, 1->2, 2->0) packed by raster_cuda.pack_lines, each active where
-    its face is real, and the z-buffer."""
-    ia, ib = [0, 1, 2], [1, 2, 0]
-    p0 = torch.stack([sx[:, ia], sy[:, ia], sz[:, ia]], -1).reshape(-1, 3)
-    p1 = torch.stack([sx[:, ib], sy[:, ib], sz[:, ib]], -1).reshape(-1, 3)
+    its face is real, and the z-buffer. Column rolls and expands, not
+    index lists or repeat_interleave, so that nothing is copied from the
+    host or waited for in a captured frame."""
+    nxt = lambda a: torch.roll(a, -1, dims=1)
+    p0 = torch.stack([sx, sy, sz], -1).reshape(-1, 3)
+    p1 = torch.stack([nxt(sx), nxt(sy), nxt(sz)], -1).reshape(-1, 3)
     ldata, lbbox = rc.pack_lines(p0, p1, height, width)
-    return ldata, lbbox, valid.repeat_interleave(3), zbuf, height, width
+    return (ldata, lbbox, valid[:, None].expand(-1, 3).reshape(-1), zbuf,
+            height, width)
 
 
-def _point_splats(dyn, sx, sy, fn, valid, height, width):
+def _point_splats(st, sx, sy, fn, valid, height, width):
     """(mask (H, W, 1), rgb (H, W, 3)) of the points shader
     (pipeline.py:1016-1037 of the JAX package).
 
@@ -612,12 +777,12 @@ def _point_splats(dyn, sx, sy, fn, valid, height, width):
     that is sliced off.
     """
     device = sx.device
-    pos = torch.as_tensor(dyn["camera"]["position"], dtype=torch.float32,
-                          device=device)
+    pos = st["position"]
     cam_dir = -pos / torch.clamp(torch.linalg.vector_norm(pos), min=1e-30)
     keep = valid & ((fn * cam_dir).sum(-1) > 0)
-    vsel = [0, 1, 1, 2, 2, 0]
-    fx, fy = sx[:, vsel], sy[:, vsel]
+    vsel = (0, 1, 1, 2, 2, 0)
+    fx = torch.stack([sx[:, v] for v in vsel], dim=1)
+    fy = torch.stack([sy[:, v] for v in vsel], dim=1)
     finite = torch.isfinite(fx) & torch.isfinite(fy)
     # Truncating casts, like .astype; coordinates are clamped to [-1, size]
     # first (which keeps in-frame ones and out-of-frame ones out), so no
@@ -634,7 +799,7 @@ def _point_splats(dyn, sx, sy, fn, valid, height, width):
                      device=device)
     win.scatter_reduce_(0, lin.reshape(-1), order, "amax", include_self=True)
     win = win[:height * width].reshape(height, width)
-    blue = torch.tensor([0.0, 0.0, 1.0], device=device)
-    red = torch.tensor([1.0, 0.0, 0.0], device=device)
+    blue = _rgb(0.0, 0.0, 1.0, device)
+    red = _rgb(1.0, 0.0, 0.0, device)
     rgb = torch.where(((win & 1) == 1)[..., None], blue, red)
     return (win >= 0)[..., None], rgb

@@ -30,7 +30,10 @@ Each wrapper runs its plain version for tensors on the CPU, and only
 there. For CUDA tensors it checks device, dtype, shape and contiguity,
 allocates the outputs, launches the kernel on the current stream, raises if
 the launch reports an error, and adds one to its entry in :data:`LAUNCHES`.
-There is no fallback from the kernel: any other device raises.
+There is no fallback from the kernel: any other device raises. While a
+frame is captured into a CUDA graph (ops/compiled.py) a launch is recorded,
+not run: it counts into the program's own tally (:func:`counting_into`),
+which every replay adds to :data:`LAUNCHES`.
 
 With a debug camera, K1 (both modes) and K7 also take ``fdbg``
 (:func:`pack_debug_planes`), the debug camera's clip planes of each face,
@@ -45,6 +48,8 @@ waits for the device (:func:`tile_bins`, whose ``nonzero`` does, serves
 tests and measurements only).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -61,7 +66,8 @@ __all__ = [
     "lines", "tidpass", "visibility_plain", "gbuffer_plain",
     "sample_textures_plain", "stencil_plain", "gbuffer_slim_plain",
     "lines_plain", "tidpass_plain", "texel_indices",
-    "LAUNCHES", "reset_launches", "KERNELS", "PLAIN", "GB_CHANNELS", "SLIM_CHANNELS",
+    "LAUNCHES", "reset_launches", "counting_into", "KERNELS", "PLAIN",
+    "GB_CHANNELS", "SLIM_CHANNELS",
     "N_KINDS", "KINDS", "TILE",
 ]
 
@@ -77,6 +83,23 @@ LAUNCHES = {"visibility": 0, "visibility_z": 0, "visibility_dbg": 0,
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+#: Where :func:`_launch` counts: LAUNCHES, or a capture's tally.
+_counts = LAUNCHES
+
+
+@contextlib.contextmanager
+def counting_into(tally):
+    """Count the launches made inside the block into the dict ``tally``
+    instead of :data:`LAUNCHES`: a CUDA graph capture records its launches
+    there (ops/compiled.py), and each replay adds them to LAUNCHES."""
+    global _counts
+    prev, _counts = _counts, tally
+    try:
+        yield tally
+    finally:
+        _counts = prev
 
 
 #: Pixel tile edge of the binning grid; each CUDA block shades one tile.
@@ -227,7 +250,7 @@ def pack_quads(screen, counts, ok, height, width):
     is_front = nrm[:, 2] < 0
 
     active = torch.arange(QUAD_PMAX, device=dev)[None, :] < counts[:, None]
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = float("inf")
     min_x = torch.clamp(torch.where(active, sx, inf).amin(1), min=0)
     max_x = torch.clamp(torch.where(active, sx, -inf).amax(1), max=width)
     min_y = torch.clamp(torch.where(active, sy, inf).amin(1), min=0)
@@ -318,7 +341,10 @@ def pack_lines(p0, p1, height, width):
 
 def stencil_scalars(near, far):
     """(2·near·far, far + near, far − near) in float32, as Python floats —
-    the depth constants the stencil test reads (raster_pallas.py:1035)."""
+    the depth constants the stencil test reads (raster_pallas.py:1035).
+    K4 reads them from a (3,) float32 tensor on the card (``zc`` of
+    :func:`stencil`); the frame stages them with the camera matrices
+    (pipeline.frame_inputs)."""
     near = torch.as_tensor(near, dtype=torch.float32)
     far = torch.as_tensor(far, dtype=torch.float32)
     return (float(2.0 * near * far), float(far + near), float(far - near))
@@ -579,10 +605,12 @@ def texel_indices(tid, iu, iv, ftex, slots, gid0=0):
     return torch.stack(idxs), torch.stack(hits)
 
 
-def stencil_plain(qdata, qi, zb_sign, sign, nf2, fpn, fmn, row0=0, chunk=16):
+def stencil_plain(qdata, qi, zb_sign, sign, zc, row0=0, chunk=16):
     """K4's plain version: the JAX package's _quad_fragments summed over all
-    quads (see shadow.quad_fragments), on the rows from ``row0``. Returns
+    quads (see shadow.quad_fragments), on the rows from ``row0``; ``zc``
+    holds (nf2, fpn, fmn), a (3,) float32 tensor or three floats. Returns
     (H, W) int32."""
+    nf2, fpn, fmn = zc
     height, width = zb_sign.shape
     dev = zb_sign.device
     rows, cols = rp._grid(height, width, dev, row0)
@@ -670,7 +698,8 @@ def _require_aligned(t, name, align):
 
 def _launch(name, *args, counter=None):
     """Launch ``tr_<name>`` on the current stream; raise if the launch
-    fails, else add one to ``LAUNCHES[counter or name]``."""
+    fails, else add one to ``LAUNCHES[counter or name]`` (or to the tally
+    of the capture in progress, :func:`counting_into`)."""
     from tpu_renderer_torch.ops import _build
 
     stream = torch.cuda.current_stream().cuda_stream
@@ -678,7 +707,8 @@ def _launch(name, *args, counter=None):
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
-    LAUNCHES[counter or name] += 1
+    key = counter or name
+    _counts[key] = _counts.get(key, 0) + 1
 
 
 def _face_tables(fdata, flags, fdbg):
@@ -795,27 +825,29 @@ def sample_textures(tid, iu, iv, ftex, slots, pool, gid0=0):
     return samp, mask
 
 
-def stencil(qdata, qi, zb_sign, sign, nf2, fpn, fmn, row0=0):
+def stencil(qdata, qi, zb_sign, sign, zc, row0=0):
     """K4: signed shadow-volume stencil against the final z-buffer.
 
     qdata (E, 44) float32, qi (E, 8) int32 (pack_quads); zb_sign (H, W)
-    float32, the rows from ``row0``; sign ±1; nf2, fpn, fmn from
-    :func:`stencil_scalars`. Returns (H, W) int32.
+    float32, the rows from ``row0``; sign ±1; zc (3,) float32 on the same
+    device, :func:`stencil_scalars`' (nf2, fpn, fmn), which K4 reads
+    through its pointer. Returns (H, W) int32.
     """
-    if _on_cpu(qdata, qi, zb_sign):
-        return stencil_plain(qdata, qi, zb_sign, sign, nf2, fpn, fmn, row0)
+    if _on_cpu(qdata, qi, zb_sign, zc):
+        return stencil_plain(qdata, qi, zb_sign, sign, zc, row0)
     e = qdata.shape[0]
     height, width = zb_sign.shape
     _require(qdata, "qdata", torch.float32, (e, Q_COLS))
     _require(qi, "qi", torch.int32, (e, QI_COLS))
     _require(zb_sign, "zb_sign", torch.float32, (height, width))
+    _require(zc, "zc", torch.float32, (3,))
     _require_aligned(qdata, "qdata", 16)
     counts, items = _bin_scratch(e, height, width, zb_sign.device)
     st = torch.empty((height, width), dtype=torch.int32,
                      device=zb_sign.device)
     _launch("stencil", qdata.data_ptr(), qi.data_ptr(), e, counts.data_ptr(),
             items.data_ptr(), zb_sign.data_ptr(), height, width, row0,
-            float(sign * nf2), fpn, fmn, st.data_ptr())
+            float(sign), zc.data_ptr(), st.data_ptr())
     return st
 
 

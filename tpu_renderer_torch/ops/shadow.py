@@ -75,7 +75,9 @@ def silhouette_edges(verts, vid, pad_valid, inc_edge, inc_dir, inc_valid,
     n = _cross(world[:, 1] - world[:, 0], world[:, 2] - world[:, 0])
     light_facing = (_dot3(n, light_position) > 0) & pad_valid
 
-    inc_lf = torch.repeat_interleave(light_facing, 3) & inc_valid
+    # Each face's flag on its three incidences (an expand, not
+    # repeat_interleave, so that a captured frame never waits for a count).
+    inc_lf = light_facing[:, None].expand(-1, 3).reshape(-1) & inc_valid
     edge = inc_edge.long()
     parity = torch.zeros(num_edges, dtype=torch.int32, device=verts.device)
     parity.index_add_(0, edge, inc_lf.to(torch.int32))
@@ -221,4 +223,4 @@ def shadow_stencil(cfg, dyn, cam_m, zb_sign):
     qdata, qi = raster_cuda.pack_quads(*prepared, height, width)
     zc = raster_cuda.stencil_scalars(dyn["camera"]["near"],
                                      dyn["camera"]["far"])
-    return raster_cuda.stencil_plain(qdata, qi, zb_sign, cfg.system, *zc)
+    return raster_cuda.stencil_plain(qdata, qi, zb_sign, cfg.system, zc)
