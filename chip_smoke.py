@@ -105,7 +105,26 @@ exits non-zero without the final line):
    untraced stretch of compiled frames, the device's busy share (the
    graph's replay alone, timed with CUDA events, over the frame's host
    ms) and the device ms between CUDA events around each call; and the
-   host clock's split of a compiled frame (``_compiled_split``).
+   host clock's split of a compiled frame (``_compiled_split``);
+10. bench.py's configurations (``bench_torch.build_config``, procedural
+   stand-ins): cfg1 (gouraud, K5), cfg2-persp and cfg2-ortho (culling),
+   cfg3 (spot light, tangent normal map), cfg3-rh-shadows (SYSTEM.RH,
+   SUBSYSTEM.DIRECTX, shadows: the kernels at sign +1, the spot light's
+   w = 2 extrusion), cfg4 (cubemap, chained transforms), cfg5-merged and
+   cfg5-instances (the crowd: 99,842 faces, 1024², shadows, culling, one
+   merged model or 20 instances that share their packing) and cfg6 (ten
+   distinct textured models, shadows), each through ``Scene.render()``:
+   one capture, then a CONFIG_ORBIT-frame orbit of its camera
+   (CROWD_ORBIT for the crowd), timed; at its own camera a replay that
+   launches the path's kernels (``CONFIG_KERNELS``) and does not sync,
+   equals the eager frame in all four outputs and matches the plain path
+   at the bars of phases 4-9; the replay alone (CUDA events), active
+   shadow quads, texel-pool bytes, distinct texture stacks and an eager
+   profile; K1-K4 at the crowd's shapes timed with ``_graph_ms`` beside
+   their bounds, with K1's and K4's coarse lists against their plain
+   version; the two crowd paths must give equal frames and stencils, the
+   same texel pool, and one stack tensor per map in the instances'
+   packets.
 
 Before the last line it prints the card's ``name, power.limit`` line and
 one JSON object with the per-kernel records (each with its launches in
@@ -131,103 +150,14 @@ import time
 
 import numpy as np
 
-RES = (1024, 1024)
-SEED = 0
-TEX = 1024
-SKY = 512
+from bench_torch import (RES, SEED, build_config,  # noqa: E402
+                         build_scene as build_flagship, flagship_light,
+                         orbit_position, procedural_cubemap)
 
 #: Published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
 #: float32 operations/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-
-
-def _smooth_noise(rng, shape, octaves=4):
-    """Seeded smooth 2D noise in [0, 1]: a sum of random low-frequency
-    sinusoids (no image files, no network)."""
-    h, w = shape
-    y, x = np.meshgrid(np.linspace(0, 1, h, dtype=np.float32),
-                       np.linspace(0, 1, w, dtype=np.float32), indexing="ij")
-    out = np.zeros(shape, np.float32)
-    for o in range(octaves):
-        f = 2.0 ** (o + 1)
-        for _ in range(3):
-            fx, fy = rng.integers(1, 4, 2) * f
-            ph = rng.uniform(0, 2 * np.pi)
-            out += np.sin(2 * np.pi * (fx * x + fy * y) + ph) / (o + 1)
-    out -= out.min()
-    return out / out.max()
-
-
-def _vertex_normals(verts, faces):
-    """Area-weighted vertex normals of a triangle mesh."""
-    v = verts[:, :3].astype(np.float64)
-    fv = faces[:, :, 0]
-    n = np.cross(v[fv[:, 1]] - v[fv[:, 0]], v[fv[:, 2]] - v[fv[:, 0]])
-    acc = np.zeros_like(v)
-    for k in range(3):
-        np.add.at(acc, fv[:, k], n)
-    acc /= np.maximum(np.linalg.norm(acc, axis=1, keepdims=True), 1e-12)
-    return acc.astype(np.float32)
-
-
-def build_flagship(tr, device, resolution=RES, tex=TEX, seed=SEED):
-    """The bench.py:25-49 frame with procedural stand-ins for its assets."""
-    from tpu_renderer_torch.models.gizmos import make_floor, make_sphere
-    from tpu_renderer_torch.models.model import Model
-
-    rng = np.random.default_rng(seed)
-    base = make_sphere(40, 64)                       # 4,992 faces
-    n = base.vertices[:, :3]
-    th = np.arccos(np.clip(n[:, 1], -1, 1))
-    ph = np.arctan2(n[:, 2], n[:, 0])
-    bump = np.zeros(len(n), np.float32)
-    for _ in range(6):
-        a, b = rng.integers(1, 5, 2)
-        bump += rng.uniform(0.02, 0.06) * np.sin(a * th + rng.uniform(0, 6)) \
-            * np.cos(b * ph + rng.uniform(0, 6))
-    verts = base.vertices.copy()
-    verts[:, :3] = n * (1.0 + bump)[:, None]
-    faces = base.face_array
-    mesh = Model(verts, base.uv, _vertex_normals(verts, faces), faces,
-                 shadowing=True)
-    mat = mesh.materials["default"]
-    mat.map_Kd = np.stack([_smooth_noise(rng, (tex, tex)) for _ in range(3)],
-                          axis=-1)
-    height = _smooth_noise(rng, (tex, tex)) * 8.0
-    gy, gx = np.gradient(height)
-    nm = np.stack([-gx, -gy, np.ones_like(gx)], axis=-1)
-    nm /= np.linalg.norm(nm, axis=-1, keepdims=True)
-    # Quantize like an 8-bit image, then the *2-1 normalization of
-    # TextureMaps.register('normals', normalize=True, tangent=True).
-    nm8 = np.round((nm * 0.5 + 0.5) * 255) / 255.0
-    mat.norm = np.asarray(nm8 * 2 - 1, dtype=np.dtype(
-        np.float32, metadata={"tangent": True}))
-    mesh.normal_map_is_tangent = True
-
-    floor = make_floor(2.0, y=-1.0)
-    checker = ((np.indices((tex, tex)) // 64).sum(0) % 2).astype(np.float32)
-    floor.materials["default"].map_Kd = np.stack(
-        [0.35 + 0.4 * checker, 0.35 + 0.3 * _smooth_noise(rng, (tex, tex)),
-         0.3 + 0.2 * checker], axis=-1).astype(np.float32)
-
-    camera = tr.Camera((0.5, 3, 5), center=(0, 0, 0), fovy=90, near=0.0001,
-                       far=400, backface_culling=False)
-    scene = tr.Scene(camera, flagship_light(tr), shadows=True,
-                     resolution=resolution,
-                     system=tr.SYSTEM.LH, subsystem=tr.SUBSYSTEM.OPENGL,
-                     device=device)
-    scene.add_model(mesh)
-    scene.add_model(floor)
-    return scene
-
-
-def flagship_light(tr, show=False):
-    """bench.py's light; ``show=True`` adds its sphere gizmo to a scene."""
-    return tr.Light((5, 5, 0), light_type=tr.Lightning.POINT_LIGHTNING,
-                    center=(0, 0.5, 0.5), ambient_strength=0.1,
-                    specular_strength=0.1, linear=1e-9, quadratic=1e-10,
-                    show=show)
 
 
 def flagship_debug_camera(tr, show=False):
@@ -238,24 +168,6 @@ def flagship_debug_camera(tr, show=False):
     phase 6 keep some. ``show=True`` adds its camera gizmo to a scene."""
     return tr.Camera((0, 3, 0.01), center=(0, 0, 0), fovy=80, near=2.5,
                      far=4.5, show=show)
-
-
-def procedural_cubemap(tr, size=SKY, seed=SEED):
-    """Six seeded, 8-bit-quantized (size, size, 3) skybox faces, no image
-    files."""
-    rng = np.random.default_rng(seed + 1)
-    faces = {}
-    for side in ("left", "right", "top", "bottom", "front", "back"):
-        rgb = np.stack([_smooth_noise(rng, (size, size), octaves=3)
-                        for _ in range(3)], axis=-1)
-        faces[side] = (np.round(rgb * 255) / 255).astype(np.float32)
-    return tr.CubeMap(**faces)
-
-
-def orbit_position(t, radius=5.05, height=3.0):
-    """bench.orbit_position's camera path."""
-    return np.array([radius * np.sin(t) + 0.5, height, radius * np.cos(t)],
-                    dtype=np.float32)
 
 
 def _stencil_constants(dyn, device):
@@ -821,7 +733,9 @@ def _profile(scene, n_frames=5):
     device's kernel and copy events, so ``busy / wall`` is the device's
     busy share; ``host`` is each pipeline stage's host time and
     ``device_span`` its span on the device (the tr.* ranges of
-    ops/pipeline.py); ``top`` the largest device events by name."""
+    ops/pipeline.py); ``stage_busy`` the device's busy time inside each
+    stage's device span (the kernel and copy events that start in it);
+    ``top`` the largest device events by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -836,13 +750,22 @@ def _profile(scene, n_frames=5):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_frames
     host, span, device = {}, {}, {}
+    windows, work = [], []
     for e in prof.events():
         ms = e.time_range.elapsed_us() / 1e3 / n_frames
         if e.name.startswith("tr."):
             into = host if e.device_type == DeviceType.CPU else span
             into[e.name[3:]] = into.get(e.name[3:], 0.0) + ms
+            if e.device_type == DeviceType.CUDA:
+                windows.append((e.time_range.start, e.time_range.end,
+                                e.name[3:]))
         elif e.device_type == DeviceType.CUDA:
             device[e.name] = device.get(e.name, 0.0) + ms
+            work.append((e.time_range.start, ms))
+    stage_busy = {}
+    for start, ms in work:
+        stage = next((n for a, b, n in windows if a <= start < b), "other")
+        stage_busy[stage] = stage_busy.get(stage, 0.0) + ms
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
     # The kernels alone (phase 3 times the wrappers).
@@ -855,6 +778,8 @@ def _profile(scene, n_frames=5):
     r = lambda d: {k[:60]: round(v, 4) for k, v in d}
     return {"wall": wall_ms, "busy": busy, "busy_share": busy / wall_ms,
             "host": r(host.items()), "device_span": r(span.items()),
+            "stage_busy": r(sorted(stage_busy.items(),
+                                   key=lambda kv: -kv[1])),
             "kernels": r(kernels.items()), "top": r(top)}
 
 
@@ -928,7 +853,7 @@ def _check_render(scene, frame, debug):
         f_p = f_p.cpu().numpy()
     tid_match = (tid == tid_p).float().mean().item()
     frame_match = float((frame == f_p).all(-1).mean())
-    if frame.shape != (*RES, 3) or tid.shape != tid_p.shape \
+    if frame.shape != (*scene.resolution, 3) or tid.shape != tid_p.shape \
             or tid_match < 0.999 or frame_match < 0.999 \
             or not torch.equal(stencil, st_p):
         raise AssertionError(f"{scene.shader}: frame vs plain path: tid "
@@ -1046,7 +971,7 @@ def _sharded_rank(rank, world, tmp, runs):
         rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=RANK_DEADLINE))
     try:
-        scene = build_flagship(tr, "cuda")
+        scene = build_flagship("cuda")
         report = {}
         for shader, (n_rows, n_tris), debug in runs:
             scene.shader = shader
@@ -1238,8 +1163,8 @@ def _debug_phase(tr, scene, start, records):
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
 
-    dbg = build_flagship(tr, "cuda")
-    dbg.light = flagship_light(tr, show=True)
+    dbg = build_flagship("cuda")
+    dbg.light = flagship_light(show=True)
     dbg.debug_camera = flagship_debug_camera(tr, show=True)
     rc.reset_launches()
     frame = dbg.render()
@@ -1321,10 +1246,13 @@ SSAA_CASES = ("visibility", "gbuffer", "sample_textures", "stencil",
               "gbuffer_slim_gouraud")
 
 
-def _ssaa_kernel_times(scene, ss):
-    """K1-K5 (K5 in the gouraud layout) at the scene's ss-scaled size, on
-    inputs built through the kernels: {case: (wrapper ms, graph ms, bound
-    ms, bound by, MB)}, and K1's and K4's coarse-list scratch bytes. The
+def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
+    """``cases`` of K1-K5 (K5 in the gouraud layout) at the scene's
+    ss-scaled size, on inputs built through the kernels: {case: (wrapper
+    ms, graph ms, bound ms, bound by, MB)}, and K1's and K4's coarse-list
+    scratch bytes; for each case of ``lists`` (K1, K4), its coarse lists
+    checked against their plain version, as (scratch bytes, longest list,
+    entries, longest 16x16 bbox list) under the key "<case> lists". The
     graph ms is the kernels' device time per call from a captured graph of
     wrapper calls (``_graph_ms``): late in the script, profiles of these
     wrappers at 2048² and 4096² on the H100 came back without some kernel
@@ -1356,7 +1284,7 @@ def _ssaa_kernel_times(scene, ss):
     }
     del gb
     out = {}
-    for case in SSAA_CASES:
+    for case in cases:
         args = inputs[case]
         kern = getattr(rc, wrapper_of(case))
         got = kern(*args)
@@ -1367,6 +1295,8 @@ def _ssaa_kernel_times(scene, ss):
         out[case] = (round(ms, 4), round(graph_ms, 4), round(bound_ms, 4),
                      bound_by, round(nbytes / 1e6, 2))
         del got
+    for case in lists:
+        out[f"{case} lists"] = _check_coarse_bins(case, inputs[case], {})
     scratch = {"K1": rc.bin_scratch_bytes(fdata.shape[0], h, w),
                "K4": rc.bin_scratch_bytes(qdata.shape[0], h, w)}
     return out, scratch
@@ -1532,7 +1462,7 @@ def _ssaa_phase(tr, scene, start):
     # The plain path's cached blocks go back to the card first, so the
     # profiles below run with the card's memory free.
     torch.cuda.empty_cache()
-    times, scratch = _ssaa_kernel_times(scene, 2)
+    times, scratch = _kernel_times(scene, 2)
     print(f"[8 kernels ss=2] (wrapper ms, graph ms (device ms per call, "
           f"20 calls captured and replayed, CUDA events), bound ms, by, MB) "
           f"{times}; coarse-list scratch B {scratch}", flush=True)
@@ -1553,7 +1483,7 @@ def _ssaa_phase(tr, scene, start):
     ss4_ms = (time.perf_counter() - t0) / 3 * 1e3
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
-    times, scratch = _ssaa_kernel_times(scene, 4)
+    times, scratch = _kernel_times(scene, 4)
     t0 = time.perf_counter()
     tid_match, frame_match, _ = _check_render(scene, frame, debug=False)
     plain_ms = (time.perf_counter() - t0) * 1e3
@@ -1770,6 +1700,190 @@ def _compiled_phase(tr, scene, start, sky):
     compiled.clear_compiled()
 
 
+#: Phase 10's paths: bench_torch's configurations, each with the kernels
+#: its replay must launch (cfg4's models carry no texture map, so no K3).
+CONFIG_KERNELS = {
+    "cfg1": ("visibility", "gbuffer_slim"),
+    "cfg2-persp": ("visibility", "gbuffer", "sample_textures"),
+    "cfg2-ortho": ("visibility", "gbuffer", "sample_textures"),
+    "cfg3": ("visibility", "gbuffer", "sample_textures"),
+    "cfg3-rh-shadows": ("visibility", "gbuffer", "sample_textures",
+                        "stencil"),
+    "cfg4": ("visibility", "gbuffer"),
+    "cfg5-merged": PATH_KERNELS["general"],
+    "cfg5-instances": PATH_KERNELS["general"],
+    "cfg6": PATH_KERNELS["general"],
+}
+#: Frames of each configuration's orbit; the crowd's (cfg5) are fewer.
+CONFIG_ORBIT = 10
+CROWD_ORBIT = 5
+#: K1-K4 as phase 10 times them at the crowd's shapes.
+CROWD_CASES = ("visibility", "gbuffer", "sample_textures", "stencil")
+
+
+def config_position(position, center, t):
+    """``position`` turned by ``t`` radians about the vertical axis through
+    ``center``: phase 10's orbit of each configuration's own camera."""
+    p = np.asarray(position, np.float64) - center
+    c, s = np.cos(t), np.sin(t)
+    return (np.asarray(center, np.float64)
+            + [c * p[0] + s * p[2], p[1], c * p[2] - s * p[0]]
+            ).astype(np.float32)
+
+
+def texel_pool_bytes(cfg, dyn):
+    """Bytes of the scene-wide texel pool K3 gathers from
+    (``pipeline.texture_tables``); 0 without a texture map."""
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    device = dyn["light"]["position"].device
+    cam_m = pl._cam_matrices(cfg, dyn["camera"], device)
+    _, attrs = pl._build_face_batch(cfg, dyn, cam_m)
+    tables = pl.texture_tables(cfg, dyn, attrs)
+    return 0 if tables is None else tables[2].numel() * 4
+
+
+def active_quads(cfg, dyn):
+    """Shadow quads that reach K4 (active after clipping and packing)."""
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import raster_cuda as rc
+    from tpu_renderer_torch.ops.shadow import prepare_quads
+
+    if not cfg.shadows:
+        return 0
+    device = dyn["light"]["position"].device
+    cam_m = pl._cam_matrices(cfg, dyn["camera"], device)
+    prepared = prepare_quads(cfg, dyn, cam_m)
+    if prepared is None:
+        return 0
+    _, qi = rc.pack_quads(*prepared, *cfg.resolution)
+    return int((qi[:, 5] > 0).sum())
+
+
+def shared_stacks(models):
+    """{texture kind: distinct ``<kind>_stack`` tensors} over packed
+    ``models`` (``dyn["models"]``): one per map when instances share their
+    packing."""
+    return {kind: len({id(md[f"{kind}_stack"]) for md in models
+                       if f"{kind}_stack" in md})
+            for kind in ("kd", "ks", "norm")}
+
+
+def _config_phase(start_time):
+    """Phase 10 (module docstring): bench_torch's configurations through
+    the compiled Scene.render()."""
+    import torch
+    from tpu_renderer_torch.ops import compiled
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    spread = lambda xs: (f"median {statistics.median(xs):.3f} "
+                         f"[{min(xs):.3f}, {max(xs):.3f}]")
+    crowd = {}
+    for name, kernels in CONFIG_KERNELS.items():
+        t_path = time.perf_counter()
+        scene = build_config(name)
+        compiled.clear_compiled()
+        builds = compiled.CACHE.builds
+        scene.render()
+        prog = compiled.CACHE.last
+        start = scene.camera.position.copy()
+        n_orbit = CROWD_ORBIT if name.startswith("cfg5") else CONFIG_ORBIT
+        frame_ms = []
+        for i in range(n_orbit):
+            scene.camera.set_position(config_position(
+                start, scene.camera.center, 2 * np.pi * (i + 1) / n_orbit))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scene.render()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        scene.camera.set_position(start)
+        cfg, dyn = scene._prepare()
+        _assert_no_sync(lambda: pl.render_frame_jit(cfg, dyn))
+        rc.reset_launches()
+        frame = scene.render()
+        torch.cuda.synchronize()
+        replayed = {k: n for k, n in rc.LAUNCHES.items() if n}
+        if (compiled.CACHE.builds - builds != 1
+                or replayed != prog.launches
+                or not all(replayed.get(k) for k in kernels)):
+            raise AssertionError(
+                f"[10 {name}]: {compiled.CACHE.builds - builds} captures; a "
+                f"replay launched {replayed}, its capture recorded "
+                f"{prog.launches}; the path needs {kernels}")
+        want = pl.render_frame(cfg, dyn)
+        differ = [k for k, a, b in zip(("zbuf", "tid", "stencil"), want[1:],
+                                       (scene.last_zbuf, scene.last_tid,
+                                        scene.last_stencil))
+                  if not _same(a, b)]
+        if differ or not np.array_equal(frame, want[0].cpu().numpy()):
+            raise AssertionError(f"[10 {name}]: the replay differs from the "
+                                 f"eager frame in {differ or ['frame']}")
+        t0 = time.perf_counter()
+        tid_match, frame_match, fg = _check_render(scene, frame, debug=False)
+        plain_s = time.perf_counter() - t0
+        replay_ms = _time_ms(prog.graph.replay)
+        prof = _profile(scene, n_frames=3)
+        quads = active_quads(cfg, dyn)
+        pool = texel_pool_bytes(cfg, dyn)
+        stacks = shared_stacks(dyn["models"])
+        faces = sum(m.num_faces for m in scene.models)
+        if cfg.shadows and int((scene.last_stencil != 0).sum()) == 0:
+            raise AssertionError(f"[10 {name}]: no shadowed pixel")
+        if name.startswith("cfg5"):
+            # The floor is the last model; the instances come before it.
+            crowd[name] = (frame, scene.last_stencil, pool,
+                           shared_stacks(dyn["models"][:-1]))
+        print(f"[10 {name}] {faces} faces, {len(scene.models)} models, "
+              f"{cfg.resolution[0]}x{cfg.resolution[1]}, sign {cfg.system:+d}"
+              f" (SYSTEM.LH -1, RH +1), culling {cfg.backface_culling}, "
+              f"projection {cfg.cam_projection_type}, "
+              f"{cfg.light_type.name}, shadows {cfg.shadows}: active shadow "
+              f"quads {quads}; 1 capture, {prog.capture_ms:.1f} ms "
+              f"(warm-up and capture), graph pool "
+              f"{prog.pool_bytes / 2**20:.1f} MiB; texel pool {pool} B, "
+              f"distinct stacks {stacks}; launches per replay "
+              f"{prog.launches}; no host sync in a replay; the replay equal "
+              f"to the eager frame (frame, zbuf, tid, stencil); vs plain "
+              f"path tid {tid_match:.6f}, frame {frame_match:.6f}, stencil "
+              f"equal ({plain_s:.1f} s); foreground {fg:.3f}; Scene.render "
+              f"ms/frame over a {n_orbit}-frame orbit (host clock) "
+              f"{spread(frame_ms)}; the replay alone {replay_ms:.4f} ms (CUDA"
+              f" events); eager profile: traced wall {prof['wall']:.2f}, "
+              f"device busy {prof['busy']:.3f} ms/frame, by stage "
+              f"{prof['stage_busy']}, kernels {prof['kernels']}; path "
+              f"{time.perf_counter() - t_path:.1f} s", flush=True)
+        if name == "cfg5-instances":
+            times, scratch = _kernel_times(scene, 1, CROWD_CASES,
+                                           lists=("visibility", "stencil"))
+            rows = "; ".join(
+                f"{case} {ms} / {g} / {b} ms ({mb} MB, by {by}), share "
+                f"{b / g:.2f}, {prog.launches.get(case, 0)} per replay"
+                for case, (ms, g, b, by, mb) in
+                ((c, times[c]) for c in CROWD_CASES))
+            print(f"[10 kernels crowd] {faces} faces, {cfg.resolution[0]}x"
+                  f"{cfg.resolution[1]}, wrapper / "
+                  f"graph / bound: {rows}; coarse lists equal plain "
+                  f"(scratch B, longest, entries, longest 16x16 bbox list): "
+                  f"K1 {times['visibility lists']}, K4 "
+                  f"{times['stencil lists']}; scratch {scratch}", flush=True)
+        del scene, prog
+        compiled.clear_compiled()
+    (f_m, s_m, pool_m, _), (f_i, s_i, pool_i, stacks_i) = (
+        crowd["cfg5-merged"], crowd["cfg5-instances"])
+    if (not np.array_equal(f_m, f_i) or not torch.equal(s_m, s_i)
+            or pool_m != pool_i or max(stacks_i.values()) != 1):
+        raise AssertionError(
+            f"[10 cfg5]: merged and instances: frame equal "
+            f"{np.array_equal(f_m, f_i)}, stencil equal "
+            f"{torch.equal(s_m, s_i)}, texel pools {pool_m} and {pool_i} B, "
+            f"the instances' stacks {stacks_i}")
+    print(f"[10 cfg5] merged and instances: frame and stencil equal, texel "
+          f"pool {pool_i} B in both, the instances' packets hold one tensor "
+          f"per map {stacks_i}; phase "
+          f"{time.perf_counter() - start_time:.1f} s", flush=True)
+
+
 def main():
     import torch
 
@@ -1801,7 +1915,7 @@ def main():
           flush=True)
 
     # 3. per kernel, at the flagship frame's shapes
-    scene = build_flagship(tr, "cuda")
+    scene = build_flagship("cuda")
     start = scene.camera.position.copy()
     inputs, zb_sign = kernel_inputs(scene)
     records = {}
@@ -1880,7 +1994,7 @@ def main():
           flush=True)
 
     # 5. the other shaders and the cubemap background through Scene.render()
-    sky = procedural_cubemap(tr)
+    sky = procedural_cubemap()
 
     def use(variant):
         scene.shader = "general" if variant == "cubemap" else variant
@@ -1955,6 +2069,10 @@ def main():
 
     # 9. the compiled frame: each path's program replayed against eager
     _compiled_phase(tr, scene, start, sky)
+
+    # 10. bench_torch's configurations through the compiled frame
+    del scene
+    _config_phase(time.perf_counter())
 
     unread = [n for n, r in records.items() if not r["launches"]]
     if unread:

@@ -40,7 +40,7 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    inputs, _ = cs.kernel_inputs(cs.build_flagship(tr, "cuda"))
+    inputs, _ = cs.kernel_inputs(cs.build_flagship("cuda"))
     for rnd in range(opts.rounds):
         for case in opts.cases:
             args, kw = inputs[case]

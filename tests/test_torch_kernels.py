@@ -33,7 +33,9 @@ This file imports no JAX, so it also runs on the card's host:
   is test_torch_compiled.py): over an orbit every replay equals the eager
   frame in all four outputs, with one capture, each replay adding the
   launches its capture recorded; a replay never synchronises; K4 reads its
-  depth constants through its pointer at every replay of a captured graph.
+  depth constants through its pointer at every replay of a captured graph;
+- instances of one mesh (bench_torch's crowd, small) on the card share
+  their texture stacks, match the CPU and render as their merged model.
 
 ``build_scene`` is the shared procedural test scene: test_torch_slice.py
 and test_torch_modules.py build the same scene in the JAX package.
@@ -926,6 +928,30 @@ def test_stats_on_card_match_cpu(card):
     assert [{k: int(v) for k, v in s.items()} for s in want] == \
         [{k: v for k, v in s.items() if k != "by_error"} for s in got]
     assert [s["total"] for s in got] == [12, 2]
+
+
+@pytest.mark.cuda
+def test_instances_on_card_match_cpu(card):
+    """Three instances of one textured mesh as separate models, on the card:
+    one stack tensor per map in their packets; against the same scene on
+    the CPU tid >= 99.9%, stencil equal, frame >= 99.9%; the merged model's
+    frame and stencil on the card equal (test_torch_instancing.py holds the
+    CPU to the JAX package)."""
+    import bench_torch
+
+    small = dict(resolution=(96, 96), tex=32, mesh=(10, 14))
+    scene = bench_torch.build_highpoly_scene(3, merged=False, **small)
+    frame = scene.render()
+    _, dyn = scene._prepare()
+    assert len({id(md["kd_stack"]) for md in dyn["models"][:-1]}) == 1
+    cpu = bench_torch.build_highpoly_scene(3, merged=False, device="cpu",
+                                           **small)
+    assert (frame == cpu.render()).all(-1).mean() >= 0.999
+    assert (scene.last_tid.cpu() == cpu.last_tid).float().mean() >= 0.999
+    assert torch.equal(scene.last_stencil.cpu(), cpu.last_stencil)
+    merged = bench_torch.build_highpoly_scene(3, merged=True, **small)
+    np.testing.assert_array_equal(frame, merged.render())
+    assert torch.equal(scene.last_stencil, merged.last_stencil)
 
 
 @pytest.mark.cuda

@@ -150,6 +150,7 @@ class Scene:
         #: resolution, box-filter down before quantization.
         self.supersample = int(supersample)
         self._packets: Dict[int, dict] = {}
+        self._shared: Dict[tuple, tuple] = {}
         self.camera = camera if camera is not None else Camera(
             position=(0, 0, 1), center=(0, 0, 0))
         self.light = light if light is not None else Light(position=(1, 1, 1))
@@ -201,7 +202,15 @@ class Scene:
     def _pack_model(self, model: Model) -> dict:
         """Per-model tensors on the scene's device, cached until the model's
         vertices or textures change (scene.py:396 of the JAX package,
-        without the sampler window metadata)."""
+        without the sampler window metadata).
+
+        Only ``verts`` is the model's own. The rest depends on the faces,
+        uv, normals and materials, which ``model @ transform`` shares by
+        reference, so it is cached on those objects' identities and the
+        version (:meth:`_pack_shared`): instances of one mesh get the same
+        device tensors, texture stacks and slot tables included, as the
+        JAX package's instances share one atlas (scene.py:459-480 there).
+        A texture change bumps the version, which keys a new part."""
         key = id(model)
         cached = self._packets.get(key)
         if (cached is not None and cached["_verts_src"] is model.vertices
@@ -210,6 +219,32 @@ class Scene:
 
         F = model.num_faces
         Fp = max(_PAD, -(-F // _PAD) * _PAD)
+        srcs = (model.materials, model.material_group, model.uv,
+                model.normals, model._faces)
+        skey = tuple(id(s) for s in srcs) + (F, Fp, model._version)
+        hit = self._shared.get(skey)
+        if hit is None:
+            # The sources are pinned beside the part, so no key can alias
+            # the id() of a freed object.
+            hit = self._shared[skey] = (self._pack_shared(model, F, Fp),
+                                        srcs)
+        fields, flags = hit[0]
+        packet = {
+            "_verts_src": model.vertices,
+            "_version": model._version,
+            "verts": torch.as_tensor(model.vertices, dtype=torch.float32,
+                                     device=self.device),
+            **fields,
+            "_config": ModelConfig(
+                num_faces=Fp, clip=model.clip, depth_test=model.depth_test,
+                shadowing=model.shadowing, **flags),
+        }
+        self._packets[key] = packet
+        return packet
+
+    def _pack_shared(self, model: Model, F: int, Fp: int):
+        """The part of a packet that instances share: (tensors by name,
+        ModelConfig's flags of it)."""
         faces = model.face_array
         dev = self.device
         t = lambda a, dtype=None: torch.as_tensor(a, dtype=dtype, device=dev)
@@ -223,9 +258,6 @@ class Scene:
             uv = np.zeros((F, 3, 2), np.float32)
         mtl = faces[:, 0, 3].astype(np.int64)
         packet = {
-            "_verts_src": model.vertices,
-            "_version": model._version,
-            "verts": t(model.vertices, torch.float32),
             "vid": t(vid),
             "pad_valid": t(pad_valid),
             "uv": t(_pad_rows(uv, Fp)),
@@ -269,15 +301,10 @@ class Scene:
                 packet["norm_tangent"] = t(_pad_rows(tangent[mtl], Fp))
         if "norm_tangent" not in packet:
             packet["norm_tangent"] = t(np.zeros(Fp, bool))
-
-        packet["_config"] = ModelConfig(
-            num_faces=Fp, clip=model.clip, depth_test=model.depth_test,
-            shadowing=model.shadowing, has_vn=has_vn,
-            has_uv=model.uv is not None, has_map_kd=flags["kd"],
-            has_map_ks=flags["ks"], has_norm=flags["norm"],
-            num_edges=et.num_edges)
-        self._packets[key] = packet
-        return packet
+        return packet, dict(
+            has_vn=has_vn, has_uv=model.uv is not None,
+            has_map_kd=flags["kd"], has_map_ks=flags["ks"],
+            has_norm=flags["norm"], num_edges=et.num_edges)
 
     @staticmethod
     def _cam_dyn(cam) -> dict:

@@ -9,20 +9,24 @@ The port's counterpart of ``jax.jit`` over the JAX package's frame
 - **the key** — jit's static arguments (``cfg``, ``ss``, ``kind``) and the
   traced arguments' shapes and dtypes: here the entry's name, the
   ``SceneConfig``, ``ss`` or ``kind`` and the staging layout (from
-  ``pipeline._jit``), the device, and every input tensor's place in the
-  input tree, shape and dtype. What changes per frame is never in it: the
+  ``pipeline._jit``), the device, every input tensor's place in the
+  input tree, shape and dtype, and which places hold the same tensor
+  (instances of one mesh share their texture stacks and face tables,
+  models/scene.py). What changes per frame is never in it: the
   camera's and debug camera's parameters (staged by
   ``pipeline.frame_inputs``), the light, vertex positions, texture and
   cubemap texels and the background colour are inputs, copied into the
   program's static buffers before every replay, so a camera orbit or an
   animated model never captures again, as jit never retraces;
 - **tracing and compiling** — :class:`Program`'s first call: it stages the
-  inputs into static buffers, runs the body once on a side stream (the
-  kernel library loads, the debug walks opt in to their shared memory,
-  the allocator warms up), then captures the body into a
-  ``torch.cuda.CUDAGraph`` with its own memory pool, and replays it;
+  inputs into static buffers, one per distinct tensor (the body sees a
+  shared tensor as one tensor, as jit sees one array passed twice), runs
+  the body once on a side stream (the kernel library loads, the debug
+  walks opt in to their shared memory, the allocator warms up), then
+  captures the body into a ``torch.cuda.CUDAGraph`` with its own memory
+  pool, and replays it;
 - **calling the executable** — every later call: the staged buffer (one
-  pinned host copy) and each input are copied into the static buffers on
+  pinned host copy) and each distinct input are copied into the static buffers on
   the current stream, the graph replays, and the outputs are cloned, since
   the next replay overwrites them (jit returns fresh arrays too);
 - **jit's cache** — :data:`CACHE`, bounded: past ``MAX_PROGRAMS`` it drops
@@ -95,6 +99,24 @@ def _rebuild(structure, leaves):
     return type(structure)(_rebuild(v, leaves) for v in structure)
 
 
+def _aliases(leaves):
+    """Each leaf's static buffer: its index among the distinct tensors of
+    ``leaves``, in the order they first appear. A tensor that appears at
+    several places of an input tree gets one buffer, copied once a call."""
+    first = {}
+    return tuple(first.setdefault(id(t), len(first)) for t in leaves)
+
+
+def _firsts(slots, leaves):
+    """The leaves at the first place of each distinct tensor, in the order
+    of their buffers (``slots`` from :func:`_aliases`)."""
+    n = 0
+    for slot, t in zip(slots, leaves):
+        if slot == n:
+            n += 1
+            yield t
+
+
 def _signature(tree):
     """The hashable part of the key that an input tree gives: its
     structure, and each tensor's shape and dtype."""
@@ -129,8 +151,10 @@ class Program:
         self._static_out = None
         self._buf = torch.empty(buf.shape, dtype=buf.dtype, device=device)
         self._tree = _structure(inputs)
+        leaves = list(_leaves(inputs))
+        self._slots = _aliases(leaves)
         self._static = [torch.empty_like(t, device=device)
-                        for t in _leaves(inputs)]
+                        for t in _firsts(self._slots, leaves)]
 
     def _fill(self, buf, inputs):
         """Copy this frame's staged buffer and inputs into the static
@@ -139,11 +163,14 @@ class Program:
         # From pinned memory the host copy is asynchronous; the host
         # allocator keeps the block until the copy has run.
         self._buf.copy_(buf.pin_memory() if cuda else buf, non_blocking=cuda)
-        for dst, src in zip(self._static, _leaves(inputs)):
+        for dst, src in zip(self._static,
+                            _firsts(self._slots, _leaves(inputs))):
             dst.copy_(src, non_blocking=cuda)
 
     def _run(self):
-        return self.body(_rebuild(self._tree, iter(self._static)), self._buf)
+        return self.body(_rebuild(self._tree, (self._static[i]
+                                               for i in self._slots)),
+                         self._buf)
 
     def _capture(self):
         """Warm the body up on a side stream, then capture it."""
@@ -224,14 +251,15 @@ CACHE = ProgramCache()
 
 def call(key, body, buf, inputs, device):
     """Run ``body(inputs, buf)`` as the program of (``key``, ``device``,
-    the inputs' structure, shapes and dtypes), building it on first use;
-    a program whose first call raises is not kept. ``buf`` is the host
+    the inputs' structure, shapes, dtypes and aliases), building it on
+    first use; a program whose first call raises is not kept. ``buf`` is the host
     staging buffer (pipeline.frame_inputs), ``inputs`` a tree of tensors
     on ``device``. Returns the body's outputs, cloned."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    full = (key, device, _signature(inputs))
+    full = (key, device, _signature(inputs),
+            _aliases(list(_leaves(inputs))))
     prog = CACHE.lookup(full)
     if prog is not None:
         return prog(buf, inputs)

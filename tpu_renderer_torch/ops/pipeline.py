@@ -275,11 +275,14 @@ def _build_face_batch(cfg: SceneConfig, dyn, cam_m, dbg_mvp=None):
 def texture_tables(cfg: SceneConfig, dyn, attrs):
     """The scene-wide texel pool K3 gathers from.
 
-    Every model's texture stacks, for each kind in ``raster_cuda.KINDS``,
-    are flattened into one int32 pool; a global slot is one stack layer.
-    Returns (ftex (G, N_KINDS, 3) int32 per-face (global slot or -1, TH, TW),
-    slots (S, 2) int32 (pool offset, row stride), pool (P,) int32), or None
-    when no model carries a texture map.
+    Every distinct texture stack, for each kind in ``raster_cuda.KINDS``,
+    is flattened into one int32 pool once; a global slot is one stack
+    layer. Models that hold the same stack tensor (instances of one mesh,
+    Scene._pack_model) point their faces at the same slots, as the JAX
+    package's instances share one window block (scene.py:645-665 there).
+    Returns (ftex (G, N_KINDS, 3) int32 per-face (global slot or -1, TH,
+    TW), slots (S, 2) int32 (pool offset, row stride), pool (P,) int32), or
+    None when no model carries a texture map.
     """
     dev = attrs["kd_slot"].device
     pool, slots, ftex = [], [], []
@@ -287,22 +290,26 @@ def texture_tables(cfg: SceneConfig, dyn, attrs):
     for k, kind in enumerate(rc.KINDS):
         has = {"kd": "has_map_kd", "norm": "has_norm", "ks": "has_map_ks"}[kind]
         face_slot = []
+        first_slot = {}                 # id(stack) -> its first global slot
         for mc, md in zip(cfg.models, dyn["models"]):
             local = md[f"{kind}_slot"].to(torch.int32)
-            if getattr(mc, has):
-                stack = md[f"{kind}_stack"]               # (N, TH, TW) int32
+            if not getattr(mc, has):
+                face_slot.append(torch.full_like(local, -1))
+                continue
+            stack = md[f"{kind}_stack"]                   # (N, TH, TW) int32
+            if id(stack) not in first_slot:
                 n, th, tw = stack.shape
                 pool.append(stack.reshape(-1))
                 base = torch.arange(n, dtype=torch.int64, device=dev)
                 slots.append(torch.stack(
                     [offset + base * th * tw,
                      torch.full_like(base, tw)], dim=1))
-                face_slot.append(torch.where(local >= 0, local + n_slots,
-                                             torch.full_like(local, -1)))
+                first_slot[id(stack)] = n_slots
                 offset += n * th * tw
                 n_slots += n
-            else:
-                face_slot.append(torch.full_like(local, -1))
+            face_slot.append(torch.where(local >= 0,
+                                         local + first_slot[id(stack)],
+                                         torch.full_like(local, -1)))
         shape = attrs[f"{kind}_shape"].to(torch.int32)
         ftex.append(torch.stack([torch.cat(face_slot), shape[:, 0],
                                  shape[:, 1]], dim=1))
