@@ -145,9 +145,9 @@ def stand_in_mesh(pkg, rng, tex=TEX, diffuse=True, normals=True,
     return model
 
 
-def flagship_light(show=False):
+def flagship_light(show=False, pkg=None):
     """bench.py's light; ``show=True`` adds its sphere gizmo to a scene."""
-    tr = _port()
+    tr = pkg or _port()
     return tr.Light((5, 5, 0), light_type=tr.Lightning.POINT_LIGHTNING,
                     center=(0, 0.5, 0.5), ambient_strength=0.1,
                     specular_strength=0.1, linear=1e-9, quadratic=1e-10,
@@ -162,18 +162,19 @@ def _scene(pkg, device, *args, **kw):
                      subsystem=pkg.SUBSYSTEM.OPENGL, **kw)
 
 
-def build_scene(device="cuda", resolution=RES, tex=TEX, seed=SEED):
+def build_scene(device="cuda", resolution=RES, tex=TEX, seed=SEED,
+                pkg=None):
     """The bench.py:25-49 frame: the stand-in mesh with its diffuse and
     tangent normal maps over a textured floor, bench.py's camera and point
     light, shadows, LH/OpenGL."""
-    tr = _port()
+    tr = pkg or _port()
     rng = np.random.default_rng(seed)
     mesh = stand_in_mesh(tr, rng, tex)
     floor = _gizmos(tr).make_floor(2.0, y=-1.0)
     floor.materials["default"].map_Kd = _floor_map(rng, tex)
     camera = tr.Camera((0.5, 3, 5), center=(0, 0, 0), fovy=90, near=0.0001,
                        far=400, backface_culling=False)
-    scene = _scene(tr, device, camera, flagship_light(), shadows=True,
+    scene = _scene(tr, device, camera, flagship_light(pkg=tr), shadows=True,
                    resolution=resolution)
     scene.add_model(mesh)
     scene.add_model(floor)

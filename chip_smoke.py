@@ -8,13 +8,16 @@ exits non-zero without the final line):
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA and
    nvcc versions;
 2. build: compile ``tpu_renderer_torch/csrc/*.cu`` with nvcc for sm_90a;
-3. per kernel: K1-K7 (K5 in its flat, gouraud and pbr layouts) against
+3. per kernel: K1-K8 (K5 in its flat, gouraud and pbr layouts; K8 on the
+   flagship's silhouette rows, its tables compared over all their rows,
+   NaN where NaN, and also timed as a captured graph of calls; K4 on K8's
+   tables with their count) against
    their plain PyTorch versions on the card, at the flagship frame's
    shapes, each timed with CUDA events (median of a few runs after a
    warm-up) and alone in a profile, beside its bound: the larger of the
    bytes its function must move in this run (``needed_bytes``) over
    3.35 TB/s and a lower count of its float operations over 67 TFLOP/s;
-   the wrappers of K1, K4, K6 and K7 must run under torch's sync debug
+   the wrappers of K1, K4, K6, K7 and K8 must run under torch's sync debug
    mode "error" (no wait for the device), and K1's, K4's and K7's coarse
    lists (csrc/bins.cu) must equal their plain version, their lines
    showing the lists' scratch bytes; then the sharded modes on the inputs
@@ -32,8 +35,8 @@ exits non-zero without the final line):
    normal maps over a textured floor, point light, shadow volumes,
    1024×1024, LH/OpenGL — through ``Scene.render()``, whose first frame
    captures the compiled program (ops/compiled.py) and whose second
-   replays it; K1-K4's launch counts must rise in the replay, and tid,
-   stencil and frame must match the same render through the plain
+   replays it; K1-K4's and K8's launch counts must rise in the replay,
+   and tid, stencil and frame must match the same render through the plain
    versions; then a camera orbit of ``Scene.render()`` frames is timed,
    and a few frames through the eager entry points (``render_eager``) are
    profiled (device busy share, each stage's host time and device span);
@@ -100,9 +103,9 @@ exits non-zero without the final line):
    and stencil; one capture for the key, its ms and its graph pool's
    bytes; no host sync in a replay (``_assert_no_sync``); a replay's
    launches, which must be the capture's tally and cover the path's
-   kernels; ms/frame (pack, render, frame to the host) compiled against
-   eager in COMPILED_PAIRS interleaved orbit pairs, host clock; over an
-   untraced stretch of compiled frames, the device's busy share (the
+   kernels, K8 once; ms/frame (pack, render, frame to the host)
+   compiled against eager in COMPILED_PAIRS interleaved orbit pairs, host
+   clock; over an untraced stretch of compiled frames, the device's busy share (the
    graph's replay alone, timed with CUDA events, over the frame's host
    ms) and the device ms between CUDA events around each call; and the
    host clock's split of a compiled frame (``_compiled_split``);
@@ -118,17 +121,21 @@ exits non-zero without the final line):
    (CROWD_ORBIT for the crowd), timed; at its own camera a replay that
    launches the path's kernels (``CONFIG_KERNELS``) and does not sync,
    equals the eager frame in all four outputs and matches the plain path
-   at the bars of phases 4-9; the replay alone (CUDA events), active
-   shadow quads, texel-pool bytes, distinct texture stacks and an eager
-   profile; K1-K4 at the crowd's shapes timed with ``_graph_ms`` beside
-   their bounds, with K1's and K4's coarse lists against their plain
+   at the bars of phases 4-9, and launches K8 once if the path has
+   shadows and never otherwise; the replay alone (CUDA events), the
+   shadowing models' edges E, the silhouette rows n_sil that K8 prepares
+   and K4 bins, the active shadow quads, texel-pool bytes, distinct
+   texture stacks and an eager profile, with the ``shadow_quads`` and
+   ``stencil`` stages' busy ms; K1-K4 and K8 at the crowd's shapes timed
+   with ``_graph_ms`` beside their bounds (K8 equal to its plain version
+   there), with K1's and K4's coarse lists against their plain
    version; the two crowd paths must give equal frames and stencils, the
    same texel pool, and one stack tensor per map in the instances'
    packets.
 
 Before the last line it prints the card's ``name, power.limit`` line and
 one JSON object with the per-kernel records (each with its launches in
-the render of its path: K1-K4 from phase 4, each K5 layout from its
+the render of its path: K1-K4 and K8 from phase 4, each K5 layout from its
 shader's render, K6 from the wireframe render, the sharded modes from
 the 1x2 renders' rank whose inputs phase 3 took, the debug modes from
 phase 7 and the debug 1x2 render); the last line is
@@ -188,7 +195,6 @@ def kernel_inputs(scene):
     modes (``shard_inputs``). Returns (inputs, zb_sign)."""
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
-    from tpu_renderer_torch.ops.shadow import prepare_quads
 
     cfg, dyn = scene._prepare()
     h, w = cfg.resolution
@@ -199,7 +205,8 @@ def kernel_inputs(scene):
     adata = rc.pack_face_attrs(attrs)
     gb = rc.gbuffer_plain(fdata, adata, tid)
     tables = pl.texture_tables(cfg, dyn, attrs)
-    qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
+    prep_args = quad_prep_args(cfg, dyn, cam_m)
+    qdata, qi = rc.quad_prep_plain(*prep_args)
     zc = _stencil_constants(dyn, scene.device)
     inputs = {
         "visibility": (fdata, flags, h, w, cfg.system),
@@ -216,10 +223,22 @@ def kernel_inputs(scene):
     sx, sy, sz, _, valid = pl._debug_vertices(dyn, cam_m)
     inputs["lines"] = pl._wireframe_lines(sx, sy, sz, valid,
                                           zb_sign * cfg.system, h, w)
+    inputs["quad_prep"] = prep_args
     inputs = {case: (args, {}) for case, args in inputs.items()}
+    inputs["stencil"] = (inputs["stencil"][0], {"n_rows": prep_args[2]})
     inputs.update(shard_inputs(cfg, dyn, zb_sign))
     inputs.update(debug_inputs(cfg, dyn))
     return inputs, zb_sign
+
+
+def quad_prep_args(cfg, dyn, cam_m):
+    """K8's arguments for the frame (``shadow.prepare_quads`` and the
+    camera's planes and matrices): (quad, order, n_sil, planes, MVP,
+    viewport, H, W)."""
+    from tpu_renderer_torch.ops.shadow import prepare_quads
+
+    return (*prepare_quads(cfg, dyn), cam_m["frustum_planes"],
+            cam_m["MVP"], cam_m["viewport"], *cfg.resolution)
 
 
 def debug_inputs(cfg, dyn):
@@ -353,9 +372,12 @@ def _tile_sums(mask):
 #: depth test of one face in one pass (K7's claim test likewise); K4's first
 #: edge test, on geometry pixels only (it skips background) — per pixel an
 #: edge reaches for K6 (one candidate test: kk, the minor coordinate, six
-#: compares, the depth and its test), and per computed pixel of the
+#: compares, the depth and its test), per row K8 prepares (the projection
+#: of its 12 slots alone: two 4x4 row-vector products and four divides
+#: each; the clip and pack not counted), and per computed pixel of the
 #: per-pixel kernels (K3: per kind).
-OPS_PER_VISIT = {"visibility": 20, "tidpass": 20, "stencil": 5, "lines": 16}
+OPS_PER_VISIT = {"visibility": 20, "tidpass": 20, "stencil": 5, "lines": 16,
+                 "quad_prep": 720}
 OPS_PER_PIXEL = {"gbuffer": 100, "sample_textures": 45,
                  "gbuffer_slim_flat": 0, "gbuffer_slim_gouraud": 25,
                  "gbuffer_slim_pbr": 40}
@@ -398,6 +420,13 @@ def needed_bytes(case, args, kw, out):
             if t is not None]
     n = sum(t.numel() * t.element_size() for t in outs)
     kind = wrapper_of(case)
+    if kind == "quad_prep":
+        # The silhouette flags and the order over every edge, and per
+        # silhouette row its quad and order entry read (68 B) and its two
+        # table rows written (208 B); the zero rows past the count, which
+        # K4 never reads, are not counted.
+        return args[0].shape[0] * 5 + _prep_rows(args) * (
+            68 + (rc.Q_COLS + rc.QI_COLS) * 4)
     if kind in ("visibility", "tidpass"):
         # Every valid face's row, every face's flag word; K7's zb where a
         # face claims the pixel (a lower count: there the id depends on it);
@@ -436,6 +465,11 @@ def needed_bytes(case, args, kw, out):
     return (n + tid.numel() * 4 + int(hit.any(0).sum()) * 8
             + faces.numel() * ftex.shape[1] * 3 * 4 + int((used >= 0).sum()) * 8
             + torch.unique(idx[hit]).numel() * 4)
+
+
+def _prep_rows(args):
+    """The rows K8 prepares: its count, within the table's capacity."""
+    return max(0, min(int(args[2]), args[1].shape[0]))
 
 
 def _lines_reach(args):
@@ -484,6 +518,8 @@ def bound(case, args, kw, out, zb_sign):
         # One full candidate test per pixel an edge reaches, whatever the
         # kernel's layout.
         ops = _lines_reach(args)
+    elif kind == "quad_prep":
+        ops = _prep_rows(args)
     else:
         ops = _computed(case, args, kw)[0].double().sum()
     per = OPS_PER_VISIT.get(kind, OPS_PER_PIXEL.get(
@@ -513,7 +549,7 @@ def _time_ms(fn, runs=5):
 
 #: The port's kernels as the profiler names them (csrc/*.cu).
 _OUR_KERNEL = re.compile(r"::(visibility|tidpass|gbuffer|gbuffer_slim|sample|"
-                         r"stencil|lines|lines_clear|coarse_bins)"
+                         r"stencil|lines|lines_clear|coarse_bins|quad_prep)"
                          r"_kernel[<(]")
 #: The kernels (``_OUR_KERNEL``'s names) each wrapper launches once per call
 #: where they are not just the wrapper's name: K1, K4 and K7 bin first with
@@ -599,11 +635,11 @@ def _same(a, b):
     return torch.equal(a, b)
 
 
-#: Cases held to their plain version exactly: K5, K6, every sharded mode
-#: and every debug mode.
+#: Cases held to their plain version exactly: K5, K6, K8 (NaN where NaN),
+#: every sharded mode and every debug mode.
 EXACT = ("visibility_z", "tidpass", "gbuffer_owned", "sample_textures_owned",
          "gbuffer_slim_gouraud_owned", "gbuffer_slim_pbr_owned",
-         "visibility_dbg", "visibility_z_dbg", "tidpass_dbg")
+         "visibility_dbg", "visibility_z_dbg", "tidpass_dbg", "quad_prep")
 
 
 def _compare(name, got, ref):
@@ -642,7 +678,8 @@ def _compare(name, got, ref):
 
 def _check_coarse_bins(case, args, kw):
     """K1's, K4's or K7's coarse lists for this call, built by csrc/bins.cu
-    on the card, against ``coarse_bins_plain``; raises if they differ.
+    on the card, against ``coarse_bins_plain``; raises if they differ. K4's
+    lists scan the count ``kw["n_rows"]`` of rows where the call gives one.
     Returns (the wrapper's scratch bytes, the longest coarse list, entries
     in all, the longest list of a 16x16 tile before the kernel's
     refinement)."""
@@ -663,21 +700,26 @@ def _check_coarse_bins(case, args, kw):
         h, w = args[2].shape
         kind, bbox, active = 1, words[:, 0:4], words[:, 5] > 0
     n = words.shape[0]
+    n_rows = kw.get("n_rows")
     tiles = rc._coarse_tiles(h, w)
     counts = torch.empty(tiles, dtype=torch.int32, device=words.device)
     items = torch.empty((tiles, max(n, 1)), dtype=torch.int32,
                         device=words.device)
     code = _build.load().tr_coarse_bins(
         kind, None if fdata is None else fdata.data_ptr(), words.data_ptr(),
-        n, h, w, row0, counts.data_ptr(), items.data_ptr(),
+        n, None if n_rows is None else n_rows.data_ptr(), h, w, row0,
+        counts.data_ptr(), items.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if code != 0:
         raise RuntimeError(f"{case}: coarse_bins failed: cudaError {code}")
-    want_counts, want_items = rc.coarse_bins_plain(bbox, active, h, w, row0)
+    want_counts, want_items = rc.coarse_bins_plain(bbox, active, h, w, row0,
+                                                   n_rows)
     keep = torch.arange(n, device=words.device)[None] < want_counts[:, None]
     if not (torch.equal(counts, want_counts)
             and torch.equal(items[:, :n][keep], want_items[keep])):
         raise AssertionError(f"{case}: coarse lists differ from plain")
+    if n_rows is not None:
+        active = active & (torch.arange(n, device=words.device) < n_rows)
     return (rc.bin_scratch_bytes(n, h, w), int(want_counts.max()),
             int(want_counts.sum()),
             int(_tile_counts(bbox.to(torch.int32), active, h, w, row0).max()))
@@ -773,7 +815,7 @@ def _profile(scene, n_frames=5):
                       if f"::{n}_kernel(" in k or f"::{n}_kernel<" in k)
                for n in ("visibility", "gbuffer", "sample", "stencil",
                          "gbuffer_slim", "lines", "lines_clear", "tidpass",
-                         "coarse_bins")}
+                         "coarse_bins", "quad_prep")}
     kernels = {k: v for k, v in kernels.items() if v > 0}
     r = lambda d: {k[:60]: round(v, 4) for k, v in d}
     return {"wall": wall_ms, "busy": busy, "busy_share": busy / wall_ms,
@@ -798,6 +840,10 @@ SOURCES = {
               "tpu_renderer/ops/raster_pallas.py:2561"),
     "tidpass": ("tpu_renderer_torch/csrc/tidpass.cu",
                 "tpu_renderer/ops/raster_pallas.py:2676"),
+    # Not a pallas_call: the XLA clip, projection and pack of the compacted
+    # silhouette (shadow.py:262-339 and raster_pallas.pack_quads :903).
+    "quad_prep": ("tpu_renderer_torch/csrc/quad_prep.cu",
+                  "tpu_renderer/ops/shadow.py:262"),
 }
 #: The TPU kernel a sharded mode replaces, where its wrapper's differs.
 REPLACES = {
@@ -809,18 +855,24 @@ REPLACES = {
     "sample_textures_owned": "tpu_renderer/ops/raster_pallas.py:2262",
 }
 
-#: The kernels each render path launches (flagship frame, shadows on).
+#: The kernels each render path launches (flagship frame, shadows on: K8
+#: then K4).
 PATH_KERNELS = {
-    "general": ("visibility", "gbuffer", "sample_textures", "stencil"),
-    "slim": ("visibility", "gbuffer_slim", "stencil"),
-    "wireframe": ("visibility", "gbuffer_slim", "stencil", "lines"),
-    "sharded": ("visibility_z", "tidpass", "gbuffer", "sample_textures",
+    "general": ("visibility", "gbuffer", "sample_textures", "quad_prep",
                 "stencil"),
-    "sharded_slim": ("visibility_z", "tidpass", "gbuffer_slim", "stencil"),
-    "overlay": ("visibility_dbg", "gbuffer", "sample_textures", "stencil"),
-    "wireframe_dbg": ("visibility_dbg", "gbuffer_slim", "stencil", "lines"),
+    "slim": ("visibility", "gbuffer_slim", "quad_prep", "stencil"),
+    "wireframe": ("visibility", "gbuffer_slim", "quad_prep", "stencil",
+                  "lines"),
+    "sharded": ("visibility_z", "tidpass", "gbuffer", "sample_textures",
+                "quad_prep", "stencil"),
+    "sharded_slim": ("visibility_z", "tidpass", "gbuffer_slim", "quad_prep",
+                     "stencil"),
+    "overlay": ("visibility_dbg", "gbuffer", "sample_textures", "quad_prep",
+                "stencil"),
+    "wireframe_dbg": ("visibility_dbg", "gbuffer_slim", "quad_prep",
+                      "stencil", "lines"),
     "sharded_slim_dbg": ("visibility_z_dbg", "tidpass_dbg", "gbuffer_slim",
-                         "stencil"),
+                         "quad_prep", "stencil"),
 }
 
 
@@ -1247,10 +1299,11 @@ SSAA_CASES = ("visibility", "gbuffer", "sample_textures", "stencil",
 
 
 def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
-    """``cases`` of K1-K5 (K5 in the gouraud layout) at the scene's
-    ss-scaled size, on inputs built through the kernels: {case: (wrapper
-    ms, graph ms, bound ms, bound by, MB)}, and K1's and K4's coarse-list
-    scratch bytes; for each case of ``lists`` (K1, K4), its coarse lists
+    """``cases`` of K1-K5 and K8 (K5 in the gouraud layout) at the scene's
+    ss-scaled size, on inputs built through the kernels (K4 on K8's tables
+    and count): {case: (wrapper ms, graph ms, bound ms, bound by, MB)}, and
+    K1's and K4's coarse-list scratch bytes; K8 must equal its plain
+    version; for each case of ``lists`` (K1, K4), its coarse lists
     checked against their plain version, as (scratch bytes, longest list,
     entries, longest 16x16 bbox list) under the key "<case> lists". The
     graph ms is the kernels' device time per call from a captured graph of
@@ -1260,7 +1313,6 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
     import torch
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
-    from tpu_renderer_torch.ops.shadow import prepare_quads
 
     h, w = scene.resolution[0] * ss, scene.resolution[1] * ss
     cfg, dyn = scene._prepare(resolution=(h, w))
@@ -1270,7 +1322,8 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
     zb_sign, tid = rc.visibility(fdata, flags, h, w, cfg.system)
     adata = rc.pack_face_attrs(attrs)
     gb = rc.gbuffer(fdata, adata, tid)
-    qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
+    prep_args = quad_prep_args(cfg, dyn, cam_m)
+    qdata, qi = rc.quad_prep(*prep_args)
     zc = _stencil_constants(dyn, scene.device)
     inputs = {
         "visibility": (fdata, flags, h, w, cfg.system),
@@ -1278,25 +1331,30 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
         "sample_textures": (tid, gb[rc.GB_IU].contiguous(),
                             gb[rc.GB_IV].contiguous(),
                             *pl.texture_tables(cfg, dyn, attrs)),
+        "quad_prep": prep_args,
         "stencil": (qdata, qi, zb_sign, cfg.system, zc),
         "gbuffer_slim_gouraud": (fdata, rc.pack_slim_attrs(attrs, "gouraud"),
                                  tid, "gouraud"),
     }
+    kws = {"stencil": {"n_rows": prep_args[2]}}
     del gb
     out = {}
     for case in cases:
-        args = inputs[case]
+        args, kw = inputs[case], kws.get(case, {})
         kern = getattr(rc, wrapper_of(case))
-        got = kern(*args)
+        got = kern(*args, **kw)
         torch.cuda.synchronize()
-        ms = _time_ms(lambda: kern(*args))
-        graph_ms = _graph_ms(lambda: kern(*args))
-        bound_ms, bound_by, nbytes, _ = bound(case, args, {}, got, zb_sign)
+        if case == "quad_prep":
+            _compare(case, got, rc.quad_prep_plain(*args))
+        ms = _time_ms(lambda: kern(*args, **kw))
+        graph_ms = _graph_ms(lambda: kern(*args, **kw))
+        bound_ms, bound_by, nbytes, _ = bound(case, args, kw, got, zb_sign)
         out[case] = (round(ms, 4), round(graph_ms, 4), round(bound_ms, 4),
                      bound_by, round(nbytes / 1e6, 2))
         del got
     for case in lists:
-        out[f"{case} lists"] = _check_coarse_bins(case, inputs[case], {})
+        out[f"{case} lists"] = _check_coarse_bins(case, inputs[case],
+                                                  kws.get(case, {}))
     scratch = {"K1": rc.bin_scratch_bytes(fdata.shape[0], h, w),
                "K4": rc.bin_scratch_bytes(qdata.shape[0], h, w)}
     return out, scratch
@@ -1661,7 +1719,8 @@ def _compiled_phase(tr, scene, start, sky):
         torch.cuda.synchronize()
         replayed = {k: n for k, n in rc.LAUNCHES.items() if n}
         if (replayed != prog.launches
-                or not all(replayed.get(k) for k in PATH_KERNELS[kernels])):
+                or not all(replayed.get(k) for k in PATH_KERNELS[kernels])
+                or replayed.get("quad_prep") != 1):
             raise AssertionError(f"[9 {path}]: a replay launched {replayed}, "
                                  f"its capture recorded {prog.launches}")
         assets(verts0, kd0)
@@ -1708,7 +1767,7 @@ CONFIG_KERNELS = {
     "cfg2-ortho": ("visibility", "gbuffer", "sample_textures"),
     "cfg3": ("visibility", "gbuffer", "sample_textures"),
     "cfg3-rh-shadows": ("visibility", "gbuffer", "sample_textures",
-                        "stencil"),
+                        "quad_prep", "stencil"),
     "cfg4": ("visibility", "gbuffer"),
     "cfg5-merged": PATH_KERNELS["general"],
     "cfg5-instances": PATH_KERNELS["general"],
@@ -1717,8 +1776,9 @@ CONFIG_KERNELS = {
 #: Frames of each configuration's orbit; the crowd's (cfg5) are fewer.
 CONFIG_ORBIT = 10
 CROWD_ORBIT = 5
-#: K1-K4 as phase 10 times them at the crowd's shapes.
-CROWD_CASES = ("visibility", "gbuffer", "sample_textures", "stencil")
+#: K1-K4 and K8 as phase 10 times them at the crowd's shapes.
+CROWD_CASES = ("visibility", "gbuffer", "sample_textures", "quad_prep",
+               "stencil")
 
 
 def config_position(position, center, t):
@@ -1743,21 +1803,22 @@ def texel_pool_bytes(cfg, dyn):
     return 0 if tables is None else tables[2].numel() * 4
 
 
-def active_quads(cfg, dyn):
-    """Shadow quads that reach K4 (active after clipping and packing)."""
+def shadow_counts(cfg, dyn):
+    """(E, the edges of the shadowing models; n_sil, the silhouette rows K8
+    prepares and K4 bins; the quads that reach K4, active after clipping
+    and packing), all 0 without shadows."""
     from tpu_renderer_torch.ops import pipeline as pl
-    from tpu_renderer_torch.ops import raster_cuda as rc
-    from tpu_renderer_torch.ops.shadow import prepare_quads
+    from tpu_renderer_torch.ops.shadow import quad_tables
 
     if not cfg.shadows:
-        return 0
+        return 0, 0, 0
     device = dyn["light"]["position"].device
     cam_m = pl._cam_matrices(cfg, dyn["camera"], device)
-    prepared = prepare_quads(cfg, dyn, cam_m)
-    if prepared is None:
-        return 0
-    _, qi = rc.pack_quads(*prepared, *cfg.resolution)
-    return int((qi[:, 5] > 0).sum())
+    tables = quad_tables(cfg, dyn, cam_m, *cfg.resolution)
+    if tables is None:
+        return 0, 0, 0
+    _, qi, n_sil = tables
+    return qi.shape[0], int(n_sil), int((qi[:, 5] > 0).sum())
 
 
 def shared_stacks(models):
@@ -1806,7 +1867,8 @@ def _config_phase(start_time):
         replayed = {k: n for k, n in rc.LAUNCHES.items() if n}
         if (compiled.CACHE.builds - builds != 1
                 or replayed != prog.launches
-                or not all(replayed.get(k) for k in kernels)):
+                or not all(replayed.get(k) for k in kernels)
+                or replayed.get("quad_prep", 0) != int(cfg.shadows)):
             raise AssertionError(
                 f"[10 {name}]: {compiled.CACHE.builds - builds} captures; a "
                 f"replay launched {replayed}, its capture recorded "
@@ -1824,7 +1886,7 @@ def _config_phase(start_time):
         plain_s = time.perf_counter() - t0
         replay_ms = _time_ms(prog.graph.replay)
         prof = _profile(scene, n_frames=3)
-        quads = active_quads(cfg, dyn)
+        edges, n_sil, quads = shadow_counts(cfg, dyn)
         pool = texel_pool_bytes(cfg, dyn)
         stacks = shared_stacks(dyn["models"])
         faces = sum(m.num_faces for m in scene.models)
@@ -1838,8 +1900,12 @@ def _config_phase(start_time):
               f"{cfg.resolution[0]}x{cfg.resolution[1]}, sign {cfg.system:+d}"
               f" (SYSTEM.LH -1, RH +1), culling {cfg.backface_culling}, "
               f"projection {cfg.cam_projection_type}, "
-              f"{cfg.light_type.name}, shadows {cfg.shadows}: active shadow "
-              f"quads {quads}; 1 capture, {prog.capture_ms:.1f} ms "
+              f"{cfg.light_type.name}, shadows {cfg.shadows}: edges E "
+              f"{edges}, silhouette rows n_sil {n_sil} (K8 prepares and K4 "
+              f"bins these), active shadow quads {quads}; shadow_quads "
+              f"{prof['stage_busy'].get('shadow_quads', 0.0)} and stencil "
+              f"{prof['stage_busy'].get('stencil', 0.0)} busy ms/frame; "
+              f"1 capture, {prog.capture_ms:.1f} ms "
               f"(warm-up and capture), graph pool "
               f"{prog.pool_bytes / 2**20:.1f} MiB; texel pool {pool} B, "
               f"distinct stacks {stacks}; launches per replay "
@@ -1928,7 +1994,7 @@ def main():
         err, verdict = _compare(name, got, ref)
         bins = ""
         if wrapper_of(name) in ("visibility", "stencil", "tidpass",
-                                "lines"):
+                                "lines", "quad_prep"):
             _assert_no_sync(lambda: kern(*args, **kw))
             bins = "; no host sync"
         if wrapper_of(name) in ("visibility", "stencil", "tidpass"):
@@ -1939,6 +2005,9 @@ def main():
                      f"bbox list {fine}")
         ms = _time_ms(lambda: kern(*args, **kw))
         alone = _alone_ms(lambda: kern(*args, **kw), wrapper_of(name))
+        if name == "quad_prep":
+            bins += (f"; graph {_graph_ms(lambda: kern(*args, **kw)):.4f} ms"
+                     f" (device ms per call of a captured graph of 20 calls)")
         plain_ms = _time_ms(lambda: plain(*args, **kw), runs=3)
         bound_ms, bound_by, nbytes, ops = bound(name, args, kw, got, zb_sign)
         source, replaces = SOURCES[wrapper_of(name)]
@@ -1947,10 +2016,13 @@ def main():
                          "launches": None, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None}
-        shown = {k: (f"({v.shape[0]}, {v.shape[1]}) debug planes"
-                     if isinstance(v, torch.Tensor) else v)
+        shown = {k: (v if not isinstance(v, torch.Tensor) else int(v)
+                     if v.dim() == 0 else
+                     f"({v.shape[0]}, {v.shape[1]}) debug planes")
                  for k, v in kw.items()}
-        mode = f" {shown}" if kw else ""
+        if name == "quad_prep":
+            shown = {"E": args[0].shape[0], "n_sil": int(args[2])}
+        mode = f" {shown}" if shown else ""
         print(f"[3 kernel] {name}{mode}: {verdict}; max_abs_err {err:.3g}; "
               f"kernel {ms:.4f} ms (its wrapper, binning included), alone "
               f"{alone:.4f} ms, plain {plain_ms:.2f} ms; bound "

@@ -3,6 +3,7 @@ the flagship frame's shapes: each case's wrapper (CUDA events, median of 5
 after a warm-up) and its kernels alone (a profile), in ``--rounds`` rounds.
 
     python3 kernel_times.py lines tidpass [--root DIR] [--rounds 3]
+    python3 kernel_times.py --shadow cfg5-merged [--root DIR] [--rounds 3]
 
 Cases are the keys of ``chip_smoke.kernel_inputs`` (``visibility``,
 ``lines``, ``tidpass``, ...). ``--root`` imports chip_smoke.py and
@@ -10,6 +11,21 @@ tpu_renderer_torch from another checkout, e.g. a parent commit unpacked
 with ``git archive``, so that two trees are compared inside one run on
 the same card: run parent, change, change, parent. Prints the card's
 ``name, power.limit``, then one JSON line per case and round.
+
+``--shadow CONFIG`` splits the shadow body (``pipeline.render_core``'s
+``shadow_quads`` stage, then K4) of bench_torch's configuration CONFIG,
+or of the flagship frame (``flagship``), into its steps on the checkout
+at DIR, each step's device ms per call from a
+captured CUDA graph of calls timed with CUDA events
+(``chip_smoke._graph_ms``): ``silhouette`` (silhouette_edges of every
+shadowing model), ``extrude`` (extrude_quads), and over all E edges
+``clip`` (frustum.clip_polygon), ``project`` (MVP, divide by w,
+viewport) and ``pack`` (raster_cuda.pack_quads), as a checkout without
+silhouette compaction runs them; on a checkout with it (``quad_prep``,
+K8) also ``order`` (the silhouette-first order and count) and
+``quad_prep`` (K8 on the silhouette rows); ``shadow_quads`` the whole
+stage as render_core runs it; ``stencil`` K4 on the stage's tables. One
+JSON line per round, with E and n_sil.
 """
 from __future__ import annotations
 
@@ -22,7 +38,8 @@ import sys
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("cases", nargs="+")
+    ap.add_argument("cases", nargs="*")
+    ap.add_argument("--shadow", metavar="CONFIG")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
     ap.add_argument("--rounds", type=int, default=3)
@@ -40,6 +57,12 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    if opts.shadow:
+        for rnd in range(opts.rounds):
+            print(json.dumps({"root": root, "config": opts.shadow,
+                              "round": rnd,
+                              **shadow_split(cs, opts.shadow)}), flush=True)
+        return
     inputs, _ = cs.kernel_inputs(cs.build_flagship("cuda"))
     for rnd in range(opts.rounds):
         for case in opts.cases:
@@ -50,6 +73,83 @@ def main():
                               "ms": cs._time_ms(call),
                               "alone_ms": cs._alone_ms(call, wrapper)}),
                   flush=True)
+
+
+def shadow_split(cs, config):
+    """{step: device ms per call} of the shadow body of ``config`` (see the
+    module docstring), with "E" and "n_sil"."""
+    import torch
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import raster_cuda as rc
+    from tpu_renderer_torch.ops import shadow as sh
+    from tpu_renderer_torch.ops.frustum import clip_polygon
+    from tpu_renderer_torch.ops.vertex import _rowvec
+
+    scene = (cs.build_flagship("cuda") if config == "flagship"
+             else cs.build_config(config))
+    cfg, dyn = scene._prepare()
+    h, w = cfg.resolution
+    light = dyn["light"]
+    dev = light["position"].device
+    cam_m = pl._cam_matrices(cfg, dyn["camera"], dev)
+    shadowing = [(mc, md) for mc, md in zip(cfg.models, dyn["models"])
+                 if mc.shadowing and mc.num_edges]
+
+    def silhouette():
+        return [sh.silhouette_edges(
+            md["verts"], md["vid"], md["pad_valid"], md["inc_edge"],
+            md["inc_dir"], md["inc_valid"], light["position"], mc.num_edges)
+            for mc, md in shadowing]
+
+    sils = silhouette()
+
+    def extrude():
+        return torch.cat([sh.extrude_quads(md["verts"], a, b, light,
+                                           cfg.light_type)
+                          for (_, md), (_, a, b) in zip(shadowing, sils)])
+
+    quad = extrude()
+    e = quad.shape[0]
+    sil = torch.cat([s for s, _, _ in sils])
+    padded = torch.zeros((e, sh.QUAD_PMAX, 4), device=dev)
+    padded[:, :4] = quad
+    fours = torch.full((e,), 4, dtype=torch.int32, device=dev)
+    clipped, counts = clip_polygon(padded, fours, cam_m["frustum_planes"])
+
+    def project():
+        ndc = _rowvec(clipped, cam_m["MVP"])
+        return _rowvec(ndc / ndc[..., 3:4], cam_m["viewport"])
+
+    screen = project()
+    steps = {"silhouette": silhouette, "extrude": extrude,
+             "clip": lambda: clip_polygon(padded, fours,
+                                          cam_m["frustum_planes"]),
+             "project": project,
+             "pack": lambda: rc.pack_quads(screen, counts, sil & (counts >= 3),
+                                           h, w)}
+    if hasattr(rc, "quad_prep"):
+        prep = (*sh.prepare_quads(cfg, dyn), cam_m["frustum_planes"],
+                cam_m["MVP"], cam_m["viewport"], h, w)
+        steps.update(order=lambda: sh.silhouette_order(sil),
+                     quad_prep=lambda: rc.quad_prep(*prep))
+        whole = lambda: sh.quad_tables(cfg, dyn, cam_m, h, w)
+        qdata, qi, n = whole()
+        kw = {"n_rows": n}
+    else:
+        whole = lambda: rc.pack_quads(*sh.prepare_quads(cfg, dyn, cam_m), h, w)
+        qdata, qi = whole()
+        kw = {}
+    faces, _ = pl._build_face_batch(cfg, dyn, cam_m)
+    zb, _ = rc.visibility(rc.pack_faces(faces), rc.face_flags(faces), h, w,
+                          cfg.system)
+    zc = torch.tensor(rc.stencil_scalars(dyn["camera"]["near"],
+                                         dyn["camera"]["far"]), device=dev)
+    steps["shadow_quads"] = whole
+    steps["stencil"] = lambda: rc.stencil(qdata, qi, zb, cfg.system, zc, **kw)
+    out = {"E": e, "n_sil": int(sil.sum())}
+    for name, fn in steps.items():
+        out[name] = cs._graph_ms(fn, calls=10)
+    return out
 
 
 if __name__ == "__main__":

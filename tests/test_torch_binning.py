@@ -44,7 +44,7 @@ def scene_inputs():
     import tpu_renderer_torch as tt
     from tpu_renderer_torch.models import gizmos as gz
     from tpu_renderer_torch.ops import pipeline as pl
-    from tpu_renderer_torch.ops.shadow import prepare_quads
+    from tpu_renderer_torch.ops.shadow import quad_tables
 
     from test_torch_kernels import build_scene
 
@@ -55,7 +55,7 @@ def scene_inputs():
     faces, _ = pl._build_face_batch(cfg, dyn, cam_m)
     fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
     zb, _ = rc.visibility_plain(fdata, flags, h, w, cfg.system)
-    qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
+    qdata, qi, _ = quad_tables(cfg, dyn, cam_m, h, w)
     zc = torch.tensor(rc.stencil_scalars(dyn["camera"]["near"],
                                          dyn["camera"]["far"]))
     return {"faces": (fdata, flags, h, w, cfg.system),

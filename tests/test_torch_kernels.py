@@ -28,14 +28,20 @@ This file imports no JAX, so it also runs on the card's host:
   non-finite edges, endpoints one ulp from integers, depths equal to the
   z-buffer, many edges through one tile); on the card, the coarse lists of
   K1, K4 and K7 (csrc/bins.cu) equal ``coarse_bins_plain``, and the
-  wrappers of K1, K4, K6 and K7 never synchronise with the host;
+  wrappers of K1, K4, K6, K7 and K8 never synchronise with the host;
 - the compiled frame on the card (``PATHS``, ``path_scene``; the CPU side
   is test_torch_compiled.py): over an orbit every replay equals the eager
   frame in all four outputs, with one capture, each replay adding the
   launches its capture recorded; a replay never synchronises; K4 reads its
   depth constants through its pointer at every replay of a captured graph;
 - instances of one mesh (bench_torch's crowd, small) on the card share
-  their texture stacks, match the CPU and render as their merged model.
+  their texture stacks, match the CPU and render as their merged model;
+- K8 (``quad_prep``) on the card equals its plain version over all its
+  table rows on the flagship, the crowd, cfg3-rh-shadows, a count of 0
+  and every row prepared; K4's quad binning stops at the count even where
+  active rows lie past it; a captured K8 and a captured Scene.render()
+  replay with a shrinking silhouette count and equal the plain version
+  and the eager frame each time.
 
 ``build_scene`` is the shared procedural test scene: test_torch_slice.py
 and test_torch_modules.py build the same scene in the JAX package.
@@ -538,7 +544,8 @@ CASES = {"visibility": ("visibility", "visibility"),
          "tidpass-dbg-shard": ("tidpass", "tidpass_dbg"),
          "visibility-dbg-long": ("visibility", "visibility_dbg"),
          "visibility_z-dbg-long-row0": ("visibility", "visibility_z_dbg"),
-         "tidpass-dbg-long-row0": ("tidpass", "tidpass_dbg")}
+         "tidpass-dbg-long-row0": ("tidpass", "tidpass_dbg"),
+         "quad_prep": ("quad_prep", "quad_prep")}
 
 #: row0 of the adversarial ``-row0`` cases.
 ADV_ROW0 = 40
@@ -558,7 +565,6 @@ def stage_inputs():
     """The kernels' inputs for the test_torch_slice scene (CPU), keyed by
     case id, as (args, kwargs)."""
     from tpu_renderer_torch.ops import pipeline as pl
-    from tpu_renderer_torch.ops.shadow import prepare_quads
 
     scene = build_scene(tt, gz_torch, device="cpu")
     cfg, dyn = scene._prepare()
@@ -569,7 +575,9 @@ def stage_inputs():
     zb, tid = rc.visibility_plain(fdata, flags, h, w, cfg.system)
     adata = rc.pack_face_attrs(attrs)
     gb = rc.gbuffer_plain(fdata, adata, tid)
-    qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
+    prep_args = chip_smoke.quad_prep_args(cfg, dyn, cam_m)
+    qdata, qi = rc.quad_prep_plain(*prep_args)
+    n_sil = {"n_rows": prep_args[2]}
     zc = torch.tensor(rc.stencil_scalars(dyn["camera"]["near"],
                                          dyn["camera"]["far"]))
     inputs = {
@@ -583,17 +591,19 @@ def stage_inputs():
             *pl._debug_vertices(dyn, cam_m)[:3],
             torch.cat([md["pad_valid"] for md in dyn["models"]]),
             zb * cfg.system, h, w),
+        "quad_prep": prep_args,
     }
     for layout in rc.SLIM_CHANNELS:
         inputs[f"gbuffer_slim-{layout}"] = (
             fdata, rc.pack_slim_attrs(attrs, layout), tid, layout)
     inputs = {case: (args, {}) for case, args in inputs.items()}
+    inputs["stencil"] = (inputs["stencil"][0], n_sil)
     shard = shard_inputs(cfg, dyn, zb, mesh=(2, 2), at=(1, 1))
     for case, args_kw in shard.items():
         inputs[SHARD_CASES[case]] = args_kw
     (_, _, zb_rows, _), kw = shard["tidpass"]
     inputs["stencil-row0"] = ((qdata, qi, zb_rows, cfg.system, zc),
-                              {"row0": kw["row0"]})
+                              {"row0": kw["row0"], **n_sil})
     inputs["visibility-long"] = ((*long_face_list(1), -1), {})
     inputs["visibility_z-long-row0"] = (
         (*long_face_list(2, ADV_ROW0), 1),
@@ -643,11 +653,9 @@ def _moved(args, kw, device):
 
 
 def _equal(a, b):
-    if a is None or b is None:
-        return a is b
-    if isinstance(a, tuple):
-        return all(_equal(x, y) for x, y in zip(a, b))
-    return torch.equal(a, b)
+    """Equal values, NaN where the other is NaN (K8's tables hold NaN
+    depth planes for quads that clipping emptied, as pack_quads' do)."""
+    return chip_smoke._same(a, b)
 
 
 def test_cases_cover_every_wrapper():
@@ -837,11 +845,12 @@ def test_coarse_bins_match_plain_on_card(cuda_inputs, name):
                                   "tidpass-dbg-shard",
                                   "visibility-dbg-long",
                                   "visibility_z-dbg-long-row0",
-                                  "tidpass-dbg-long-row0"])
+                                  "tidpass-dbg-long-row0", "quad_prep"])
 def test_binned_wrappers_do_not_sync_on_card(cuda_inputs, name):
-    """The wrappers of K1, K4, K6 and K7 never wait for the device: they
-    run under torch's sync debug mode "error", which raises on tile_bins'
-    nonzero."""
+    """The wrappers of K1, K4, K6, K7 and K8 never wait for the device:
+    they run under torch's sync debug mode "error", which raises on
+    tile_bins' nonzero (K4 and K8 read the silhouette count on the
+    card)."""
     args, kw = cuda_inputs[name]
     fn = getattr(rc, CASES[name][0])
     chip_smoke._assert_no_sync(lambda: fn(*args, **kw))
@@ -1023,3 +1032,134 @@ def test_stencil_reads_its_constants_at_replay_on_card(cuda_inputs):
         assert torch.equal(out.cpu(), want)
         shadowed.append(int((want != 0).sum()))
     assert shadowed[0] > 0 and len(set(shadowed)) > 1
+
+
+# ------------------------------------------------------------- K8 on the card
+
+#: K8's frames on the card: bench_torch's flagship, the crowd (99,842
+#: faces), cfg3-rh-shadows (sign +1, the spot light's w = 2 extrusion), the
+#: flagship with a count of 0, and the flagship with every edge's row
+#: prepared (order = every edge, count = E).
+QUAD_PREP_FRAMES = ("flagship", "cfg5-merged", "cfg3-rh-shadows",
+                    "no-silhouette", "every-row")
+#: Light positions whose silhouettes on the flagship shrink in this order.
+SHRINKING_LIGHTS = ((10, 10, 10), (5, 5, 0), (0, 3, 0))
+
+
+def _card_frame(name):
+    """(cfg, dyn, cam_m, K8's arguments) of a bench_torch frame on the
+    card: the flagship or a configuration."""
+    import bench_torch
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    scene = (bench_torch.build_scene("cuda") if name == "flagship"
+             else bench_torch.build_config(name))
+    cfg, dyn = scene._prepare()
+    cam_m = pl._cam_matrices(cfg, dyn["camera"], "cuda")
+    return cfg, dyn, cam_m, chip_smoke.quad_prep_args(cfg, dyn, cam_m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", QUAD_PREP_FRAMES)
+def test_quad_prep_matches_plain_on_card(card, frame):
+    """K8 equals quad_prep_plain bit for bit (NaN where NaN) over all its
+    table rows, in one launch; the rows past the count are zero."""
+    base = frame if frame in ("cfg5-merged", "cfg3-rh-shadows") \
+        else "flagship"
+    args = list(_card_frame(base)[3])
+    e = args[0].shape[0]
+    if frame == "no-silhouette":
+        args[2] = torch.zeros((), dtype=torch.int32, device="cuda")
+    elif frame == "every-row":
+        args[1] = torch.arange(e, dtype=torch.int32, device="cuda")
+        args[2] = torch.full((), e, dtype=torch.int32, device="cuda")
+    rc.reset_launches()
+    got = rc.quad_prep(*args)
+    torch.cuda.synchronize()
+    assert rc.LAUNCHES["quad_prep"] == 1
+    assert _equal(got, rc.quad_prep_plain(*args))
+    n = int(args[2])
+    assert n == 0 or (got[1][:n, 5] > 0).any()
+    assert (got[0][n:] == 0).all() and (got[1][n:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_quad_bins_follow_the_count_on_card(card):
+    """On the crowd's tables with active rows copied past the count, K4's
+    coarse lists (csrc/bins.cu) hold only rows below it, as
+    coarse_bins_plain with the count, and K4 equals the stencil of the
+    tables without those rows."""
+    cfg, dyn, cam_m, args = _card_frame("cfg5-merged")
+    h, w = cfg.resolution
+    qdata, qi = rc.quad_prep(*args)
+    n = int(args[2])
+    assert 0 < n and 2 * n <= qi.shape[0]
+    stale_d, stale_i = qdata.clone(), qi.clone()
+    stale_d[n:2 * n], stale_i[n:2 * n] = qdata[:n], qi[:n]
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    faces, _ = pl._build_face_batch(cfg, dyn, cam_m)
+    zb, _ = rc.visibility(rc.pack_faces(faces), rc.face_flags(faces), h, w,
+                          cfg.system)
+    zc = chip_smoke._stencil_constants(dyn, "cuda")
+    stale = (stale_d, stale_i, zb, cfg.system, zc)
+    chip_smoke._check_coarse_bins("stencil", stale, {"n_rows": args[2]})
+    got = rc.stencil(*stale, n_rows=args[2])
+    want = rc.stencil_plain(qdata, qi, zb, cfg.system, zc)
+    assert torch.equal(got, want) and (want != 0).any()
+
+
+@pytest.mark.cuda
+def test_quad_prep_graph_replays_with_a_shrinking_count_on_card(card):
+    """K8 captured once into a CUDA graph, replayed after counts E, n_sil
+    and 0 are copied into its count: each replay's tables equal the plain
+    version's with that count, so no row of an earlier replay survives."""
+    args = list(_card_frame("flagship")[3])
+    e = args[0].shape[0]
+    count = torch.full((), e, dtype=torch.int32, device="cuda")
+    n_sil = int(args[2])
+    args[2] = count
+    rc.quad_prep(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with rc.counting_into({}), torch.cuda.graph(graph):
+        out = rc.quad_prep(*args)
+    for n in (e, n_sil, 0):
+        count.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _equal(out, rc.quad_prep_plain(*args))
+        assert (out[1][n:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_replay_with_a_shrinking_silhouette_on_card(card):
+    """The flagship through Scene.render() (one captured program) as the
+    light moves so that n_sil shrinks: each replay equals the eager frame
+    in all four outputs and the plain path's stencil, and launches K8 and
+    K4 once."""
+    import bench_torch
+    from tpu_renderer_torch.ops import compiled
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops.shadow import prepare_quads
+
+    compiled.clear_compiled()
+    builds = compiled.CACHE.builds
+    scene = bench_torch.build_scene("cuda", resolution=(256, 256), tex=64)
+    counts = []
+    for pos in SHRINKING_LIGHTS:
+        scene.light.set_position(pos)
+        rc.reset_launches()
+        frame = scene.render()
+        torch.cuda.synchronize()
+        assert rc.LAUNCHES["quad_prep"] >= 1 and rc.LAUNCHES["stencil"] >= 1
+        cfg, dyn = scene._prepare()
+        counts.append(int(prepare_quads(cfg, dyn)[2]))
+        want = pl.render_frame(cfg, dyn)
+        got = (torch.from_numpy(frame).cuda(), scene.last_zbuf,
+               scene.last_tid, scene.last_stencil)
+        assert chip_smoke._same(got, tuple(want))
+        plain = pl.render_frame(cfg, dyn, ops=rc.PLAIN)
+        assert torch.equal(scene.last_stencil, plain[3])
+    assert compiled.CACHE.builds == builds + 1
+    assert counts[0] > counts[1] > counts[2] > 0

@@ -57,10 +57,10 @@ def _name(shader, shape):
 
 def _rank(rank, world, out_dir, runs):
     """One gloo rank: every run's four buffers, and for a triangle-sharded
-    general run its shard's prepared shadow quads, saved per rank."""
+    general run its shard's quad tables and count, saved per rank."""
     import torch.distributed as dist
 
-    from tpu_renderer_torch.ops.shadow import prepare_quads
+    from tpu_renderer_torch.ops.shadow import quad_tables
     from tpu_renderer_torch.parallel.sharded import (pad_models_for_tris,
                                                      shard_dyn)
 
@@ -80,8 +80,9 @@ def _rank(rank, world, out_dir, runs):
                 shard = shard_dyn(pad_models_for_tris(dyn, n_tris), n_tris,
                                   idx)
                 cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-                out += [t.numpy() for t in prepare_quads(
-                    cfg, shard, cam_m, mesh.get_group("tris"), idx)]
+                out += [t.numpy() for t in quad_tables(
+                    cfg, shard, cam_m, *RES_P, group=mesh.get_group("tris"),
+                    shard_idx=idx)]
             np.savez(f"{out_dir}/{_name(shader, (n_rows, n_tris))}_{rank}",
                      *out)
     finally:
@@ -201,21 +202,28 @@ def test_sharded_matches_one_device(port_sharded, port_one_device, shader,
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
 def test_silhouette_shards_partition(port_sharded, port_one_device, shape):
-    """The tris shards' ok quads (prepare_quads under the group) are the
-    one-device silhouette quads, each once, with the same screen rows (the
-    port's form of test_parallel.py:206-283, without its compaction)."""
-    from tpu_renderer_torch.ops.shadow import prepare_quads
+    """The tris shards' compact rows (quad_tables under the group: rank r
+    prepares rows [r*c, min(n_sil, (r+1)*c)) of the global
+    silhouette-first order, c = ceil(n_sil / n)) partition the one-device
+    rows: in rank order they are the one-device table's first n_sil rows,
+    each once, and every shard's rows past its count are zero (the port's
+    form of test_parallel.py:206-283)."""
+    from tpu_renderer_torch.ops.shadow import quad_tables
 
     scene = build_scene(tt, gz_torch, resolution=RES_P, device="cpu")
     cfg, dyn = scene._prepare()
-    screen, _, ok = prepare_quads(cfg, dyn,
-                                  pl._cam_matrices(cfg, dyn["camera"], "cpu"))
-    want = screen.numpy()[ok.numpy()].reshape(int(ok.sum()), -1)
+    qdata, qi, n_sil = quad_tables(
+        cfg, dyn, pl._cam_matrices(cfg, dyn["camera"], "cpu"), *RES_P)
+    n_sil = int(n_sil)
+    c = -(-n_sil // shape[1])
     ranks = port_sharded["general", shape][:shape[1]]    # row block 0
-    got = np.concatenate([r[4][r[6]] for r in ranks]).reshape(len(want), -1)
-    assert len(want) > 0
-    np.testing.assert_array_equal(got[np.lexsort(got.T)],
-                                  want[np.lexsort(want.T)])
+    assert n_sil > 0 and [int(r[6]) for r in ranks] == [
+        max(0, min(n_sil, (t + 1) * c) - t * c) for t in range(shape[1])]
+    for cols, want in ((4, qdata.numpy()), (5, qi.numpy())):
+        got = np.concatenate([r[cols][:int(r[6])] for r in ranks])
+        np.testing.assert_array_equal(got, want[:n_sil])
+        for r in ranks:
+            assert (r[cols][int(r[6]):] == 0).all()
 
 
 def test_shard_dyn_matches_jax_padding():

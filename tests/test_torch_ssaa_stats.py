@@ -84,11 +84,11 @@ def stencil_ties(cfg, dyn, zbuf, rtol=1e-5):
     ``|zb*q| + |nf2|``."""
     from tpu_renderer_torch.ops import raster_cuda as rc
     from tpu_renderer_torch.ops import raster_plain as rp
-    from tpu_renderer_torch.ops.shadow import QUAD_PMAX, prepare_quads
+    from tpu_renderer_torch.ops.shadow import QUAD_PMAX, quad_tables
 
     h, w = cfg.resolution
     cam_m = pl_torch._cam_matrices(cfg, dyn["camera"], "cpu")
-    qdata, qi = rc.pack_quads(*prepare_quads(cfg, dyn, cam_m), h, w)
+    qdata, qi, _ = quad_tables(cfg, dyn, cam_m, h, w)
     nf2, fpn, fmn = rc.stencil_scalars(dyn["camera"]["near"],
                                        dyn["camera"]["far"])
     rows, cols = rp._grid(h, w, "cpu", 0)

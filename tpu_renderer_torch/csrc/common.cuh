@@ -158,11 +158,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // pixels: every raster block of a coarse tile refines its list to its own
 // TILE x TILE tile. Tile t of the grid over `height` rows from row0 lists
 // items[t*n : t*n + counts[t]], ascending; the capacity n per tile means no
-// overlap is ever dropped. Returns the launch's cudaError_t.
+// overlap is ever dropped. A non-null n_rows (a count on the card) limits
+// the scan to the first min(*n_rows, n) rows. Returns the launch's
+// cudaError_t.
 enum BinKind { BIN_FACES = 0, BIN_QUADS = 1 };
 int launch_coarse_bins(int kind, const float* fdata, const int* words, int n,
-                       int height, int width, int row0, int* counts,
-                       int* items, cudaStream_t stream);
+                       const int* n_rows, int height, int width, int row0,
+                       int* counts, int* items, cudaStream_t stream);
 
 // The coarse tile of a raster block of TILE x TILE pixels.
 __device__ __forceinline__ int coarse_tile_of_block(int width) {

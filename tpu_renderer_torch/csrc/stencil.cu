@@ -53,7 +53,9 @@
 // prune (:844-869) is left out.
 //
 // The rows start at row0 (a block of frame rows, pixel math in global
-// coordinates), and so do the quads' tile lists.
+// coordinates), and so do the quads' tile lists. With a count n_rows (K8's
+// silhouette count, on the card; null: every row), the lists hold only
+// the table's first *n_rows rows, so K4's work follows the count.
 //
 // The depth constants (nf2, fpn, fmn) = (2*near*far, far+near, far-near),
 // float32 values composed on the host (raster_cuda.stencil_scalars), are
@@ -179,13 +181,14 @@ __global__ void __launch_bounds__(BLOCK)
 }  // namespace
 
 TR_EXPORT int tr_stencil(const float* qdata, const int* qi, int n_quads,
-                         int* bin_counts, int* bin_items,
+                         const int* n_rows, int* bin_counts, int* bin_items,
                          const float* zb_sign, int height, int width, int row0,
                          float sign, const float* zc, int* stencil,
                          void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    const int rc = launch_coarse_bins(BIN_QUADS, nullptr, qi, n_quads, height,
-                                      width, row0, bin_counts, bin_items, st);
+    const int rc =
+        launch_coarse_bins(BIN_QUADS, nullptr, qi, n_quads, n_rows, height,
+                           width, row0, bin_counts, bin_items, st);
     if (rc != 0) return rc;
     const dim3 block(TILE, TILE);
     const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE);

@@ -71,8 +71,9 @@ TR_EXPORT int tr_tidpass(const float* fdata, const int* flags,
                          int width, int row0, int gid0, float sign, int* tid,
                          void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    const int rc = launch_coarse_bins(BIN_FACES, fdata, flags, n_faces, height,
-                                      width, row0, bin_counts, bin_items, st);
+    const int rc =
+        launch_coarse_bins(BIN_FACES, fdata, flags, n_faces, nullptr, height,
+                           width, row0, bin_counts, bin_items, st);
     if (rc != 0) return rc;
     const dim3 block(TILE, TILE);
     const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE);

@@ -50,12 +50,16 @@ _SIGNATURES = {
     # gid0, g_local, samp, mask, stream
     "tr_sample_textures": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _P, _P, _P],
-    # qdata, qi, n_quads, bin_counts, bin_items, zb_sign, H, W, row0,
-    # sign, zc (3 floats on the card: nf2, fpn, fmn), stencil, stream
-    "tr_stencil": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
-    # kind (0 faces, 1 quads), fdata, flags or qi, n, H, W, row0,
-    # bin_counts, bin_items, stream
-    "tr_coarse_bins": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # qdata, qi, n_quads, n_rows (a count on the card; null: every row),
+    # bin_counts, bin_items, zb_sign, H, W, row0, sign, zc (3 floats on the
+    # card: nf2, fpn, fmn), stencil, stream
+    "tr_stencil": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    # kind (0 faces, 1 quads), fdata, flags or qi, n, n_rows (null: n), H,
+    # W, row0, bin_counts, bin_items, stream
+    "tr_coarse_bins": [_I, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
+    # quad, order, cap, n_rows (a count on the card), planes, mvp,
+    # viewport, H, W, qdata, qi, stream
+    "tr_quad_prep": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     # fdata, sdata, tid, layout, H, W, row0, gid0, g_local, gbuffer, stream
     "tr_gbuffer_slim": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # ldata, lbbox, active, n_edges, zbuf, H, W, mask, stream

@@ -9,7 +9,8 @@ branches of ``tpu_renderer/ops/pipeline.py``.
     -> K3 texture samples from the texel pool       raster_cuda.sample_textures
     flat / gouraud / pbr shaders:
     -> K5 slim G-buffer: 3 or 11 channels           raster_cuda.gbuffer_slim
-    -> shadow quads (silhouette, extrude, clip)     ops/shadow.py
+    -> shadow quads (silhouette, extrude, order)    ops/shadow.py
+    -> K8 clip, project, pack the silhouette quads  raster_cuda.quad_prep
     -> K4 signed stencil                            raster_cuda.stencil
     -> deferred shading over the background         _shade_gbuffer / _shade_slim
        (a color, or the cubemap skybox)             _background, ops/cubemap.py
@@ -37,7 +38,8 @@ Sharded (``parallel/sharded.py``, the JAX package's shard_map branches
 
     K1 z only -> MIN of zb -> K7 tidpass -> MAX of tid
     -> K2 / K5 owned range -> SUM -> K3 owned range -> SUM of samp, mask
-    -> the shard's quads -> K4 -> SUM of stencil -> shade
+    -> the shard's stretch of the silhouette quads -> K8 -> K4
+    -> SUM of stencil -> shade
 
 each merge under a ``tr.merge_<what>`` range (parallel/mesh.py).
 
@@ -76,7 +78,7 @@ from tpu_renderer_torch.ops import raster_cuda as rc
 from tpu_renderer_torch.ops import shading as sh
 from tpu_renderer_torch.ops.cubemap import fill_skybox, skybox_inputs
 from tpu_renderer_torch.ops.lightning import Lightning
-from tpu_renderer_torch.ops.shadow import _cross, prepare_quads
+from tpu_renderer_torch.ops.shadow import _cross, quad_tables
 from tpu_renderer_torch.ops.transforms import bound_box_batch, normalize
 from tpu_renderer_torch.ops.vertex import (_rowvec, gather_faces,
                                            screen_normal_z,
@@ -513,14 +515,16 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
     if cfg.shadows:
         # Computed for every shader and returned; the slim shaders do not
         # read it (pipeline.py:878-939 of the JAX package).
+        # Only the silhouette quads are clipped, projected, packed (K8)
+        # and binned (K4), as many as the count on the device says.
         with _span("shadow_quads"):
-            prepared = prepare_quads(cfg, dyn, st, tris_group, tris_idx)
-            if prepared is not None:
-                qdata, qi = rc.pack_quads(*prepared, height, width)
-        if prepared is not None:
+            tables = quad_tables(cfg, dyn, st, height, width, ops,
+                                 tris_group, tris_idx)
+        if tables is not None:
+            qdata, qi, n_sil = tables
             with _span("stencil"):
                 stencil = ops.stencil(qdata, qi, zb_sign, sign, st["zc"],
-                                      row0=row0)
+                                      row0=row0, n_rows=n_sil)
             stencil = all_reduce(stencil, "sum", tris_group, "stencil")
 
     with _span("shade"):

@@ -17,6 +17,9 @@ Counterpart of ``tpu_renderer/ops/raster_pallas.py``:
 |                     |                        | and gbuffer_pallas's (owned range)      |
 | ``lines``           | csrc/lines.cu          | lines_pallas                            |
 | ``tidpass``         | csrc/tidpass.cu        | tidpass_pallas                          |
+| ``quad_prep``       | csrc/quad_prep.cu      | no pallas_call: the XLA clip, projection|
+|                     |                        | and pack_quads of the compacted         |
+|                     |                        | silhouette (shadow.py:262-339 there)    |
 
 Sharded rendering (parallel/sharded.py) gives the raster kernels a block of
 frame rows from ``row0`` (pixel math stays in global coordinates) and a
@@ -46,6 +49,11 @@ into scratch sized from what the host knows (table rows, frame size,
 COARSE); K6 scatters each edge's DDA pixels with no binning. So no wrapper
 waits for the device (:func:`tile_bins`, whose ``nonzero`` does, serves
 tests and measurements only).
+
+K8 (``quad_prep``) clips, projects and packs only the silhouette quads,
+whose count it reads on the device, into tables of a capacity the host
+knows; K4 bins only the rows below that count (``n_rows``). The work of
+both follows the count, and neither wrapper reads it on the host.
 """
 from __future__ import annotations
 
@@ -59,7 +67,7 @@ from tpu_renderer_torch.ops.shadow import QUAD_PMAX, quad_edge_coeffs, \
 
 __all__ = [
     "face_flags", "pack_faces", "pack_debug_planes", "pack_face_attrs",
-    "pack_quads",
+    "pack_quads", "quad_prep", "quad_prep_plain",
     "pack_slim_attrs", "pack_lines", "stencil_scalars", "tile_bins",
     "coarse_bins_plain", "bin_scratch_bytes", "COARSE", "MAX_BIN_SCRATCH",
     "visibility", "gbuffer", "sample_textures", "stencil", "gbuffer_slim",
@@ -77,7 +85,7 @@ __all__ = [
 LAUNCHES = {"visibility": 0, "visibility_z": 0, "visibility_dbg": 0,
             "visibility_z_dbg": 0, "gbuffer": 0, "sample_textures": 0,
             "stencil": 0, "gbuffer_slim": 0, "lines": 0, "tidpass": 0,
-            "tidpass_dbg": 0}
+            "tidpass_dbg": 0, "quad_prep": 0}
 
 
 def reset_launches():
@@ -281,6 +289,34 @@ def pack_quads(screen, counts, ok, height, width):
     return qdata, qi
 
 
+def quad_prep_plain(quad, order, n_rows, planes, mvp, viewport, height,
+                    width):
+    """K8's plain version: the quad tables of the first ``n_rows`` rows of
+    ``order``. Row i < n_rows is ``quad[order[i]]`` clipped and projected
+    (shadow.clip_project) and packed (:func:`pack_quads`, ok = count >= 3:
+    every row it prepares is a silhouette edge's); the rows past the count
+    are zero, so inactive. Reads the count on the host (the plain version
+    serves the CPU path and, on the card, as the kernel's oracle).
+
+    quad: (E, 4, 4) float32; order: (C,) int32 rows of ``quad``; n_rows: 0-d
+    int32; planes (6, 4), mvp and viewport (4, 4) float32. Returns (qdata
+    (C, 44) float32, qi (C, 8) int32).
+    """
+    from tpu_renderer_torch.ops.shadow import clip_project
+
+    cap = order.shape[0]
+    k = max(0, min(int(n_rows), cap))
+    qdata = torch.zeros((cap, Q_COLS), dtype=torch.float32,
+                        device=quad.device)
+    qi = torch.zeros((cap, QI_COLS), dtype=torch.int32, device=quad.device)
+    screen, counts = clip_project(
+        quad[order[:k].long()],
+        {"frustum_planes": planes, "MVP": mvp, "viewport": viewport})
+    qdata[:k], qi[:k] = pack_quads(screen, counts, counts >= 3, height,
+                                   width)
+    return qdata, qi
+
+
 def pack_slim_attrs(attrs, layout):
     """Shading attrs -> (G, SLIM_COLS[layout]) float32 slim face table,
     column for column as raster_pallas.pack_slim_attrs (:1278): flat the
@@ -377,18 +413,21 @@ def tile_bins(bbox, active, height, width, tile=TILE, row0=0):
     return offsets.to(torch.int32), items.to(torch.int32).contiguous()
 
 
-def coarse_bins_plain(bbox, active, height, width, row0=0):
+def coarse_bins_plain(bbox, active, height, width, row0=0, n_rows=None):
     """The coarse lists csrc/bins.cu builds for K1 and K4: for each COARSE
     tile over ``height`` rows from ``row0`` (row-major), the active
     primitives whose bbox overlaps it, in table order.
 
     bbox: (N, 4) [x0, x1, y0, y1) windows, compared in their own type (K1's
     packed float windows as floats, K4's int32 ones as integers); active:
-    (N,) bool. Returns (counts (T,) int32, items (T, N) int32, -1 past each
-    tile's count).
+    (N,) bool; ``n_rows``: None, or a 0-d int32 tensor, the count of
+    leading rows K4's lists scan (the rest count as inactive). Returns
+    (counts (T,) int32, items (T, N) int32, -1 past each tile's count).
     """
     dev = bbox.device
     n = bbox.shape[0]
+    if n_rows is not None:
+        active = active & (torch.arange(n, device=dev) < n_rows)
     b = bbox if bbox.is_floating_point() else bbox.to(torch.int64)
     ty = torch.arange(-(-height // COARSE), device=dev,
                       dtype=b.dtype)[:, None] * COARSE + row0
@@ -605,17 +644,21 @@ def texel_indices(tid, iu, iv, ftex, slots, gid0=0):
     return torch.stack(idxs), torch.stack(hits)
 
 
-def stencil_plain(qdata, qi, zb_sign, sign, zc, row0=0, chunk=16):
-    """K4's plain version: the JAX package's _quad_fragments summed over all
+def stencil_plain(qdata, qi, zb_sign, sign, zc, row0=0, n_rows=None,
+                  chunk=16):
+    """K4's plain version: the JAX package's _quad_fragments summed over the
     quads (see shadow.quad_fragments), on the rows from ``row0``; ``zc``
-    holds (nf2, fpn, fmn), a (3,) float32 tensor or three floats. Returns
-    (H, W) int32."""
+    holds (nf2, fpn, fmn), a (3,) float32 tensor or three floats;
+    ``n_rows``: None (every row) or a 0-d int32 tensor, the count of
+    leading table rows that take part. Returns (H, W) int32."""
     nf2, fpn, fmn = zc
     height, width = zb_sign.shape
     dev = zb_sign.device
     rows, cols = rp._grid(height, width, dev, row0)
     st = torch.zeros((height, width), dtype=torch.int32, device=dev)
     keep = qi[:, 5] > 0                  # quads without ok contribute 0
+    if n_rows is not None:
+        keep &= torch.arange(qi.shape[0], device=dev) < n_rows
     qdata, qi = qdata[keep], qi[keep]
     for q0 in range(0, qdata.shape[0], chunk):
         qrow = torch.cat([qdata[q0:q0 + chunk],
@@ -825,30 +868,63 @@ def sample_textures(tid, iu, iv, ftex, slots, pool, gid0=0):
     return samp, mask
 
 
-def stencil(qdata, qi, zb_sign, sign, zc, row0=0):
+def stencil(qdata, qi, zb_sign, sign, zc, row0=0, n_rows=None):
     """K4: signed shadow-volume stencil against the final z-buffer.
 
-    qdata (E, 44) float32, qi (E, 8) int32 (pack_quads); zb_sign (H, W)
-    float32, the rows from ``row0``; sign ±1; zc (3,) float32 on the same
-    device, :func:`stencil_scalars`' (nf2, fpn, fmn), which K4 reads
-    through its pointer. Returns (H, W) int32.
+    qdata (E, 44) float32, qi (E, 8) int32 (:func:`quad_prep` or
+    :func:`pack_quads`); zb_sign (H, W) float32, the rows from ``row0``;
+    sign ±1; zc (3,) float32 on the same device, :func:`stencil_scalars`'
+    (nf2, fpn, fmn), which K4 reads through its pointer; n_rows None (every
+    row) or a 0-d int32 tensor on the same device, the count of leading
+    rows K4 bins, which it reads through its pointer (quad_prep's count).
+    Returns (H, W) int32.
     """
-    if _on_cpu(qdata, qi, zb_sign, zc):
-        return stencil_plain(qdata, qi, zb_sign, sign, zc, row0)
+    tensors = (qdata, qi, zb_sign, zc) + (() if n_rows is None else
+                                          (n_rows,))
+    if _on_cpu(*tensors):
+        return stencil_plain(qdata, qi, zb_sign, sign, zc, row0, n_rows)
     e = qdata.shape[0]
     height, width = zb_sign.shape
     _require(qdata, "qdata", torch.float32, (e, Q_COLS))
     _require(qi, "qi", torch.int32, (e, QI_COLS))
     _require(zb_sign, "zb_sign", torch.float32, (height, width))
     _require(zc, "zc", torch.float32, (3,))
+    if n_rows is not None:
+        _require(n_rows, "n_rows", torch.int32, ())
     _require_aligned(qdata, "qdata", 16)
     counts, items = _bin_scratch(e, height, width, zb_sign.device)
     st = torch.empty((height, width), dtype=torch.int32,
                      device=zb_sign.device)
-    _launch("stencil", qdata.data_ptr(), qi.data_ptr(), e, counts.data_ptr(),
-            items.data_ptr(), zb_sign.data_ptr(), height, width, row0,
-            float(sign), zc.data_ptr(), st.data_ptr())
+    _launch("stencil", qdata.data_ptr(), qi.data_ptr(), e, _ptr(n_rows),
+            counts.data_ptr(), items.data_ptr(), zb_sign.data_ptr(), height,
+            width, row0, float(sign), zc.data_ptr(), st.data_ptr())
     return st
+
+
+def quad_prep(quad, order, n_rows, planes, mvp, viewport, height, width):
+    """K8: the stencil kernel's quad tables of the silhouette quads (see
+    quad_prep_plain for the arguments), one thread per table row: rows
+    below ``n_rows``, which the kernel reads through its pointer, are
+    clipped, projected and packed, the rest written as zeros. Returns
+    (qdata (C, 44) float32, qi (C, 8) int32)."""
+    if _on_cpu(quad, order, n_rows, planes, mvp, viewport):
+        return quad_prep_plain(quad, order, n_rows, planes, mvp, viewport,
+                               height, width)
+    e, cap = quad.shape[0], order.shape[0]
+    _require(quad, "quad", torch.float32, (e, 4, 4))
+    _require(order, "order", torch.int32, (cap,))
+    _require(n_rows, "n_rows", torch.int32, ())
+    _require(planes, "planes", torch.float32, (6, 4))
+    _require(mvp, "mvp", torch.float32, (4, 4))
+    _require(viewport, "viewport", torch.float32, (4, 4))
+    qdata = torch.empty((cap, Q_COLS), dtype=torch.float32,
+                        device=quad.device)
+    qi = torch.empty((cap, QI_COLS), dtype=torch.int32, device=quad.device)
+    _launch("quad_prep", quad.data_ptr(), order.data_ptr(), cap,
+            n_rows.data_ptr(), planes.data_ptr(), mvp.data_ptr(),
+            viewport.data_ptr(), height, width, qdata.data_ptr(),
+            qi.data_ptr())
+    return qdata, qi
 
 
 def gbuffer_slim(fdata, sdata, tid, layout, row0=0, gid0=0):
@@ -897,7 +973,7 @@ class _Ops:
     call."""
 
     def __init__(self, visibility, gbuffer, sample_textures, stencil,
-                 gbuffer_slim, lines, tidpass):
+                 gbuffer_slim, lines, tidpass, quad_prep):
         self.visibility = visibility
         self.gbuffer = gbuffer
         self.sample_textures = sample_textures
@@ -905,11 +981,13 @@ class _Ops:
         self.gbuffer_slim = gbuffer_slim
         self.lines = lines
         self.tidpass = tidpass
+        self.quad_prep = quad_prep
 
 
 #: The main path: kernels on CUDA tensors, plain versions on CPU tensors.
 KERNELS = _Ops(visibility, gbuffer, sample_textures, stencil, gbuffer_slim,
-               lines, tidpass)
+               lines, tidpass, quad_prep)
 #: The plain versions on any device: the oracle a kernel run is held to.
 PLAIN = _Ops(visibility_plain, gbuffer_plain, sample_textures_plain,
-             stencil_plain, gbuffer_slim_plain, lines_plain, tidpass_plain)
+             stencil_plain, gbuffer_slim_plain, lines_plain, tidpass_plain,
+             quad_prep_plain)

@@ -9,23 +9,33 @@ Counterpart of ``tpu_renderer/ops/shadow.py``:
    — position, not direction — like triangular.py:295.
 2. **Extrusion** (core.py:613-621), including the reference's homogeneous
    quirk for directional lights (w = 2 on the extruded points).
-3. **Clipping** of every quad against the six world-space frustum planes
-   (triangular.py:320), batched (ops/frustum.clip_polygon).
-4. **Stencil** (triangular.py:319-368): point-in-convex-polygon by edge
+3. **Compaction** (shadow.py:306-339 there): the edges in the stable
+   silhouette-first order (JAX's ``argsort(~sil, stable=True)``, here an
+   exclusive prefix sum and a scatter) and their silhouette count
+   ``n_sil``, a 0-d int32 tensor on the edges' device: nothing waits for
+   the device, so a captured frame replays with any count.
+4. **Clip, project, pack** of the first ``n_sil`` edges of that order only
+   (``raster_cuda.quad_prep``: K8, csrc/quad_prep.cu, on the card; on the
+   CPU its plain version, :func:`clip_project` then
+   ``raster_cuda.pack_quads``): each quad is clipped against the six
+   world-space frustum planes (triangular.py:320, ops/frustum.clip_polygon),
+   projected, and packed into the stencil kernel's tables, whose rows past
+   the count are zero (inactive). JAX's static capacity ladder (E/5, E/3,
+   E, picked by ``lax.cond``) exists because XLA needs static shapes; the
+   port's tables keep the capacity E and K8 and K4 read the count on the
+   device instead.
+5. **Stencil** (triangular.py:319-368): point-in-convex-polygon by edge
    half-planes, plane-equation depth in divide-free multiply-compare form,
    geometry pixels only, +1 for front quads and -1 for back quads. The sum
-   is over integers, so any order gives the same stencil.
-
-Quads are prepared through the JAX package's uncompacted path
-(``prepare_quads``'s ``_prep``, shadow.py:262-287 there) at every scene size:
-its silhouette compaction and cap ladder exist to save TPU work, and the
-quads they skip have ``ok`` false, so the stencil comes out the same.
+   is over integers, so any order gives the same stencil; K4 bins and
+   rasterizes only the first ``n_sil`` rows.
 
 Under triangle sharding (a process ``group`` over the ``tris`` axis) each
 rank holds a slice of the faces and their edge incidences: the parity
 counts SUM and the last light-facing incidence MAXes over the group, so
-every rank sees the global silhouette; each rank then clips and projects
-an even slice of the global edge list, and the partial stencils SUM.
+every rank sees the global silhouette and the same global order; rank r
+then prepares the contiguous compact rows ``[r*c, min(n_sil, (r+1)*c))``,
+c = ceil(n_sil / n) computed on the device, and the partial stencils SUM.
 """
 from __future__ import annotations
 
@@ -39,7 +49,9 @@ from tpu_renderer_torch.ops.vertex import _rowvec
 from tpu_renderer_torch.parallel.mesh import all_reduce
 
 __all__ = ["silhouette_edges", "extrude_quads", "quad_edge_coeffs",
-           "prepare_quads", "shadow_stencil", "QUAD_PMAX"]
+           "prepare_quads", "silhouette_order", "clip_project",
+           "quad_tables", "shadow_stencil",
+           "QUAD_PMAX"]
 
 #: Padded vertex capacity for a quad clipped by 6 planes (4 + 6 = 10 max).
 QUAD_PMAX = 12
@@ -162,14 +174,22 @@ def quad_fragments(qrow, zb_sign, rows, cols, sign, nf2, fpn, fmn):
     return torch.where(mask, contrib, 0).sum(0, dtype=torch.int32)
 
 
-def prepare_quads(cfg, dyn, cam_m, group=None, shard_idx=0):
-    """Silhouette -> extruded quads -> world clip -> screen projection.
+def prepare_quads(cfg, dyn, group=None, shard_idx=0):
+    """Silhouette -> extruded quads -> the silhouette-first order and count.
 
-    Returns (screen (E, QUAD_PMAX, 4), counts (E,) int32, ok (E,) bool), or
-    None when no model casts shadows. With a process ``group`` (triangle
-    sharding, ``dyn`` this rank's shard) the global edge list is padded to
-    a multiple of the group's size and only this rank's slice ``shard_idx``
-    is clipped and projected (JAX shadow.py:289-305).
+    Returns (quad (E, 4, 4) float32, order (C,) int32, count () int32), or
+    None when no model casts shadows: the rows to prepare are
+    ``quad[order[i]]`` for i < count (``raster_cuda.quad_prep``). On one
+    device C = E, ``order`` is the stable silhouette-first permutation of
+    the edges (JAX's ``argsort(~sil, stable=True)``, shadow.py:307) and
+    count the silhouette count ``n_sil``. With a process ``group``
+    (triangle sharding, ``dyn`` this rank's shard) C = ceil(E / n) and
+    ``order`` is this rank's stretch of the global order, from
+    ``shard_idx * c`` with c = ceil(n_sil / n), and count its length
+    ``min(n_sil, (shard_idx + 1) * c) - shard_idx * c`` (at least 0), so
+    the ranks' rows partition the one-device rows. No step waits for the
+    device. The camera enters at K8 (JAX's takes ``cam_m`` here because
+    its ``prepare_quads`` also clips and projects).
     """
     light = dyn["light"]
     quads, flags = [], []
@@ -186,41 +206,81 @@ def prepare_quads(cfg, dyn, cam_m, group=None, shard_idx=0):
     if not quads:
         return None
     quad = torch.cat(quads, dim=0)
-    sil = torch.cat(flags, dim=0)
-    if group is not None:
-        n = dist.get_world_size(group)
-        fs = -(-quad.shape[0] // n)
-        pad = fs * n - quad.shape[0]
-        quad = torch.cat([quad, quad.new_zeros((pad, 4, 4))])
-        sil = torch.cat([sil, sil.new_zeros(pad)])
-        quad = quad[shard_idx * fs:(shard_idx + 1) * fs]
-        sil = sil[shard_idx * fs:(shard_idx + 1) * fs]
+    order, n_sil = silhouette_order(torch.cat(flags, dim=0))
+    if group is None:
+        return quad, order, n_sil
+    e = quad.shape[0]
+    n = dist.get_world_size(group)
+    c = (n_sil + (n - 1)) // n
+    start = shard_idx * c
+    count = torch.clamp(torch.minimum(n_sil, start + c) - start, min=0)
+    rows = torch.clamp(start + torch.arange(-(-e // n), device=quad.device),
+                       max=e - 1)
+    return quad, order[rows], count.to(torch.int32)
 
+
+def silhouette_order(sil):
+    """(order (E,) int32, n_sil () int32) of the silhouette flags (E,)
+    bool: the stable silhouette-first permutation (JAX's ``argsort(~sil,
+    stable=True)``, shadow.py:307) and the silhouette count, on the flags'
+    device. A silhouette edge goes to the number of silhouette edges
+    before it, any other edge after all n_sil of them, to the number of
+    other edges before it: an exclusive prefix sum, no sort, no sync."""
+    idx = torch.arange(sil.shape[0], dtype=torch.int32, device=sil.device)
+    csum = torch.cumsum(sil, 0, dtype=torch.int32)
+    n_sil = csum[-1]
+    pos = torch.where(sil, csum - 1, n_sil + idx - csum)
+    return torch.empty_like(idx).scatter_(0, pos.long(), idx), n_sil
+
+
+def clip_project(quad, cam_m):
+    """Extruded quads (Q, 4, 4) -> (screen (Q, QUAD_PMAX, 4), counts (Q,)
+    int32): the six-plane world clip (ops/frustum.clip_polygon) and the
+    projection MVP -> /w -> viewport (triangular.py:325-327), the JAX
+    package's ``_prep`` (shadow.py:262-271). Slots past a quad's count
+    hold the projection of a zero vertex (NaN)."""
     padded = torch.zeros((quad.shape[0], QUAD_PMAX, 4), dtype=torch.float32,
                          device=quad.device)
     padded[:, :4] = quad
     counts = torch.full((quad.shape[0],), 4, dtype=torch.int32,
                         device=quad.device)
     clipped, counts = clip_polygon(padded, counts, cam_m["frustum_planes"])
-    ok = sil & (counts >= 3)
-    # Project to screen: MVP -> /w -> viewport (triangular.py:325-327).
     ndc = _rowvec(clipped, cam_m["MVP"])
-    screen = _rowvec(ndc / ndc[..., 3:4], cam_m["viewport"])
-    return screen, counts, ok
+    return _rowvec(ndc / ndc[..., 3:4], cam_m["viewport"]), counts
+
+
+def quad_tables(cfg, dyn, cam_m, height, width, ops=None, group=None,
+                shard_idx=0):
+    """The stencil kernel's quad tables of a frame: :func:`prepare_quads`,
+    then ``ops.quad_prep`` (``raster_cuda.KERNELS`` by default: K8 on the
+    card, its plain version on the CPU). ``cam_m`` holds frustum_planes,
+    MVP and viewport on the quads' device. Returns (qdata (C, 44) float32,
+    qi (C, 8) int32, count () int32), rows past the count zero, or None
+    when no model casts shadows."""
+    from tpu_renderer_torch.ops import raster_cuda
+
+    prepared = prepare_quads(cfg, dyn, group, shard_idx)
+    if prepared is None:
+        return None
+    ops = raster_cuda.KERNELS if ops is None else ops
+    qdata, qi = ops.quad_prep(*prepared, cam_m["frustum_planes"],
+                              cam_m["MVP"], cam_m["viewport"], height, width)
+    return qdata, qi, prepared[2]
 
 
 def shadow_stencil(cfg, dyn, cam_m, zb_sign):
-    """Full-frame signed stencil through the plain path: prepared quads,
-    packed (raster_cuda.pack_quads) and summed with :func:`quad_fragments`.
+    """Full-frame signed stencil through the plain path: the quad tables
+    of :func:`quad_tables` summed with :func:`quad_fragments`.
     ``zb_sign``: the final z-buffer in sign space."""
     from tpu_renderer_torch.ops import raster_cuda
 
     height, width = zb_sign.shape
-    prepared = prepare_quads(cfg, dyn, cam_m)
-    if prepared is None:
+    tables = quad_tables(cfg, dyn, cam_m, height, width, raster_cuda.PLAIN)
+    if tables is None:
         return torch.zeros((height, width), dtype=torch.int32,
                            device=zb_sign.device)
-    qdata, qi = raster_cuda.pack_quads(*prepared, height, width)
+    qdata, qi, n = tables
     zc = raster_cuda.stencil_scalars(dyn["camera"]["near"],
                                      dyn["camera"]["far"])
-    return raster_cuda.stencil_plain(qdata, qi, zb_sign, cfg.system, zc)
+    return raster_cuda.stencil_plain(qdata, qi, zb_sign, cfg.system, zc,
+                                     n_rows=n)

@@ -8,7 +8,10 @@ face batch (the ``tris`` axis); partial buffers merge with collectives
 - z-buffer: MIN over ``tris`` (depth resolve is an associative min);
 - winning face ids: a claim against the merged z (K7) + MAX (shard-major
   global ids, so the highest is the last face in order);
-- silhouette parity and last light-facing incidence: SUM and MAX;
+- silhouette parity and last light-facing incidence: SUM and MAX, so
+  every rank sees the global silhouette-first order and count, and K8
+  prepares the rank's contiguous stretch of those rows
+  (``shadow.prepare_quads``);
 - G-buffer, texture samples and stencil: SUM of partial buffers (each
   G-buffer pixel is written by the one shard that owns its winner, zero on
   the others; signed stencil counts commute);
