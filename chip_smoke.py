@@ -8,6 +8,8 @@ exits non-zero without the final line):
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA and
    nvcc versions;
 2. build: compile ``tpu_renderer_torch/csrc/*.cu`` with nvcc for sm_90a;
+   K8's ptxas report (registers, stack, spills: the kernel fails the
+   phase if it uses any local memory) and its persistent grid;
 3. per kernel: K1-K8 (K5 in its flat, gouraud and pbr layouts; K8 on the
    flagship's silhouette rows, its tables compared over all their rows,
    NaN where NaN, and also timed as a captured graph of calls; K4 on K8's
@@ -15,7 +17,8 @@ exits non-zero without the final line):
    their plain PyTorch versions on the card, at the flagship frame's
    shapes, each timed with CUDA events (median of a few runs after a
    warm-up) and alone in a profile, beside its bound: the larger of the
-   bytes its function must move in this run (``needed_bytes``) over
+   bytes its function must move in this run (``needed_bytes``; K8's
+   tables whole, and also without the zero rows past its count) over
    3.35 TB/s and a lower count of its float operations over 67 TFLOP/s;
    the wrappers of K1, K4, K6, K7 and K8 must run under torch's sync debug
    mode "error" (no wait for the device), and K1's, K4's and K7's coarse
@@ -85,7 +88,8 @@ exits non-zero without the final line):
    SSAA_ORBIT-frame orbit pairs and profiled (``tr.ssaa`` and the kernels
    alone); gouraud at ss = 2 through K5; ss = 4 (4096²) once, against its
    plain path, with the coarse-list scratch and the device's peak memory;
-   K1-K5 timed at 2048² and 4096² beside their bounds (``needed_bytes``),
+   K1-K5 and K8 timed at 2048² and 4096² beside their bounds
+   (``needed_bytes``),
    each as its wrapper (CUDA events) and as the device time per call of a
    captured graph of 20 wrapper calls (``_graph_ms``: no profile, whose
    events went missing there); then the flagship mesh written with
@@ -128,7 +132,8 @@ exits non-zero without the final line):
    texture stacks and an eager profile, with the ``shadow_quads`` and
    ``stencil`` stages' busy ms; K1-K4 and K8 at the crowd's shapes timed
    with ``_graph_ms`` beside their bounds (K8 equal to its plain version
-   there), with K1's and K4's coarse lists against their plain
+   there, and also timed with a count of 0: its zero rows alone), with
+   K1's and K4's coarse lists against their plain
    version; the two crowd paths must give equal frames and stencils, the
    same texel pool, and one stack tensor per map in the instances'
    packets.
@@ -337,7 +342,7 @@ def shard_inputs(cfg, dyn, zb_sign, mesh=SHARD_RANK[0], at=SHARD_RANK[1]):
 
 def wrapper_of(case):
     """raster_cuda wrapper name of a kernel case."""
-    case = case.removesuffix("_dbg")
+    case = case.removesuffix("_dbg").removesuffix("_fill")
     if case.startswith("gbuffer_slim"):
         return "gbuffer_slim"
     if case == "visibility_z":
@@ -421,12 +426,13 @@ def needed_bytes(case, args, kw, out):
     n = sum(t.numel() * t.element_size() for t in outs)
     kind = wrapper_of(case)
     if kind == "quad_prep":
-        # The silhouette flags and the order over every edge, and per
-        # silhouette row its quad and order entry read (68 B) and its two
-        # table rows written (208 B); the zero rows past the count, which
-        # K4 never reads, are not counted.
-        return args[0].shape[0] * 5 + _prep_rows(args) * (
-            68 + (rc.Q_COLS + rc.QI_COLS) * 4)
+        # The silhouette flags and the order over every edge, per
+        # silhouette row its quad and order entry read (68 B), and both
+        # tables written whole (208 B a row): the rows past the count are
+        # zeros by contract (no stale row may reach K4), so outputs too;
+        # zero_row_bytes gives their share.
+        return (args[0].shape[0] * 5 + _prep_rows(args) * 68
+                + args[1].shape[0] * (rc.Q_COLS + rc.QI_COLS) * 4)
     if kind in ("visibility", "tidpass"):
         # Every valid face's row, every face's flag word; K7's zb where a
         # face claims the pixel (a lower count: there the id depends on it);
@@ -470,6 +476,14 @@ def needed_bytes(case, args, kw, out):
 def _prep_rows(args):
     """The rows K8 prepares: its count, within the table's capacity."""
     return max(0, min(int(args[2]), args[1].shape[0]))
+
+
+def zero_row_bytes(args):
+    """Bytes of the zero rows K8 writes past its count (both tables)."""
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    return (args[1].shape[0] - _prep_rows(args)) * (rc.Q_COLS
+                                                    + rc.QI_COLS) * 4
 
 
 def _lines_reach(args):
@@ -528,6 +542,32 @@ def bound(case, args, kw, out, zb_sign):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
+
+
+def ptxas_report(log, kernel):
+    """{"registers", "stack", "spill_stores", "spill_loads"} of the entry
+    function whose mangled name holds ``kernel`` in nvcc's ``-Xptxas -v``
+    log (one entry per kernel; a template's instances give their last).
+    Raises when the log has no such kernel."""
+    out, inside = None, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+            continue
+        if not inside:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out = dict(out or {}, stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out = dict(out or {}, registers=int(m[1]))
+    if out is None or len(out) != 4:
+        raise RuntimeError(f"ptxas log: no report of {kernel}")
+    return {k: out[k] for k in ("registers", "stack", "spill_stores",
+                                "spill_loads")}
 
 
 def _time_ms(fn, runs=5):
@@ -1293,17 +1333,19 @@ def _debug_phase(tr, scene, start, records):
 #: orbit.
 SSAA_PAIRS = 3
 SSAA_ORBIT = 10
-#: K1-K5 as phase 8 times them at the supersampled sizes.
+#: K1-K5 and K8 as phase 8 times them at the supersampled sizes.
 SSAA_CASES = ("visibility", "gbuffer", "sample_textures", "stencil",
-              "gbuffer_slim_gouraud")
+              "gbuffer_slim_gouraud", "quad_prep")
 
 
 def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
-    """``cases`` of K1-K5 and K8 (K5 in the gouraud layout) at the scene's
-    ss-scaled size, on inputs built through the kernels (K4 on K8's tables
-    and count): {case: (wrapper ms, graph ms, bound ms, bound by, MB)}, and
-    K1's and K4's coarse-list scratch bytes; K8 must equal its plain
-    version; for each case of ``lists`` (K1, K4), its coarse lists
+    """``cases`` of K1-K5 and K8 (K5 in the gouraud layout; K8 also as
+    ``quad_prep_fill``, its count set to 0: the zero rows alone) at the
+    scene's ss-scaled size, on inputs built through the kernels (K4 on
+    K8's tables and count): {case: (wrapper ms, graph ms, bound ms, bound
+    by, MB)}, for K8 also "<case> bound without zero rows" (ms), and K1's
+    and K4's coarse-list scratch bytes; K8 must equal its plain version;
+    for each case of ``lists`` (K1, K4), its coarse lists
     checked against their plain version, as (scratch bytes, longest list,
     entries, longest 16x16 bbox list) under the key "<case> lists". The
     graph ms is the kernels' device time per call from a captured graph of
@@ -1332,6 +1374,8 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
                             gb[rc.GB_IV].contiguous(),
                             *pl.texture_tables(cfg, dyn, attrs)),
         "quad_prep": prep_args,
+        "quad_prep_fill": (prep_args[0], prep_args[1],
+                           torch.zeros_like(prep_args[2]), *prep_args[3:]),
         "stencil": (qdata, qi, zb_sign, cfg.system, zc),
         "gbuffer_slim_gouraud": (fdata, rc.pack_slim_attrs(attrs, "gouraud"),
                                  tid, "gouraud"),
@@ -1344,13 +1388,16 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
         kern = getattr(rc, wrapper_of(case))
         got = kern(*args, **kw)
         torch.cuda.synchronize()
-        if case == "quad_prep":
-            _compare(case, got, rc.quad_prep_plain(*args))
+        if wrapper_of(case) == "quad_prep":
+            _compare("quad_prep", got, rc.quad_prep_plain(*args))
         ms = _time_ms(lambda: kern(*args, **kw))
         graph_ms = _graph_ms(lambda: kern(*args, **kw))
         bound_ms, bound_by, nbytes, _ = bound(case, args, kw, got, zb_sign)
         out[case] = (round(ms, 4), round(graph_ms, 4), round(bound_ms, 4),
                      bound_by, round(nbytes / 1e6, 2))
+        if wrapper_of(case) == "quad_prep":
+            out[f"{case} bound without zero rows"] = round(
+                (nbytes - zero_row_bytes(args)) / PEAK_BYTES * 1e3, 5)
         del got
     for case in lists:
         out[f"{case} lists"] = _check_coarse_bins(case, inputs[case],
@@ -1776,9 +1823,10 @@ CONFIG_KERNELS = {
 #: Frames of each configuration's orbit; the crowd's (cfg5) are fewer.
 CONFIG_ORBIT = 10
 CROWD_ORBIT = 5
-#: K1-K4 and K8 as phase 10 times them at the crowd's shapes.
+#: K1-K4 and K8 as phase 10 times them at the crowd's shapes; K8 also with a
+#: count of 0 (``quad_prep_fill``: its zero rows alone).
 CROWD_CASES = ("visibility", "gbuffer", "sample_textures", "quad_prep",
-               "stencil")
+               "quad_prep_fill", "stencil")
 
 
 def config_position(position, center, t):
@@ -1927,6 +1975,9 @@ def _config_phase(start_time):
                 f"{b / g:.2f}, {prog.launches.get(case, 0)} per replay"
                 for case, (ms, g, b, by, mb) in
                 ((c, times[c]) for c in CROWD_CASES))
+            rows += "; K8 bound without the zero rows: " + ", ".join(
+                f"{c} {times[f'{c} bound without zero rows']} ms"
+                for c in ("quad_prep", "quad_prep_fill"))
             print(f"[10 kernels crowd] {faces} faces, {cfg.resolution[0]}x"
                   f"{cfg.resolution[1]}, wrapper / "
                   f"graph / bound: {rows}; coarse lists equal plain "
@@ -1979,6 +2030,13 @@ def main():
     print(f"[2 build] {time.perf_counter() - t0:.2f} s for "
           f"{_build.last_build['path']}; ptxas: {' | '.join(regs)}",
           flush=True)
+    # K8 keeps its polygon in registers: no stack, no spills.
+    k8 = ptxas_report(_build.last_build["log"], "quad_prep_kernel")
+    if k8["stack"] or k8["spill_stores"] or k8["spill_loads"]:
+        raise AssertionError(f"quad_prep_kernel uses local memory: {k8}")
+    blocks, groups = rc.quad_prep_grid("cuda")
+    print(f"[2 K8] quad_prep_kernel ptxas {k8}; persistent grid {blocks} "
+          f"blocks of 256 threads, {groups} quads at once", flush=True)
 
     # 3. per kernel, at the flagship frame's shapes
     scene = build_flagship("cuda")
@@ -2022,6 +2080,9 @@ def main():
                  for k, v in kw.items()}
         if name == "quad_prep":
             shown = {"E": args[0].shape[0], "n_sil": int(args[2])}
+            bins += (f"; bound without the zero rows "
+                     f"{(nbytes - zero_row_bytes(args)) / PEAK_BYTES * 1e3:.5f}"
+                     f" ms")
         mode = f" {shown}" if shown else ""
         print(f"[3 kernel] {name}{mode}: {verdict}; max_abs_err {err:.3g}; "
               f"kernel {ms:.4f} ms (its wrapper, binning included), alone "

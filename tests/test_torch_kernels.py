@@ -39,9 +39,10 @@ This file imports no JAX, so it also runs on the card's host:
 - K8 (``quad_prep``) on the card equals its plain version over all its
   table rows on the flagship, the crowd, cfg3-rh-shadows, a count of 0
   and every row prepared; K4's quad binning stops at the count even where
-  active rows lie past it; a captured K8 and a captured Scene.render()
-  replay with a shrinking silhouette count and equal the plain version
-  and the eager frame each time.
+  active rows lie past it; a captured K8 replays with a shrinking, then
+  growing count, up to a capacity past its persistent grid's group count,
+  and a captured Scene.render() with a shrinking silhouette count, and
+  each replay equals the plain version and the eager frame.
 
 ``build_scene`` is the shared procedural test scene: test_torch_slice.py
 and test_torch_modules.py build the same scene in the JAX package.
@@ -1111,25 +1112,35 @@ def test_quad_bins_follow_the_count_on_card(card):
 
 @pytest.mark.cuda
 def test_quad_prep_graph_replays_with_a_shrinking_count_on_card(card):
-    """K8 captured once into a CUDA graph, replayed after counts E, n_sil
-    and 0 are copied into its count: each replay's tables equal the plain
-    version's with that count, so no row of an earlier replay survives."""
+    """K8 captured once into a CUDA graph over a capacity C past the
+    persistent grid's group count (the flagship's order, repeated), then
+    replayed after counts are copied into its count: shrinking (C, E,
+    n_sil, 0), then growing (n_sil, E, C). Each replay's tables equal the
+    plain version's with that count, so no row of an earlier replay
+    survives, and the groups' loop and the zero fill read the count at
+    every replay, not at capture."""
     args = list(_card_frame("flagship")[3])
     e = args[0].shape[0]
-    count = torch.full((), e, dtype=torch.int32, device="cuda")
+    _, groups = rc.quad_prep_grid("cuda")
+    cap = groups + 37
+    order = args[1]
+    args[1] = order.repeat(-(-cap // order.shape[0]))[:cap].contiguous()
+    count = torch.full((), cap, dtype=torch.int32, device="cuda")
     n_sil = int(args[2])
+    assert 0 < n_sil < e
     args[2] = count
     rc.quad_prep(*args)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with rc.counting_into({}), torch.cuda.graph(graph):
         out = rc.quad_prep(*args)
-    for n in (e, n_sil, 0):
+    for n in (cap, e, n_sil, 0, n_sil, e, cap):
         count.fill_(n)
         graph.replay()
         torch.cuda.synchronize()
         assert _equal(out, rc.quad_prep_plain(*args))
         assert (out[1][n:] == 0).all()
+        assert n == 0 or (out[1][:n, 4] > 0).any()
 
 
 @pytest.mark.cuda

@@ -35,7 +35,7 @@ NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
-#: C signatures of the exported launchers (every one returns cudaError_t).
+#: C signatures of the exported functions (every one returns cudaError_t).
 _SIGNATURES = {
     # fdata, flags, fdbg (null: no debug camera), n_faces, bin_counts,
     # bin_items, H, W, row0, sign, want_tid, zb_sign, tid, stream
@@ -58,8 +58,11 @@ _SIGNATURES = {
     # W, row0, bin_counts, bin_items, stream
     "tr_coarse_bins": [_I, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
     # quad, order, cap, n_rows (a count on the card), planes, mvp,
-    # viewport, H, W, qdata, qi, stream
-    "tr_quad_prep": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # viewport, H, W, qdata, qi, blocks (tr_quad_prep_blocks), stream
+    "tr_quad_prep": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P],
+    # blocks (out): K8's persistent grid on the current device; no stream,
+    # it launches nothing
+    "tr_quad_prep_blocks": [ctypes.POINTER(_I)],
     # fdata, sdata, tid, layout, H, W, row0, gid0, g_local, gbuffer, stream
     "tr_gbuffer_slim": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # ldata, lbbox, active, n_edges, zbuf, H, W, mask, stream
@@ -67,7 +70,8 @@ _SIGNATURES = {
 }
 
 _lib = None
-#: Seconds the last build took and the compiler's report (register counts).
+#: Seconds the last build took and the compiler's report (register counts;
+#: a library built before keeps its report beside it, ``<library>.log``).
 last_build = {"seconds": None, "log": "", "path": None}
 
 
@@ -125,7 +129,11 @@ def build():
     leaves nothing that looks complete."""
     out = os.path.join(BUILD_DIR, f"libtpu_renderer_kernels_{_digest()}.so")
     if os.path.exists(out):
-        last_build.update(seconds=0.0, path=out)
+        log = ""
+        if os.path.exists(f"{out}.log"):
+            with open(f"{out}.log") as f:
+                log = f.read()
+        last_build.update(seconds=0.0, log=log, path=out)
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
@@ -144,8 +152,9 @@ def build():
                 os.remove(obj)
     os.replace(tmp, out)
     last_build.update(seconds=time.perf_counter() - t0, log=log, path=out)
-    with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(log)
+    for path in (os.path.join(BUILD_DIR, "build.log"), f"{out}.log"):
+        with open(path, "w") as f:
+            f.write(log)
     return out
 
 

@@ -52,12 +52,14 @@ tests and measurements only).
 
 K8 (``quad_prep``) clips, projects and packs only the silhouette quads,
 whose count it reads on the device, into tables of a capacity the host
-knows; K4 bins only the rows below that count (``n_rows``). The work of
-both follows the count, and neither wrapper reads it on the host.
+knows, on a persistent grid sized from the card (:func:`quad_prep_grid`);
+K4 bins only the rows below that count (``n_rows``). The work of both
+follows the count, and neither wrapper reads it on the host.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 
 import torch
 
@@ -67,7 +69,7 @@ from tpu_renderer_torch.ops.shadow import QUAD_PMAX, quad_edge_coeffs, \
 
 __all__ = [
     "face_flags", "pack_faces", "pack_debug_planes", "pack_face_attrs",
-    "pack_quads", "quad_prep", "quad_prep_plain",
+    "pack_quads", "quad_prep", "quad_prep_plain", "quad_prep_grid",
     "pack_slim_attrs", "pack_lines", "stencil_scalars", "tile_bins",
     "coarse_bins_plain", "bin_scratch_bytes", "COARSE", "MAX_BIN_SCRATCH",
     "visibility", "gbuffer", "sample_textures", "stencil", "gbuffer_slim",
@@ -901,12 +903,43 @@ def stencil(qdata, qi, zb_sign, sign, zc, row0=0, n_rows=None):
     return st
 
 
+#: Quads a block of K8 prepares at once: 256 threads, a half-warp each
+#: (mirrors GROUPS_PER_BLOCK in csrc/quad_prep.cu, where the kernel fixes it).
+QUAD_PREP_GROUPS_PER_BLOCK = 16
+#: K8's persistent grid per CUDA device index (:func:`quad_prep_grid`).
+_PREP_BLOCKS = {}
+
+
+def quad_prep_grid(device):
+    """(blocks, groups) of K8's persistent grid on the CUDA ``device``: its
+    SMs times the blocks resident on one, 16 quads (groups) a block. Asked
+    of the card at the first call on the device (a graph's capture comes
+    after an eager warm-up, so never inside one) and cached; the grid does
+    not depend on the table's capacity or the count."""
+    from tpu_renderer_torch.ops import _build
+
+    device = torch.device(device)
+    idx = (device.index if device.index is not None
+           else torch.cuda.current_device())
+    if idx not in _PREP_BLOCKS:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            err = _build.load().tr_quad_prep_blocks(ctypes.byref(blocks))
+        if err != 0 or blocks.value < 1:
+            raise RuntimeError(f"quad_prep: no persistent grid on cuda:{idx}"
+                               f" (cudaError {err}, {blocks.value} blocks)")
+        _PREP_BLOCKS[idx] = blocks.value
+    blocks = _PREP_BLOCKS[idx]
+    return blocks, blocks * QUAD_PREP_GROUPS_PER_BLOCK
+
+
 def quad_prep(quad, order, n_rows, planes, mvp, viewport, height, width):
     """K8: the stencil kernel's quad tables of the silhouette quads (see
-    quad_prep_plain for the arguments), one thread per table row: rows
-    below ``n_rows``, which the kernel reads through its pointer, are
-    clipped, projected and packed, the rest written as zeros. Returns
-    (qdata (C, 44) float32, qi (C, 8) int32)."""
+    quad_prep_plain for the arguments), a half-warp per quad on a
+    persistent grid (:func:`quad_prep_grid`): rows below ``n_rows``, which
+    the kernel reads through its pointer, are clipped, projected and
+    packed, the rest written as zeros. Returns (qdata (C, 44) float32, qi
+    (C, 8) int32)."""
     if _on_cpu(quad, order, n_rows, planes, mvp, viewport):
         return quad_prep_plain(quad, order, n_rows, planes, mvp, viewport,
                                height, width)
@@ -917,13 +950,17 @@ def quad_prep(quad, order, n_rows, planes, mvp, viewport, height, width):
     _require(planes, "planes", torch.float32, (6, 4))
     _require(mvp, "mvp", torch.float32, (4, 4))
     _require(viewport, "viewport", torch.float32, (4, 4))
+    blocks, _ = quad_prep_grid(quad.device)
     qdata = torch.empty((cap, Q_COLS), dtype=torch.float32,
                         device=quad.device)
     qi = torch.empty((cap, QI_COLS), dtype=torch.int32, device=quad.device)
+    # The zero rows are written 16 bytes a store.
+    _require_aligned(qdata, "qdata", 16)
+    _require_aligned(qi, "qi", 16)
     _launch("quad_prep", quad.data_ptr(), order.data_ptr(), cap,
             n_rows.data_ptr(), planes.data_ptr(), mvp.data_ptr(),
             viewport.data_ptr(), height, width, qdata.data_ptr(),
-            qi.data_ptr())
+            qi.data_ptr(), blocks)
     return qdata, qi
 
 
