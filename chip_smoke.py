@@ -9,11 +9,12 @@ exits non-zero without the final line):
    nvcc versions;
 2. build: compile ``tpu_renderer_torch/csrc/*.cu`` with nvcc for sm_90a;
    K8's ptxas report (registers, stack, spills: the kernel fails the
-   phase if it uses any local memory) and its persistent grid;
+   phase if it uses any local memory) and its persistent grid; K3's, for
+   both its instances (16-byte and 4-byte accesses), under the same rule;
 3. per kernel: K1-K8 (K5 in its flat, gouraud and pbr layouts; K8 on the
    flagship's silhouette rows, its tables compared over all their rows,
-   NaN where NaN, and also timed as a captured graph of calls; K4 on K8's
-   tables with their count) against
+   NaN where NaN, and, as K3, also timed as a captured graph of calls; K4
+   on K8's tables with their count) against
    their plain PyTorch versions on the card, at the flagship frame's
    shapes, each timed with CUDA events (median of a few runs after a
    warm-up) and alone in a profile, beside its bound: the larger of the
@@ -32,7 +33,9 @@ exits non-zero without the final line):
    the flagship's face table and its debug planes, K1 z only and K7 on the
    same rank's shard inputs, each equal to its plain version, checked and
    timed as above, with the faces that take the per-pixel clip test with
-   and without the debug camera;
+   and without the debug camera; then K3 on its adversarial inputs
+   (``k3_adversarial_inputs``), through each of its instances, equal to
+   its plain version;
 4. end to end, general shader: the flagship frame — a seeded procedural
    shadow-casting mesh of 4,992 faces with 1024² diffuse and tangent-space
    normal maps over a textured floor, point light, shadow volumes,
@@ -89,7 +92,7 @@ exits non-zero without the final line):
    alone); gouraud at ss = 2 through K5; ss = 4 (4096²) once, against its
    plain path, with the coarse-list scratch and the device's peak memory;
    K1-K5 and K8 timed at 2048² and 4096² beside their bounds
-   (``needed_bytes``),
+   (``needed_bytes``), K3 and K8 equal to their plain versions there,
    each as its wrapper (CUDA events) and as the device time per call of a
    captured graph of 20 wrapper calls (``_graph_ms``: no profile, whose
    events went missing there); then the flagship mesh written with
@@ -131,12 +134,11 @@ exits non-zero without the final line):
    and K4 bins, the active shadow quads, texel-pool bytes, distinct
    texture stacks and an eager profile, with the ``shadow_quads`` and
    ``stencil`` stages' busy ms; K1-K4 and K8 at the crowd's shapes timed
-   with ``_graph_ms`` beside their bounds (K8 equal to its plain version
-   there, and also timed with a count of 0: its zero rows alone), with
-   K1's and K4's coarse lists against their plain
-   version; the two crowd paths must give equal frames and stencils, the
-   same texel pool, and one stack tensor per map in the instances'
-   packets.
+   with ``_graph_ms`` beside their bounds (K3 and K8 equal to their plain
+   versions there, K8 also timed with a count of 0: its zero rows alone),
+   with K1's and K4's coarse lists against their plain version; the two
+   crowd paths must give equal frames and stencils, the same texel pool,
+   and one stack tensor per map in the instances' packets.
 
 Before the last line it prints the card's ``name, power.limit`` line and
 one JSON object with the per-kernel records (each with its launches in
@@ -340,6 +342,83 @@ def shard_inputs(cfg, dyn, zb_sign, mesh=SHARD_RANK[0], at=SHARD_RANK[1]):
     return inputs
 
 
+#: K3's adversarial frame: H*W = 7,275, three more than a multiple of 4.
+K3_ADV_RES = (97, 75)
+#: Its textures (TH, TW): 1x1, a row, a column, sizes no power of two.
+K3_ADV_TEXTURES = ((1, 1), (1, 7), (5, 1), (3, 5), (13, 11), (37, 100),
+                   (64, 48))
+#: Its face table's rows and their first global id.
+K3_ADV_FACES, K3_ADV_GID0 = 64, 37
+#: uv values planted among uniform ones in [-2, 3).
+K3_ADV_UV = (np.nan, np.inf, -np.inf, -0.0, 0.0, 1.0, np.nextafter(
+    np.float32(1), np.float32(2)), -1.0, 1e30, -1e30, 2.5, -3.75)
+
+
+def k3_adversarial_inputs(seed=0, vector=False, device="cpu"):
+    """K3's adversarial inputs on K3_ADV_RES, owned range from K3_ADV_GID0,
+    as (args, kwargs). The flat tid runs through background, runs of one
+    face, a new face at every pixel and other shards' ids, and its last
+    three pixels (the tail past the last group of 4) are face 0's, whose
+    kinds all have maps. uv is seeded in [-2, 3) with NaN, ±inf, ±0, 1,
+    the float after 1 and ±1e30 planted. Per face and kind the slot is one
+    of K3_ADV_TEXTURES', -1, past the slot table, or one of two slots whose
+    indices leave the pool (one past its end, one at a negative offset).
+    With ``vector=False`` iu and iv are planes 3 and 4 of a 5-plane buffer,
+    as K3 gets them from the G-buffer, so iu is not 16-byte aligned and K3
+    takes its scalar instance; with ``vector=True`` they are fresh tensors
+    and ftex keeps the first kind only, so every plane, samp's one
+    included, is aligned and K3 takes its vector instance, with a tail."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    h, w = K3_ADV_RES
+    n, g, gid0 = h * w, K3_ADV_FACES, K3_ADV_GID0
+    dims = np.array(K3_ADV_TEXTURES)
+    sizes = dims.prod(1)
+    pool = rng.integers(0, 1 << 24, sizes.sum()).astype(np.int32)
+    slots = np.stack([np.cumsum(sizes) - sizes, dims[:, 1]], 1)
+    slots = np.concatenate([slots, [[pool.size - 3, 50], [-40, 7]]])
+    n_tex, n_slots = len(dims), len(slots)
+    pick = rng.random((g, 3))
+    slot = rng.integers(0, n_tex, (g, 3))
+    slot = np.where(pick < 0.15, -1, slot)
+    slot = np.where((pick >= 0.15) & (pick < 0.25), rng.choice(
+        [n_slots, n_slots + 4, 2 ** 30], (g, 3)), slot)
+    slot = np.where((pick >= 0.25) & (pick < 0.35),
+                    rng.integers(n_tex, n_slots, (g, 3)), slot)
+    slot[0] = (0, 4, 5)
+    shape = np.where((slot >= 0)[..., None] & (slot < n_tex)[..., None],
+                     dims[np.clip(slot, 0, n_tex - 1)],
+                     dims[rng.integers(0, n_tex, (g, 3))])
+    ftex = np.concatenate([slot[..., None], shape], -1).astype(np.int32)
+    others = np.concatenate([np.arange(gid0), gid0 + g + np.arange(50)])
+    anything = np.concatenate([[-1], others, gid0 + np.arange(g)])
+    runs = []
+    while sum(map(len, runs)) < n:
+        kind, length = rng.integers(0, 5), rng.integers(1, 24)
+        # Background, one face, a new face at every pixel, other shards'
+        # faces, or any of these at every pixel.
+        runs.append([np.full(length, -1),
+                     np.full(length, gid0 + rng.integers(g)),
+                     gid0 + rng.integers(0, g, length),
+                     rng.choice(others, length),
+                     rng.choice(anything, length)][kind])
+    tid = np.concatenate(runs)[:n].astype(np.int32)
+    tid[-3:] = gid0
+    planes = np.zeros((5, n), np.float32)
+    for c in (3, 4):
+        planes[c] = rng.uniform(-2.0, 3.0, n)
+        at = rng.random(n) < 0.1
+        planes[c, at] = rng.choice(np.array(K3_ADV_UV, np.float32), at.sum())
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    gb = to(planes.reshape(5, h, w))
+    iu, iv = gb[3], gb[4]
+    if vector:
+        iu, iv, ftex = iu.clone(), iv.clone(), ftex[:, :1]
+    return ((to(tid.reshape(h, w)), iu, iv, to(ftex),
+             to(slots.astype(np.int32)), to(pool)), {"gid0": gid0})
+
+
 def wrapper_of(case):
     """raster_cuda wrapper name of a kernel case."""
     case = case.removesuffix("_dbg").removesuffix("_fill")
@@ -465,11 +544,12 @@ def needed_bytes(case, args, kw, out):
                 + faces.numel() * WINNER_COLS[case.removesuffix("_owned")] * 4)
     # K3: tid everywhere; iu and iv where some kind is sampled; the winning
     # faces' texture rows, the slots they name, and each sampled texel.
-    tid, iu, iv, ftex, slots, _ = args
-    idx, hit = rc.texel_indices(tid, iu, iv, ftex, slots, kw.get("gid0", 0))
+    tid, _, _, ftex, slots, _ = args
+    idx, hit = rc.texel_indices(*args, **kw)
     used = torch.unique(ftex[faces, :, 0])
+    used = used[(used >= 0) & (used < slots.shape[0])]
     return (n + tid.numel() * 4 + int(hit.any(0).sum()) * 8
-            + faces.numel() * ftex.shape[1] * 3 * 4 + int((used >= 0).sum()) * 8
+            + faces.numel() * ftex.shape[1] * 3 * 4 + used.numel() * 8
             + torch.unique(idx[hit]).numel() * 4)
 
 
@@ -1344,7 +1424,8 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
     scene's ss-scaled size, on inputs built through the kernels (K4 on
     K8's tables and count): {case: (wrapper ms, graph ms, bound ms, bound
     by, MB)}, for K8 also "<case> bound without zero rows" (ms), and K1's
-    and K4's coarse-list scratch bytes; K8 must equal its plain version;
+    and K4's coarse-list scratch bytes; K3 and K8 must equal their plain
+    versions;
     for each case of ``lists`` (K1, K4), its coarse lists
     checked against their plain version, as (scratch bytes, longest list,
     entries, longest 16x16 bbox list) under the key "<case> lists". The
@@ -1388,8 +1469,9 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
         kern = getattr(rc, wrapper_of(case))
         got = kern(*args, **kw)
         torch.cuda.synchronize()
-        if wrapper_of(case) == "quad_prep":
-            _compare("quad_prep", got, rc.quad_prep_plain(*args))
+        if wrapper_of(case) in ("quad_prep", "sample_textures"):
+            _compare(wrapper_of(case), got, getattr(
+                rc, f"{wrapper_of(case)}_plain")(*args, **kw))
         ms = _time_ms(lambda: kern(*args, **kw))
         graph_ms = _graph_ms(lambda: kern(*args, **kw))
         bound_ms, bound_by, nbytes, _ = bound(case, args, kw, got, zb_sign)
@@ -2037,6 +2119,16 @@ def main():
     blocks, groups = rc.quad_prep_grid("cuda")
     print(f"[2 K8] quad_prep_kernel ptxas {k8}; persistent grid {blocks} "
           f"blocks of 256 threads, {groups} quads at once", flush=True)
+    # K3's two instances (16-byte and 4-byte accesses) keep their pixels in
+    # registers too.
+    k3 = {vec: ptxas_report(_build.last_build["log"],
+                            f"sample_kernelILb{int(vec)}E")
+          for vec in (True, False)}
+    if any(r["stack"] or r["spill_stores"] or r["spill_loads"]
+           for r in k3.values()):
+        raise AssertionError(f"sample_kernel uses local memory: {k3}")
+    print(f"[2 K3] sample_kernel ptxas: vector {k3[True]}, scalar "
+          f"{k3[False]}", flush=True)
 
     # 3. per kernel, at the flagship frame's shapes
     scene = build_flagship("cuda")
@@ -2063,7 +2155,7 @@ def main():
                      f"bbox list {fine}")
         ms = _time_ms(lambda: kern(*args, **kw))
         alone = _alone_ms(lambda: kern(*args, **kw), wrapper_of(name))
-        if name == "quad_prep":
+        if wrapper_of(name) in ("quad_prep", "sample_textures"):
             bins += (f"; graph {_graph_ms(lambda: kern(*args, **kw)):.4f} ms"
                      f" (device ms per call of a captured graph of 20 calls)")
         plain_ms = _time_ms(lambda: plain(*args, **kw), runs=3)
@@ -2089,6 +2181,15 @@ def main():
               f"{alone:.4f} ms, plain {plain_ms:.2f} ms; bound "
               f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
               f"{ops / 1e6:.2f} Mop){bins}", flush=True)
+    for vector in (False, True):
+        args, kw = k3_adversarial_inputs(vector=vector, device="cuda")
+        got = rc.sample_textures(*args, **kw)
+        torch.cuda.synchronize()
+        _compare("sample_textures", got, rc.sample_textures_plain(*args, **kw))
+        print(f"[3 adversarial] sample_textures-adv{'-vec' if vector else ''}"
+              f" {K3_ADV_RES}, {args[3].shape[1]} kinds, gid0 {kw['gid0']}: "
+              f"exact; sampled px {int((got[1] != 0).sum())} of "
+              f"{got[1].numel()}", flush=True)
     from tpu_renderer_torch.ops import raster_plain as rp
     ppc = {case: int(((inputs[case][0][1] & rp.FLAG_PPC) > 0).sum())
            for case in ("visibility", "visibility_dbg")}

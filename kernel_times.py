@@ -1,16 +1,25 @@
 """Time chosen kernel cases of chip_smoke.py's phase 3 on one CUDA card, at
 the flagship frame's shapes: each case's wrapper (CUDA events, median of 5
-after a warm-up) and its kernels alone (a profile), in ``--rounds`` rounds.
+after a warm-up), its kernels alone (a profile) and its device ms per call
+of a captured graph of 20 calls (``chip_smoke._graph_ms``), in
+``--rounds`` rounds.
 
     python3 kernel_times.py lines tidpass [--root DIR] [--rounds 3]
+    python3 kernel_times.py sample_textures --at flagship ss2 ss4 cfg5-merged
     python3 kernel_times.py --shadow cfg5-merged [--root DIR] [--rounds 3]
 
 Cases are the keys of ``chip_smoke.kernel_inputs`` (``visibility``,
-``lines``, ``tidpass``, ...). ``--root`` imports chip_smoke.py and
-tpu_renderer_torch from another checkout, e.g. a parent commit unpacked
-with ``git archive``, so that two trees are compared inside one run on
-the same card: run parent, change, change, parent. Prints the card's
-``name, power.limit``, then one JSON line per case and round.
+``lines``, ``tidpass``, ...). ``--at SHAPE ...`` times them instead
+through ``chip_smoke._kernel_times`` (phases 8 and 10: inputs built
+through the kernels; wrapper ms, graph ms, bound ms and MB) at each
+SHAPE: ``flagship``, ``ss2`` and ``ss4`` (the flagship at 2048² and
+4096²) or any ``bench_torch.CONFIGS`` name; cases it does not build
+(the sharded and debug modes) are skipped there. ``--root`` imports
+chip_smoke.py and tpu_renderer_torch from another checkout, e.g. a
+parent commit unpacked with ``git archive``, so that two trees are
+compared inside one run on the same card: run parent, change, change,
+parent. Prints the card's ``name, power.limit``, then one JSON line per
+case (and shape) and round.
 
 ``--shadow CONFIG`` splits the shadow body (``pipeline.render_core``'s
 ``shadow_quads`` stage, then K4) of bench_torch's configuration CONFIG,
@@ -40,6 +49,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("cases", nargs="*")
     ap.add_argument("--shadow", metavar="CONFIG")
+    ap.add_argument("--at", nargs="+", metavar="SHAPE")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
     ap.add_argument("--rounds", type=int, default=3)
@@ -63,6 +73,20 @@ def main():
                               "round": rnd,
                               **shadow_split(cs, opts.shadow)}), flush=True)
         return
+    if opts.at:
+        scenes = {at: scene_at(cs, at) for at in opts.at}
+        cases = [c for c in opts.cases if c in cs.SSAA_CASES]
+        for rnd in range(opts.rounds):
+            for at, (scene, ss) in scenes.items():
+                times, _ = cs._kernel_times(scene, ss, cases)
+                for case in cases:
+                    ms, graph_ms, bound_ms, _, mb = times[case]
+                    print(json.dumps({"root": root, "case": case, "at": at,
+                                      "round": rnd, "ms": ms,
+                                      "graph_ms": graph_ms,
+                                      "bound_ms": bound_ms, "MB": mb}),
+                          flush=True)
+        return
     inputs, _ = cs.kernel_inputs(cs.build_flagship("cuda"))
     for rnd in range(opts.rounds):
         for case in opts.cases:
@@ -71,8 +95,17 @@ def main():
             call = lambda: getattr(rc, wrapper)(*args, **kw)
             print(json.dumps({"root": root, "case": case, "round": rnd,
                               "ms": cs._time_ms(call),
-                              "alone_ms": cs._alone_ms(call, wrapper)}),
+                              "alone_ms": cs._alone_ms(call, wrapper),
+                              "graph_ms": cs._graph_ms(call)}),
                   flush=True)
+
+
+def scene_at(cs, at):
+    """(scene, ss) of an ``--at`` SHAPE."""
+    if at in ("ss2", "ss4"):
+        return cs.build_flagship("cuda"), int(at[2:])
+    return (cs.build_flagship("cuda") if at == "flagship"
+            else cs.build_config(at)), 1
 
 
 def shadow_split(cs, config):

@@ -26,7 +26,13 @@ This file imports no JAX, so it also runs on the card's host:
   coefficients, row0 > 0, gid0 > 0; and K6's exact scatter
   (``long_edge_list``: degenerate, axis-aligned, 45°, clipped and
   non-finite edges, endpoints one ulp from integers, depths equal to the
-  z-buffer, many edges through one tile); on the card, the coarse lists of
+  z-buffer, many edges through one tile), and K3's
+  (``chip_smoke.k3_adversarial_inputs``: H*W not a multiple of 4, iu off
+  its 16-byte boundary, NaN, inf and out-of-range uv, 1x1 and
+  non-power-of-two textures, slots past the table, indices outside the
+  pool, runs of one face and a new face at every pixel, gid0 > 0) through
+  both its instances; on the CPU the plain K3 samples nothing past its
+  tables; on the card, the coarse lists of
   K1, K4 and K7 (csrc/bins.cu) equal ``coarse_bins_plain``, and the
   wrappers of K1, K4, K6, K7 and K8 never synchronise with the host;
 - the compiled frame on the card (``PATHS``, ``path_scene``; the CPU side
@@ -518,7 +524,7 @@ def long_claim_inputs(seed=0, row0=0):
 #: Kernel cases: case id -> (wrapper name in raster_cuda, the LAUNCHES key
 #: its launch counts under); K5 once per layout, the sharded modes, and the
 #: adversarial inputs of K1 (claim, and z only at row0 > 0), K4, K6 and K7
-#: (at row0 > 0, gid0 > 0).
+#: (at row0 > 0, gid0 > 0) and K3 (gid0 > 0, H*W not a multiple of 4).
 CASES = {"visibility": ("visibility", "visibility"),
          "gbuffer": ("gbuffer", "gbuffer"),
          "sample_textures": ("sample_textures", "sample_textures"),
@@ -546,7 +552,13 @@ CASES = {"visibility": ("visibility", "visibility"),
          "visibility-dbg-long": ("visibility", "visibility_dbg"),
          "visibility_z-dbg-long-row0": ("visibility", "visibility_z_dbg"),
          "tidpass-dbg-long-row0": ("tidpass", "tidpass_dbg"),
-         "quad_prep": ("quad_prep", "quad_prep")}
+         "quad_prep": ("quad_prep", "quad_prep"),
+         "sample_textures-adv": ("sample_textures", "sample_textures"),
+         "sample_textures-adv-vec": ("sample_textures", "sample_textures")}
+
+#: K3's adversarial cases (chip_smoke.k3_adversarial_inputs): case id ->
+#: ``vector`` (its scalar instance, then its vector one with a tail).
+K3_ADV = {"sample_textures-adv": False, "sample_textures-adv-vec": True}
 
 #: row0 of the adversarial ``-row0`` cases.
 ADV_ROW0 = 40
@@ -644,6 +656,8 @@ def stage_inputs():
     inputs["tidpass-dbg-long-row0"] = (
         (fdata, flags, zb, sign),
         {"row0": ADV_ROW0, "gid0": ADV_GID0, "fdbg": fdbg})
+    for name, vector in K3_ADV.items():
+        inputs[name] = chip_smoke.k3_adversarial_inputs(vector=vector)
     return inputs
 
 
@@ -755,6 +769,71 @@ def test_adversarial_inputs_are_not_degenerate(stage_inputs):
     assert ((tid < 0) & (zb < 3e38)).any()       # the other table's pixels
 
 
+def test_k3_adversarial_inputs_are_not_degenerate(stage_inputs):
+    """K3's adversarial cases reach every branch: H*W three past a multiple
+    of 4, the tail owned and sampled; iu off its 16-byte boundary (the
+    scalar instance) or every plane on it (the vector one); samples at NaN,
+    ±inf, negative and above-1 uv; the 1x1 texture and one of no power-of-
+    two size sampled; owned pixels whose slot is -1 or past the table, or
+    whose index falls past the pool or below 0; groups of 4 won by one
+    face and groups of 4 faces; other shards' winners and background."""
+    n_tex = len(chip_smoke.K3_ADV_TEXTURES)
+    for name, vector in K3_ADV.items():
+        args, kw = stage_inputs[name]
+        tid, iu, iv, ftex, slots, pool = args
+        gid0 = kw["gid0"]
+        assert tid.numel() % 4 == 3
+        if vector:
+            assert ftex.shape[1] == 1
+            assert all(t.data_ptr() % 16 == 0 for t in (tid, iu, iv))
+        else:
+            assert iu.data_ptr() % 16 != 0
+        samp, mask = rc.sample_textures(*args, **kw)
+        own = (tid >= gid0) & (tid < gid0 + ftex.shape[0])
+        assert ((tid >= 0) & ~own).any() and (tid < 0).any()
+        assert (mask.reshape(-1)[-3:] & 1).all()
+        sampled = mask != 0
+        for plane in (iu, iv):
+            for at in (plane.isnan(), plane == float("inf"),
+                       plane == float("-inf"), plane < 0, plane > 1):
+                assert (sampled & at).any()
+        face = torch.where(own, tid - gid0, 0).long()
+        slot = ftex[face, :, 0].permute(2, 0, 1)           # (kinds, H, W)
+        hit = ((mask[None] >> torch.arange(ftex.shape[1])[:, None, None])
+               & 1) > 0
+        for s in (0, 5):                    # 1x1 and 37x100
+            assert (hit & (slot == s)).any()
+        for at in (slot == -1, slot >= slots.shape[0], slot == n_tex,
+                   slot == n_tex + 1):
+            assert (own & at & ~hit).any()
+        groups = torch.where(own, tid, -1).reshape(-1)[:tid.numel() // 4
+                                                        * 4].reshape(-1, 4)
+        whole = (groups >= 0).all(1)
+        assert (whole & (groups == groups[:, :1]).all(1)).any()
+        distinct = (groups.sort(1).values.diff(dim=1) != 0).all(1)
+        assert (whole & distinct).any()
+
+
+def test_k3_plain_skips_slots_and_indices_out_of_range():
+    """K3's plain version samples nothing where a slot lies past the slot
+    table or an index past or before the pool, as the kernel does (it
+    used to index past both and raise)."""
+    tid = torch.tensor([[0, 1, 2, -1]], dtype=torch.int32)
+    uv = torch.full((1, 4), 0.5)
+    pool = torch.arange(100, 112, dtype=torch.int32)       # one 3x4 texture
+    slots = torch.tensor([[0, 4], [10, 4], [-20, 4]], dtype=torch.int32)
+    # Per face and kind (slot, TH, TW): slot 3 is past the table; slot 1's
+    # index (10 + 1*4 + 1) past the pool, slot 2's (-20 + 5) before it.
+    ftex = torch.tensor([[[0, 3, 4], [3, 3, 4], [1, 3, 4]],
+                         [[2, 3, 4], [-1, 3, 4], [0, 3, 4]],
+                         [[0, 3, 4], [0, 3, 4], [0, 3, 4]]],
+                        dtype=torch.int32)
+    samp, mask = rc.sample_textures(tid, uv, uv, ftex, slots, pool)
+    assert mask.tolist() == [[1, 4, 7, 0]]
+    assert samp[:, 0].tolist() == [[105, 0, 105, 0], [0, 0, 105, 0],
+                                   [0, 105, 105, 0]]
+
+
 def test_debug_inputs_are_not_degenerate(stage_inputs):
     """The debug planes change what K1 and K7 see: on the scene, the
     sharded rank and the adversarial tables, some pixel's z or winner
@@ -804,8 +883,14 @@ def test_tile_bins_list_every_overlap_in_order():
 def cuda_inputs(stage_inputs):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the card)")
-    return {name: _moved(args, kw, "cuda")
-            for name, (args, kw) in stage_inputs.items()}
+    moved = {name: _moved(args, kw, "cuda")
+             for name, (args, kw) in stage_inputs.items()}
+    # Moving a view copies it: K3's adversarial planes are built on the
+    # card, so that iu stays off its 16-byte boundary there too.
+    for name, vector in K3_ADV.items():
+        moved[name] = chip_smoke.k3_adversarial_inputs(vector=vector,
+                                                       device="cuda")
+    return moved
 
 
 @pytest.mark.cuda

@@ -8,7 +8,9 @@ through numpy, and compared with the JAX function it replaces:
 - K2 gbuffer vs the G-buffer of visibility_gbuffer_pallas (interpret mode,
   with_tex_tables=True);
 - K3 sample_textures vs pipeline._wrap_index + the stack gather of
-  _sample_stack on the JAX G-buffer's iu/iv;
+  _sample_stack on the JAX G-buffer's iu/iv, and vs _wrap_index + a
+  gather from each texture on seeded uv in [-4, 4] and textures of no
+  power-of-two size;
 - K4 stencil vs shadow.shadow_stencil (XLA).
 
 Tolerances and why: XLA's CPU backend contracts a*b + c into fused
@@ -255,6 +257,53 @@ def test_k3_sample_textures_match_jax_gather(jax_stage, jax_gbuffer, packed,
         np.testing.assert_array_equal(samp[k][want_mask], want[want_mask])
         n_sampled += want_mask.sum()
     assert n_sampled > 0
+
+
+@pytest.mark.parametrize("seed,gid0", [(0, 0), (1, 23)])
+def test_k3_plain_matches_jax_wrap_on_npot_textures(seed, gid0):
+    """K3's plain version against pipeline._wrap_index and a gather from
+    each texture, on seeded finite uv in [-4, 4] (negative, above 1, past
+    one wrap) and textures of no power-of-two size, 1x1 among them: equal
+    samples and masks, here from ``gid0`` on. NaN and inf are left to the
+    card's adversarial case: JAX's astype(int32) of NaN is undefined."""
+    rng = np.random.default_rng(seed)
+    h, w, g = 24, 29, 40
+    dims = np.array([(1, 1), (3, 5), (7, 1), (13, 11), (37, 100), (6, 9)])
+    texs = [rng.integers(0, 1 << 24, (th, tw)).astype(np.int32)
+            for th, tw in dims]
+    sizes = dims.prod(1)
+    slots = np.stack([np.cumsum(sizes) - sizes, dims[:, 1]], 1)
+    slot = rng.integers(-1, len(dims), (g, 3))
+    ftex = np.concatenate([slot[..., None], dims[np.maximum(slot, 0)]], -1)
+    tid = rng.integers(-1, gid0 + g + 10, (h, w)).astype(np.int32)
+    iu, iv = rng.uniform(-4.0, 4.0, (2, h, w)).astype(np.float32)
+    samp, mask = rc.sample_textures(
+        torch.from_numpy(tid), torch.from_numpy(iu), torch.from_numpy(iv),
+        torch.from_numpy(ftex.astype(np.int32)),
+        torch.from_numpy(slots.astype(np.int32)),
+        torch.from_numpy(np.concatenate([t.ravel() for t in texs])),
+        gid0=gid0)
+    samp, mask = samp.numpy(), mask.numpy()
+
+    own = (tid >= gid0) & (tid < gid0 + g)
+    face = np.where(own, tid - gid0, 0)
+    for k in range(3):
+        s = slot[face, k]
+        th = ftex[face, k, 1].astype(np.float32)
+        tw = ftex[face, k, 2].astype(np.float32)
+        col = np.asarray(pl_jax._wrap_index(jnp.clip(iu, max=1.0) * (tw - 1),
+                                            tw))
+        row = np.asarray(pl_jax._wrap_index(
+            (1.0 - jnp.clip(iv, max=1.0)) * (th - 1), th))
+        sel = own & (s >= 0)
+        want = np.zeros((h, w), np.int32)
+        for i, tex in enumerate(texs):
+            at = sel & (s == i)
+            want[at] = tex[row[at], col[at]]
+        np.testing.assert_array_equal((mask >> k) & 1, sel)
+        np.testing.assert_array_equal(samp[k], want)
+        for at in (iu < 0, iu > 1, iv < 0, iv > 1, s == 0, s == 4):
+            assert (sel & at).any()
 
 
 def test_k4_stencil_matches_xla(jax_stage, torch_stage):

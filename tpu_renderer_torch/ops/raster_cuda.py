@@ -610,10 +610,12 @@ def sample_textures_plain(tid, iu, iv, ftex, slots, pool, gid0=0):
 
     ftex: (G, N_KINDS, 3) int32 per-face (global slot or -1, TH, TW);
     slots: (S, 2) int32 (pool offset, row stride); pool: (P,) int32 packed
-    RGB texels. Returns (samp (N_KINDS, H, W) int32, mask (H, W) int32 with
-    bit k set where kind k was sampled).
+    RGB texels. A face's kind samples nothing where its slot is -1 or past
+    ``slots``, or where its index falls outside ``pool``. Returns (samp
+    (N_KINDS, H, W) int32, mask (H, W) int32 with bit k set where kind k
+    was sampled).
     """
-    idx, hit = texel_indices(tid, iu, iv, ftex, slots, gid0)
+    idx, hit = texel_indices(tid, iu, iv, ftex, slots, pool, gid0)
     samp = []
     mask = torch.zeros(tid.shape, dtype=torch.int32, device=tid.device)
     for k in range(ftex.shape[1]):
@@ -623,13 +625,15 @@ def sample_textures_plain(tid, iu, iv, ftex, slots, pool, gid0=0):
     return torch.stack(samp).to(torch.int32), mask
 
 
-def texel_indices(tid, iu, iv, ftex, slots, gid0=0):
+def texel_indices(tid, iu, iv, ftex, slots, pool, gid0=0):
     """The pool index each pixel samples per kind, and where it samples
     (see sample_textures_plain). Returns (idx (N_KINDS, H, W) int64, 0
     where nothing is sampled; hit (N_KINDS, H, W) bool)."""
     fid, win = _owned(tid, gid0, ftex.shape[0])
     ciu = torch.clamp(iu, max=1.0)
     civ = torch.clamp(iv, max=1.0)
+    n_slots = slots.shape[0]
+    rows = torch.cat([slots.long(), slots.new_zeros((1, 2), dtype=torch.long)])
     idxs, hits = [], []
     for k in range(ftex.shape[1]):
         ft = ftex[:, k][fid]                              # (H, W, 3)
@@ -638,9 +642,11 @@ def texel_indices(tid, iu, iv, ftex, slots, gid0=0):
         tw = ft[..., 2].to(torch.float32)
         col = _wrap_clamped(ciu * (tw - 1.0), tw)
         row = _wrap_clamped((1.0 - civ) * (th - 1.0), th)
-        hit = win & (slot >= 0)
-        st = slots.long()[torch.clamp(slot, min=0).long()]
+        hit = win & (slot >= 0) & (slot < n_slots)
+        # Pixels that sample nothing read the zero row past the table.
+        st = rows[torch.where(hit, slot, n_slots).long()]
         idx = st[..., 0] + row * st[..., 1] + col
+        hit &= (idx >= 0) & (idx < pool.numel())
         idxs.append(torch.where(hit, idx, torch.zeros_like(idx)))
         hits.append(hit)
     return torch.stack(idxs), torch.stack(hits)
@@ -847,7 +853,9 @@ def gbuffer(fdata, adata, tid, row0=0, gid0=0):
 def sample_textures(tid, iu, iv, ftex, slots, pool, gid0=0):
     """K3: nearest-texel samples per kind and the sampled-kind bitmask of
     the pixels won by ftex's faces (see sample_textures_plain for the
-    arguments)."""
+    arguments), 4 pixels a thread over the flat frame. iu and iv may be
+    planes of the G-buffer: where a plane is not 16-byte aligned, the
+    kernel's scalar instance runs instead of its 16-byte one."""
     if _on_cpu(tid, iu, iv, ftex, slots, pool):
         return sample_textures_plain(tid, iu, iv, ftex, slots, pool, gid0)
     height, width = tid.shape
