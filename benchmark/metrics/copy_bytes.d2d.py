@@ -1,0 +1,6 @@
+"""copy_bytes.d2d (B, program counter; layer ``replay``, moves frame_ms): bytes
+copied per frame on the card, at the system's copy sites (rbench/inside.py
+``copy_bytes``)."""
+from rbench import inside
+
+read = inside.reader("copy_bytes.d2d")

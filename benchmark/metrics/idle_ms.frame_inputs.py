@@ -1,0 +1,6 @@
+"""idle_ms.frame_inputs (ms, device trace; layer ``device``, moves frame_ms):
+device idle per traced frame while ``tr.frame_inputs`` is the innermost span
+(rbench/inside.py ``idle_ms``)."""
+from rbench import inside
+
+read = inside.reader("idle_ms.frame_inputs")

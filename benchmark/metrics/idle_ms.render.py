@@ -1,0 +1,6 @@
+"""idle_ms.render (ms, device trace; layer ``device``, moves frame_ms): device
+idle per traced frame while ``tr.render`` is the innermost span
+(rbench/inside.py ``idle_ms``)."""
+from rbench import inside
+
+read = inside.reader("idle_ms.render")

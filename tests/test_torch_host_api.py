@@ -13,8 +13,8 @@
 - ``Scene._render_debug_shader_host`` against the port's device path at the
   bar of tests/test_overlay.py:105-130, and against the JAX package's;
 - ``utils``: ``frame_diff``, ``write_obj`` and ``write_textured_box``
-  (byte-equal files), a ``save_frame`` round trip, ``FrameTimer``,
-  ``nan_debug``, and ``trace`` with ``summarize_device_trace``;
+  (byte-equal files), a ``save_frame`` round trip, ``nan_debug``, and
+  ``trace`` with ``summarize_device_trace``;
 - an ``ast`` parity test: every name in every JAX module's ``__all__``
   exists in the port's counterpart module, but for ``NOT_PORTED``, each
   with its reason.
@@ -28,7 +28,6 @@ value can be near zero.
 """
 import ast
 import os
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -385,17 +384,6 @@ def test_objwrite_byte_equal(tmp_path):
     assert box.num_faces == 12
 
 
-def test_frame_timer():
-    with profiling.FrameTimer() as timer:
-        for out in (np.zeros(3), torch.zeros(3), [1, 2]):
-            time.sleep(0.002)
-            timer.frame(out)
-    s = timer.summary()
-    assert s["frames"] == 3 and s["fps"] > 0
-    assert s["ms_max"] >= s["ms_p50"] >= 1.0
-    assert profiling.FrameTimer().fps == 0.0
-
-
 def test_nan_debug():
     x = torch.tensor([1.0, 2.0])
     with profiling.nan_debug():
@@ -461,6 +449,10 @@ NOT_PORTED = {
     ("ops/raster_xla.py", "*"):
         "the XLA streaming rasterizer, the JAX package's portable backend; "
         "the port's plain versions (ops/raster_plain.py) take its place",
+    ("utils/profiling.py", "FrameTimer"):
+        "a frame timer that nothing in the port read; the benchmark "
+        "(benchmark/) times frames, and the port's spans and counters "
+        "(profiling.span, profiling.snapshot) time its parts",
     ("parallel/sharded.py", "dyn_partition_specs"):
         "shard_map PartitionSpecs of the packed scene; the port slices the "
         "scene per rank itself (parallel/sharded.shard_dyn)",

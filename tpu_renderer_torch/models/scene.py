@@ -44,8 +44,10 @@ from tpu_renderer_torch.ops.overlay import (draw_points, draw_view_frustum,
                                             draw_wireframe)
 from tpu_renderer_torch.ops.pipeline import (
     DEBUG_SHADERS, ModelConfig, SceneConfig, SHADER_GENERAL, SHADER_GOURAUD,
-    SHADERS, _span, face_statistics_jit, render_core, render_core_jit,
+    SHADERS, face_statistics_jit, render_core, render_core_jit,
     render_debug_frame_jit, render_frame_jit, render_ssaa_jit)
+from tpu_renderer_torch.utils import profiling
+from tpu_renderer_torch.utils.profiling import span
 
 __all__ = ["Scene"]
 
@@ -110,6 +112,23 @@ def _texture_stack(model: Model, attr: str):
         tangent_flags[gi] = tangent
     return (stack, slot, shape, tangent_flags,
             np.array([scale, offset], np.float32))
+
+
+def _count_copies(site, way, tensors):
+    """One visit of the copy site ``site``, which copies the CUDA tensors
+    among ``tensors`` in direction ``way`` (a CPU tensor is made or handed
+    over without a transfer)."""
+    cuda = [t for t in tensors if t.is_cuda]
+    copies = {way: [len(cuda), sum(t.nbytes for t in cuda)]} if cuda else {}
+    profiling.count_copies(site, copies)
+
+
+def _readback(*tensors):
+    """``t.cpu().numpy()`` of each tensor, under ``tr.readback``, counted
+    at the ``readback`` copy site."""
+    with span("readback"):
+        _count_copies("readback", "d2h", tensors)
+        return [t.cpu().numpy() for t in tensors]
 
 
 def _check_device(device) -> torch.device:
@@ -319,21 +338,26 @@ class Scene:
         lt = self.light
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
                                         device=self.device)
-        return {"position": f32(lt.position), "center": f32(lt.center),
-                "color": f32(lt.color), "ambient": f32(lt.ambient),
-                "specular_strength": f32(lt.specular_strength),
-                "constant": f32(lt.constant), "linear": f32(lt.linear),
-                "quadratic": f32(lt.quadratic)}
+        light = {"position": f32(lt.position), "center": f32(lt.center),
+                 "color": f32(lt.color), "ambient": f32(lt.ambient),
+                 "specular_strength": f32(lt.specular_strength),
+                 "constant": f32(lt.constant), "linear": f32(lt.linear),
+                 "quadratic": f32(lt.quadratic)}
+        _count_copies("light", "h2d", light.values())
+        return light
 
     def _background(self):
         """("cubemap", None) or ("color", (3,) float32 tensor)."""
         if isinstance(self.skybox, CubeMap):
+            _count_copies("background", "h2d", ())
             return "cubemap", None
         # Reference default purple-ish background (core.py:600).
         color = (self.skybox if self.skybox is not None
                  else [64 / 255, 0.5, 198 / 255])
-        return "color", torch.as_tensor(np.asarray(color, np.float32),
-                                        device=self.device)
+        color = torch.as_tensor(np.asarray(color, np.float32),
+                                device=self.device)
+        _count_copies("background", "h2d", (color,))
+        return "color", color
 
     # -------------------------------------------------------------- render
 
@@ -341,33 +365,34 @@ class Scene:
         """Pack the scene into (static SceneConfig, dict of tensors), at
         ``resolution`` (default the scene's; the SSAA render passes the
         scaled one). The per-model packets stay cached."""
-        packets = [self._pack_model(m) for m in self.models]
-        background, bg_color = self._background()
-        cfg = SceneConfig(
-            resolution=tuple(resolution or self.resolution),
-            system=self.system,
-            subsystem=self.subsystem, shadows=self.shadows,
-            cam_projection_type=self.camera.projection_type,
-            backface_culling=self.camera.backface_culling,
-            light_type=self.light.light_type,
-            models=tuple(p["_config"] for p in packets),
-            shader=self.shader, background=background,
-            has_debug_camera=self.debug_camera is not None,
-            dbg_projection_type=(self.debug_camera.projection_type
-                                 if self.debug_camera else 0))
-        dyn = {
-            "models": [{k: v for k, v in p.items() if not k.startswith("_")}
-                       for p in packets],
-            "camera": self._cam_dyn(self.camera),
-            "light": self._light_dyn(),
-        }
-        if self.debug_camera is not None:
-            dyn["debug_camera"] = self._cam_dyn(self.debug_camera)
-        if background == "color":
-            dyn["background_color"] = bg_color
-        else:
-            dyn["skybox"] = self.skybox.as_device_arrays(self.device)
-        return cfg, dyn
+        with span("prepare"):
+            packets = [self._pack_model(m) for m in self.models]
+            background, bg_color = self._background()
+            cfg = SceneConfig(
+                resolution=tuple(resolution or self.resolution),
+                system=self.system,
+                subsystem=self.subsystem, shadows=self.shadows,
+                cam_projection_type=self.camera.projection_type,
+                backface_culling=self.camera.backface_culling,
+                light_type=self.light.light_type,
+                models=tuple(p["_config"] for p in packets),
+                shader=self.shader, background=background,
+                has_debug_camera=self.debug_camera is not None,
+                dbg_projection_type=(self.debug_camera.projection_type
+                                     if self.debug_camera else 0))
+            dyn = {
+                "models": [{k: v for k, v in p.items()
+                            if not k.startswith("_")} for p in packets],
+                "camera": self._cam_dyn(self.camera),
+                "light": self._light_dyn(),
+            }
+            if self.debug_camera is not None:
+                dyn["debug_camera"] = self._cam_dyn(self.debug_camera)
+            if background == "color":
+                dyn["background_color"] = bg_color
+            else:
+                dyn["skybox"] = self.skybox.as_device_arrays(self.device)
+            return cfg, dyn
 
     def render(self) -> np.ndarray:
         """Render one frame; returns (H, W, 3) uint8, same as core.py:587-640.
@@ -392,7 +417,17 @@ class Scene:
 
         Every path runs a compiled program (``pipeline.*_jit``): on the
         card a replayed CUDA graph, captured at the first frame of its
-        static key; if capture or replay fails, this raises."""
+        static key; if capture or replay fails, this raises.
+
+        The frame runs under a ``tr.render`` span (utils/profiling.py), its
+        copy to the host under ``tr.readback``; after that copy the timers
+        of a replay made under a profiler are read."""
+        with span("render"):
+            frame = self._render()
+            profiling.read_replay_timers()
+            return frame
+
+    def _render(self) -> np.ndarray:
         ss = self.supersample
         if ss > 1 and (self.shader in DEBUG_SHADERS
                        or self.debug_camera is not None):
@@ -402,14 +437,14 @@ class Scene:
                       DEBUG_SHADERS else "debug-camera overlay")
             warnings.warn(
                 f"supersample={ss} is ignored with a {reason}; rendering at "
-                "native resolution", RuntimeWarning, stacklevel=2)
+                "native resolution", RuntimeWarning, stacklevel=3)
         elif ss > 1:
             h, w = self.resolution
             cfg, dyn = self._prepare(resolution=(h * ss, w * ss))
             out, zbuf, tid, stencil = render_ssaa_jit(cfg, dyn, ss)
             self.last_zbuf, self.last_tid, self.last_stencil = \
                 zbuf, tid, stencil
-            return out.cpu().numpy()
+            return _readback(out)[0]
         cfg, dyn = self._prepare()
         if self.shader in DEBUG_SHADERS:
             return self._render_debug_shader(cfg, dyn)
@@ -420,7 +455,7 @@ class Scene:
             return out
         out, zbuf, tid, stencil = render_frame_jit(cfg, dyn)
         self.last_zbuf, self.last_tid, self.last_stencil = zbuf, tid, stencil
-        return out.cpu().numpy()
+        return _readback(out)[0]
 
     def _render_overlay(self, cfg, dyn, ops=None):
         """The pre-flip frame through ``render_core_jit`` (or, given
@@ -430,9 +465,8 @@ class Scene:
         the overlay left it, tid, stencil)."""
         frame, zbuf, tid, stencil = (render_core_jit(cfg, dyn) if ops is None
                                      else render_core(cfg, dyn, ops))
-        with _span("overlay"):
-            frame = frame.cpu().numpy().astype(np.float64)
-            zb = zbuf.cpu().numpy().astype(np.float64)
+        with span("overlay"):
+            frame, zb = (a.astype(np.float64) for a in _readback(frame, zbuf))
             draw_view_frustum(frame, self.camera._matrices(torch.float64),
                               self.debug_camera._matrices(torch.float64),
                               self.camera.position, self.camera.near,
@@ -448,7 +482,7 @@ class Scene:
         out, zbuf, tid, stencil = render_debug_frame_jit(cfg, dyn,
                                                          self.shader)
         self.last_zbuf, self.last_tid, self.last_stencil = zbuf, tid, stencil
-        return out.cpu().numpy()
+        return _readback(out)[0]
 
     def _render_debug_shader_host(self, cfg, dyn) -> np.ndarray:
         """Host-loop wireframe / points shaders (scene.py:900-951 of the

@@ -67,6 +67,8 @@ _SIGNATURES = {
     "tr_gbuffer_slim": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # ldata, lbbox, active, n_edges, zbuf, H, W, mask, stream
     "tr_lines": [_P, _P, _P, _I, _P, _I, _I, _P, _P],
+    # stamps (int64 slots the card can write), slot, stream
+    "tr_stamp": [_P, _I, _P],
 }
 
 _lib = None

@@ -43,6 +43,20 @@ so the kernel wrappers count it into the program's tally
 (``raster_cuda.counting_into``); every replay adds that tally to
 ``raster_cuda.LAUNCHES``. The warm-up's launches are real and count there
 as they run.
+
+Tracing (``utils/profiling.py``, whose :func:`~tpu_renderer_torch.utils.
+profiling.snapshot` holds the process's counters): a call opens the spans
+``tr.fill`` (the copies into the static buffers), ``tr.launch`` (the
+replay; on the CPU the body) and ``tr.outputs`` (the clones); a first call
+on the card ``tr.warmup`` and ``tr.record``, whose host ms the program
+keeps as ``warmup_ms`` and ``record_ms`` (``capture_ms`` is their sum).
+While the graph is recorded, each ``tr.<stage>`` span of the body stamps
+the card's clock into it at its entry and exit (a one-thread kernel,
+``csrc/stamp.cu``, writing into pinned host memory), so a replay times its
+stages on the device; a replay made under a profiler has those stamps read
+once the frame is on the host. A program counts the copies and bytes of
+its fill and of its clones per direction, which it works out once, when
+it is built.
 """
 from __future__ import annotations
 
@@ -52,6 +66,8 @@ from collections import OrderedDict
 import torch
 
 from tpu_renderer_torch.ops import raster_cuda as rc
+from tpu_renderer_torch.utils import profiling
+from tpu_renderer_torch.utils.profiling import span
 
 __all__ = ["Program", "ProgramCache", "CACHE", "MAX_PROGRAMS", "call",
            "clear_compiled"]
@@ -132,10 +148,12 @@ class Program:
     copies of a tree of input tensors and of the staging buffer ``buf``.
 
     After the first call on a CUDA device: ``graph`` (the captured
-    ``torch.cuda.CUDAGraph``), ``capture_ms`` (host ms of the warm-up and
-    the capture), ``pool_bytes`` (the bytes the capture reserved: the
-    graph's memory pool) and ``launches`` (kernel launches per replay, by
-    ``raster_cuda.LAUNCHES`` key). ``calls`` counts calls.
+    ``torch.cuda.CUDAGraph``), ``warmup_ms`` and ``record_ms`` (host ms of
+    the warm-up and of the recording), ``capture_ms`` (their sum),
+    ``pool_bytes`` (the bytes the capture reserved: the graph's memory
+    pool), ``launches`` (kernel launches per replay, by
+    ``raster_cuda.LAUNCHES`` key) and ``timers`` (the span timers recorded
+    into the graph, ``profiling.Timers``). ``calls`` counts calls.
     """
 
     def __init__(self, key, body, buf, inputs, device):
@@ -143,29 +161,37 @@ class Program:
         self.body = body
         self.device = device
         self.calls = 0
-        self.capture_ms = None
+        self.warmup_ms = self.record_ms = self.capture_ms = None
         self.pool_bytes = None
         self.launches = {}
+        self.timers = None
         self.graph = None
         self._out_tree = None
+        self._out_copies = None
         self._static_out = None
         self._buf = torch.empty(buf.shape, dtype=buf.dtype, device=device)
         self._tree = _structure(inputs)
         leaves = list(_leaves(inputs))
         self._slots = _aliases(leaves)
-        self._static = [torch.empty_like(t, device=device)
-                        for t in _firsts(self._slots, leaves)]
+        firsts = list(_firsts(self._slots, leaves))
+        self._static = [torch.empty_like(t, device=device) for t in firsts]
+        self._fill_copies = profiling.tally(
+            [(buf, buf.device, device)]
+            + [(t, t.device, device) for t in firsts])
 
     def _fill(self, buf, inputs):
         """Copy this frame's staged buffer and inputs into the static
         buffers, on the current stream."""
         cuda = self.device.type == "cuda"
-        # From pinned memory the host copy is asynchronous; the host
-        # allocator keeps the block until the copy has run.
-        self._buf.copy_(buf.pin_memory() if cuda else buf, non_blocking=cuda)
-        for dst, src in zip(self._static,
-                            _firsts(self._slots, _leaves(inputs))):
-            dst.copy_(src, non_blocking=cuda)
+        with span("fill"):
+            # From pinned memory the host copy is asynchronous; the host
+            # allocator keeps the block until the copy has run.
+            self._buf.copy_(buf.pin_memory() if cuda else buf,
+                            non_blocking=cuda)
+            for dst, src in zip(self._static,
+                                _firsts(self._slots, _leaves(inputs))):
+                dst.copy_(src, non_blocking=cuda)
+            profiling.count_copies("fill", self._fill_copies)
 
     def _run(self):
         return self.body(_rebuild(self._tree, (self._static[i]
@@ -173,42 +199,63 @@ class Program:
                          self._buf)
 
     def _capture(self):
-        """Warm the body up on a side stream, then capture it."""
+        """Warm the body up on a side stream, then record it into a graph,
+        with the timers of its spans."""
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._run()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        launches = {}
-        with rc.counting_into(launches), torch.cuda.graph(graph):
-            out = self._run()
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.graph, self._static_out, self.launches = graph, out, launches
+        with span("warmup"):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._run()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        with span("record"):
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            launches, timers = {}, profiling.Timers(self.device)
+            with (rc.counting_into(launches), profiling.recording(timers),
+                  torch.cuda.graph(graph)):
+                out = self._run()
+            self.pool_bytes = (torch.cuda.memory_reserved(self.device)
+                               - reserved)
+        t2 = time.perf_counter()
+        self.warmup_ms, self.record_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+        self.capture_ms = self.warmup_ms + self.record_ms
+        profiling.note_capture(self.warmup_ms, self.record_ms)
+        self.graph, self._static_out = graph, out
+        self.launches, self.timers = launches, timers
 
     def __call__(self, buf, inputs):
         """This frame's outputs: a tree of fresh tensors."""
         if self.device.type != "cuda":
             self._fill(buf, inputs)
-            out = self._run()
+            with span("launch"):
+                out = self._run()
         else:
             with torch.cuda.device(self.device):
                 self._fill(buf, inputs)
                 if self.graph is None:
                     self._capture()
-                self.graph.replay()
+                # The stamps of an earlier traced replay are read before
+                # this one writes them again.
+                profiling.read_replay_timers()
+                with span("launch"):
+                    self.graph.replay()
+                profiling.replayed(self.timers)
             for k, n in self.launches.items():
                 rc.LAUNCHES[k] += n
             out = self._static_out
         self.calls += 1
-        if self._out_tree is None:
-            self._out_tree = _structure(out)
-        return _rebuild(self._out_tree, (t.clone() for t in _leaves(out)))
+        with span("outputs"):
+            if self._out_tree is None:
+                self._out_tree = _structure(out)
+                self._out_copies = profiling.tally(
+                    (t, t.device, t.device) for t in _leaves(out))
+            profiling.count_copies("outputs", self._out_copies)
+            return _rebuild(self._out_tree,
+                            (t.clone() for t in _leaves(out)))
 
 
 class ProgramCache:

@@ -84,6 +84,7 @@ from tpu_renderer_torch.ops.vertex import (_rowvec, gather_faces,
                                            screen_normal_z,
                                            transform_vertices)
 from tpu_renderer_torch.parallel.mesh import all_reduce
+from tpu_renderer_torch.utils.profiling import span
 
 __all__ = ["SceneConfig", "ModelConfig", "render_core", "render_frame",
            "render_ssaa", "render_debug_frame", "face_statistics",
@@ -177,21 +178,22 @@ def frame_inputs(cfg: SceneConfig, dyn):
     tensor, layout: a tuple of (name, shape), the same for every frame of
     a scene, which :func:`staged` reads the buffer with).
     """
-    cam = _cam_matrices(cfg, dyn["camera"], "cpu")
-    parts = [(k, cam[k]) for k in ("MVP", "viewport", "frustum_planes",
-                                   "near", "far")]
-    parts.append(("position", torch.as_tensor(dyn["camera"]["position"],
-                                              dtype=torch.float32)))
-    parts.append(("zc", torch.tensor(rc.stencil_scalars(cam["near"],
-                                                        cam["far"]))))
-    if cfg.has_debug_camera:
-        parts.append(("dbg_MVP", _debug_mvp(cfg, dyn, "cpu")))
-    if cfg.background == "cubemap":
-        rays, tri = skybox_inputs(cam)
-        parts += [("sky_rays", rays), ("sky_tri", tri)]
-    layout = tuple((name, tuple(t.shape)) for name, t in parts)
-    buf = torch.cat([t.reshape(-1).to(torch.float32) for _, t in parts])
-    return buf, layout
+    with span("frame_inputs"):
+        cam = _cam_matrices(cfg, dyn["camera"], "cpu")
+        parts = [(k, cam[k]) for k in ("MVP", "viewport", "frustum_planes",
+                                       "near", "far")]
+        parts.append(("position", torch.as_tensor(dyn["camera"]["position"],
+                                                  dtype=torch.float32)))
+        parts.append(("zc", torch.tensor(rc.stencil_scalars(cam["near"],
+                                                            cam["far"]))))
+        if cfg.has_debug_camera:
+            parts.append(("dbg_MVP", _debug_mvp(cfg, dyn, "cpu")))
+        if cfg.background == "cubemap":
+            rays, tri = skybox_inputs(cam)
+            parts += [("sky_rays", rays), ("sky_tri", tri)]
+        layout = tuple((name, tuple(t.shape)) for name, t in parts)
+        buf = torch.cat([t.reshape(-1).to(torch.float32) for _, t in parts])
+        return buf, layout
 
 
 def staged(buf, layout):
@@ -416,12 +418,6 @@ def _shade_slim(cfg: SceneConfig, dyn, tid, gb, camera_position, background):
     return torch.where((tid < 0)[..., None], background, rgb)
 
 
-def _span(stage):
-    """A named range (``tr.<stage>``) in torch.profiler traces; it records
-    nothing when no profiler runs."""
-    return torch.profiler.record_function(f"tr.{stage}")
-
-
 def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS, *, local_height=None,
                 row0=0, tris_group=None, tris_idx=0):
     """Render the frame BEFORE flip/quantize, for the general, flat,
@@ -465,7 +461,7 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
         zbuf = torch.full(shape, float("inf") * sign, device=device)
         tid = torch.full(shape, -1, dtype=torch.int32, device=device)
         return frame, zbuf, tid, torch.zeros_like(tid)
-    with _span("vertex"):
+    with span("vertex"):
         faces, attrs = _build_face_batch(cfg, dyn, st, st.get("dbg_MVP"))
         fdata = rc.pack_faces(faces)
         flags = rc.face_flags(faces)
@@ -478,22 +474,22 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
         else:
             adata = rc.pack_face_attrs(attrs)
     if tris_group is None:
-        with _span("visibility"):
+        with span("visibility"):
             zb_sign, tid = ops.visibility(fdata, flags, *shape, sign,
                                           row0=row0, fdbg=fdbg)
     else:
         # A shard's own winners mean nothing before its z-buffer meets the
         # others': z alone, MIN, then every shard claims against the merged
         # buffer and the highest global id wins.
-        with _span("visibility"):
+        with span("visibility"):
             zb_sign, _ = ops.visibility(fdata, flags, *shape, sign, row0=row0,
                                         want_tid=False, fdbg=fdbg)
         zb_sign = all_reduce(zb_sign, "min", tris_group, "zb")
-        with _span("tidpass"):
+        with span("tidpass"):
             tid = ops.tidpass(fdata, flags, zb_sign, sign, row0=row0,
                               gid0=gid0, fdbg=fdbg)
         tid = all_reduce(tid, "max", tris_group, "tid")
-    with _span("gbuffer"):
+    with span("gbuffer"):
         if slim:
             gb = ops.gbuffer_slim(fdata, sdata, tid, cfg.shader, row0=row0,
                                   gid0=gid0)
@@ -502,7 +498,7 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
     gb = all_reduce(gb, "sum", tris_group, "gbuffer")
     samp = samp_mask = None
     if not slim:
-        with _span("sample_textures"):
+        with span("sample_textures"):
             tables = texture_tables(cfg, dyn, attrs)
             if tables is not None:
                 samp, samp_mask = ops.sample_textures(
@@ -517,17 +513,17 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
         # read it (pipeline.py:878-939 of the JAX package).
         # Only the silhouette quads are clipped, projected, packed (K8)
         # and binned (K4), as many as the count on the device says.
-        with _span("shadow_quads"):
+        with span("shadow_quads"):
             tables = quad_tables(cfg, dyn, st, height, width, ops,
                                  tris_group, tris_idx)
         if tables is not None:
             qdata, qi, n_sil = tables
-            with _span("stencil"):
+            with span("stencil"):
                 stencil = ops.stencil(qdata, qi, zb_sign, sign, st["zc"],
                                       row0=row0, n_rows=n_sil)
             stencil = all_reduce(stencil, "sum", tris_group, "stencil")
 
-    with _span("shade"):
+    with span("shade"):
         background = _background(cfg, dyn, st, *shape, row0)
         if slim:
             frame = _shade_slim(cfg, dyn, tid, gb, st["position"], background)
@@ -539,7 +535,7 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
 
 def _quantize(frame):
     """Vertical flip + gamma 0.8 + quantize (reference core.py:640)."""
-    with _span("quantize"):
+    with span("quantize"):
         out = torch.clamp(torch.flip(frame, [0]) ** 0.8, 0.0, 1.0) * 255
         return out.to(torch.uint8)
 
@@ -565,7 +561,7 @@ def render_ssaa(cfg: SceneConfig, dyn, ss, ops=rc.KERNELS):
 
 def _ssaa(cfg, dyn, st, ss, ops):
     frame, zbuf, tid, stencil = _core(cfg, dyn, st, ops)
-    with _span("ssaa"):
+    with span("ssaa"):
         hh, ww = frame.shape[0], frame.shape[1]
         frame = frame.reshape(hh // ss, ss, ww // ss, ss, 3).mean(dim=(1, 3))
     return _quantize(frame), zbuf, tid, stencil
@@ -660,16 +656,16 @@ def _debug_frame(cfg, dyn, st, kind, ops):
     if not cfg.models:
         return _quantize(frame), zbuf, tid, stencil
 
-    with _span("debug_vertex"):
+    with span("debug_vertex"):
         sx, sy, sz, fn, valid = _debug_vertices(dyn, st)
     if kind == SHADER_WIREFRAME:
-        with _span("lines"):
+        with span("lines"):
             mask = ops.lines(*_wireframe_lines(sx, sy, sz, valid, zbuf,
                                                height, width))
             color = _rgb(64 / 255, 64 / 255, 128 / 255, zbuf.device)
             frame = torch.where((mask > 0)[..., None], color, frame)
     else:
-        with _span("points"):
+        with span("points"):
             frame = torch.where(*_point_splats(st, sx, sy, fn, valid, height,
                                                width), frame)
     return _quantize(frame), zbuf, tid, stencil

@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from tpu_renderer_torch.utils.profiling import span
+
 __all__ = ["make_render_mesh", "all_reduce", "all_gather_rows", "ROWS_AXIS",
            "TRIS_AXIS"]
 
@@ -40,10 +42,6 @@ def make_render_mesh(n_tris: int = 1, device_type: str = "cuda"):
                             mesh_dim_names=(ROWS_AXIS, TRIS_AXIS))
 
 
-def _span(what):
-    return torch.profiler.record_function(f"tr.merge_{what}")
-
-
 def _staged(t, group):
     """The tensor a collective of ``group`` runs on. torch.distributed's
     backend table gives gloo CUDA tensors for broadcast and all_reduce only,
@@ -63,7 +61,7 @@ def all_reduce(t, op, group, what):
     the same order."""
     if group is None:
         return t
-    with _span(what):
+    with span(f"merge_{what}"):
         staged = _staged(t, group)
         dist.all_reduce(staged, op=_OPS[op], group=group)
         if staged is not t:
@@ -74,7 +72,7 @@ def all_reduce(t, op, group, what):
 def all_gather_rows(t, group):
     """Every rank's ``t`` concatenated along dim 0 in the group's rank
     order, under a ``tr.merge_frame`` range."""
-    with _span("frame"):
+    with span("merge_frame"):
         staged = _staged(t.contiguous(), group)
         parts = [torch.empty_like(staged)
                  for _ in range(dist.get_world_size(group))]

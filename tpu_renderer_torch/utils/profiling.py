@@ -1,80 +1,233 @@
 """Profiling and debug instrumentation, in PyTorch.
 
-Counterpart of ``tpu_renderer/utils/profiling.py``:
+Counterpart of ``tpu_renderer/utils/profiling.py``, without its
+``FrameTimer`` (the benchmark, ``benchmark/``, times frames):
 
-- :class:`FrameTimer` times steady-state frames, waiting for each frame's
-  output first (``torch.cuda.synchronize()`` for a CUDA tensor, a host copy
-  for anything else);
+- :func:`span` names a piece of the render path ``tr.<name>``: the
+  stages of the frame's body (``ops/pipeline.py``), the merges of the
+  sharded path (``parallel/mesh.py``) and the host path of a compiled
+  frame (``Scene.render``, ``ops/compiled.py``). With no profiler running
+  and no graph being recorded it does nothing. Under ``torch.profiler`` it
+  opens a ``record_function`` range, so the trace shows where a frame's
+  host and device time go. While a program records its CUDA graph
+  (:func:`recording`) it stamps the clock into the graph at its entry and
+  at its exit (:class:`Timers`: a one-thread kernel writes the card's
+  ``%globaltimer`` into pinned host memory), so every replay times each
+  span on the device; the program reads the stamps after a replay made
+  under a profiler, once the frame is on the host (:func:`replayed`,
+  :func:`read_replay_timers`);
+- copy counters: each copy site of the compiled frame (the program's
+  static buffers, the scene's per-frame light and background tensors,
+  the output clones, the copy of the frame to the host) adds its copies
+  and bytes per direction (``h2d``, ``d2d``, ``d2h``; ``h2h`` on the CPU)
+  and one visit (:func:`tally`, :func:`count_copies`); the ``fill`` site's
+  visits are the compiled calls. The first capture's two parts,
+  ``warmup_ms`` and ``record_ms``, are kept (:func:`note_capture`). These
+  counters and the replay totals are the process's: they live in this
+  module, outlive ``compiled.clear_compiled()``, and :func:`snapshot`
+  returns them (:func:`reset` zeroes them);
 - :func:`trace` is a ``torch.profiler`` scope (CPU and, where there is a
   card, CUDA activity) that writes a Chrome trace, in place of
   ``jax.profiler.trace``; :func:`summarize_device_trace` totals its device
   kernels by name;
 - :func:`nan_debug` raises at the first torch op that produces a NaN, in
   place of ``jax_debug_nans``.
-
-The render path names its stages ``tr.<stage>`` (``ops/pipeline.py``), so a
-trace shows where a frame's host and device time go.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import glob
 import json
 import os
 import tempfile
 import time
 
-import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-__all__ = ["FrameTimer", "trace", "nan_debug", "summarize_device_trace"]
+__all__ = ["span", "Timers", "recording", "replayed", "read_replay_timers",
+           "tally", "count_copies", "note_capture", "snapshot", "reset",
+           "trace", "nan_debug", "summarize_device_trace"]
 
 #: The file :func:`trace` writes into its directory.
 TRACE_FILE = "trace.json"
 #: Chrome-trace categories of device work: kernels, copies and fills.
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
+#: What an untraced span enters: nothing.
+_NOTHING = contextlib.nullcontext()
+#: The :class:`Timers` of the graph being recorded (:func:`recording`).
+_recording = None
+#: Timers of replays made under a profiler, not read yet.
+_pending = []
+#: Span timers one graph can hold.
+MAX_TIMERS = 32
 
-class FrameTimer:
-    """Steady-state frame timing: ``with FrameTimer() as t: ... t.frame(x)``."""
 
-    def __init__(self):
-        self.times = []
-        self._t0 = None
+def _fresh():
+    return {"copies": {}, "replays": 0, "replay_ms": {}, "warmup_ms": None,
+            "record_ms": None}
 
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
 
-    def __exit__(self, *exc):
-        return False
+_STATE = _fresh()
 
-    def frame(self, device_output):
-        """Record one frame, after its output is ready: a CUDA tensor waits
-        for the card, anything else is copied to the host."""
-        if isinstance(device_output, torch.Tensor) and device_output.is_cuda:
-            torch.cuda.synchronize(device_output.device)
-        else:
-            np.asarray(device_output)
-        now = time.perf_counter()
-        self.times.append(now - self._t0)
-        self._t0 = now
 
-    @property
-    def fps(self) -> float:
-        if not self.times:
-            return 0.0
-        return len(self.times) / sum(self.times)
+class Timers:
+    """The span timers of one program's graph: each span recorded into it
+    takes a pair of slots of ``stamps``, int64 clock nanoseconds written
+    at the span's entry and exit in stream order, at every replay. On a
+    CUDA ``device`` the slots lie in pinned host memory and a one-thread
+    kernel writes the card's ``%globaltimer`` into them (``csrc/stamp.cu``);
+    on the CPU the host's clock is written."""
 
-    def summary(self) -> dict:
-        ts = np.asarray(self.times)
-        return {"frames": len(ts), "fps": self.fps,
-                "ms_mean": float(ts.mean() * 1000) if len(ts) else 0.0,
-                "ms_p50": float(np.median(ts) * 1000) if len(ts) else 0.0,
-                "ms_max": float(ts.max() * 1000) if len(ts) else 0.0}
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.names = []
+        self.stamps = torch.zeros(2 * MAX_TIMERS, dtype=torch.int64,
+                                  pin_memory=self.device.type == "cuda")
+
+    def open(self, name):
+        """A new pair of slots for span ``name``: its index."""
+        if len(self.names) == MAX_TIMERS:
+            raise RuntimeError(f"a graph holds at most {MAX_TIMERS} span "
+                               "timers")
+        self.names.append(name)
+        return len(self.names) - 1
+
+    def stamp(self, slot):
+        """Write the clock into ``stamps[slot]`` on the current stream."""
+        if self.device.type != "cuda":
+            self.stamps[slot] = time.perf_counter_ns()
+            return
+        from tpu_renderer_torch.ops import _build
+
+        err = _build.load().tr_stamp(
+            self.stamps.data_ptr(), slot,
+            torch.cuda.current_stream(self.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel stamp failed to launch: "
+                               f"cudaError {err}")
+
+    def read(self):
+        """[(span name, ms between its stamps)] of the last replay, once it
+        has run."""
+        ns = self.stamps.tolist()
+        return [(name, (ns[2 * i + 1] - ns[2 * i]) / 1e6)
+                for i, name in enumerate(self.names)]
+
+
+def span(name):
+    """A ``tr.<name>`` span: ``with span("vertex"): ...``. Without a
+    profiler or a graph being recorded it returns a context that does
+    nothing; under a profiler it opens a ``record_function`` range; while a
+    graph is recorded it also stamps the clock into the graph at entry and
+    at exit (:class:`Timers`)."""
+    timers = _recording
+    if timers is None and not torch.autograd._profiler_enabled():
+        return _NOTHING
+    return _span(name, timers)
+
+
+@contextlib.contextmanager
+def _span(name, timers):
+    with (torch.profiler.record_function("tr." + name)
+          if torch.autograd._profiler_enabled() else _NOTHING):
+        if timers is None:
+            yield
+            return
+        i = timers.open(name)
+        timers.stamp(2 * i)
+        yield
+        timers.stamp(2 * i + 1)
+
+
+@contextlib.contextmanager
+def recording(timers):
+    """Inside, every :func:`span` takes a pair of slots of ``timers`` and
+    stamps them on the current stream: the graph being captured."""
+    global _recording
+    _recording = timers
+    try:
+        yield timers
+    finally:
+        _recording = None
+
+
+def replayed(timers):
+    """Note a replay of a graph recorded with ``timers``: under a profiler
+    its span times are read by the next :func:`read_replay_timers`."""
+    if timers.names and torch.autograd._profiler_enabled():
+        _pending.append(timers)
+
+
+def read_replay_timers():
+    """Add each noted replay's ms per span to the process's totals and
+    count it. Waits for the replay's device: call it once the frame's
+    outputs are complete (``Scene.render`` does, after the copy to the
+    host; the wait is then none), or before the graph replays again."""
+    while _pending:
+        timers = _pending.pop(0)
+        if timers.device.type == "cuda":
+            torch.cuda.synchronize(timers.device)
+        totals = _STATE["replay_ms"]
+        for name, ms in timers.read():
+            totals[name] = totals.get(name, 0.0) + ms
+        _STATE["replays"] += 1
+
+
+def tally(copies):
+    """{direction: [copies, bytes]} of ``copies``, (tensor, from device, to
+    device) triples; directions are ``h2d``, ``d2d``, ``d2h`` and ``h2h``,
+    and a tensor of no bytes copies nothing."""
+    out = {}
+    for t, src, dst in copies:
+        n = t.numel() * t.element_size()
+        if n:
+            way = (("d" if torch.device(src).type == "cuda" else "h") + "2"
+                   + ("d" if torch.device(dst).type == "cuda" else "h"))
+            c = out.setdefault(way, [0, 0])
+            c[0] += 1
+            c[1] += n
+    return out
+
+
+def count_copies(site, copies):
+    """One visit of the copy site ``site``, which made ``copies``
+    ({direction: [copies, bytes]}, :func:`tally`)."""
+    entry = _STATE["copies"].get(site)
+    if entry is None:
+        entry = _STATE["copies"][site] = {"visits": 0}
+    entry["visits"] += 1
+    for way, (n, b) in copies.items():
+        c = entry.setdefault(way, [0, 0])
+        c[0] += n
+        c[1] += b
+
+
+def note_capture(warmup_ms, record_ms):
+    """The two parts of a program's capture; the process keeps its
+    first."""
+    if _STATE["warmup_ms"] is None:
+        _STATE["warmup_ms"], _STATE["record_ms"] = warmup_ms, record_ms
+
+
+def snapshot():
+    """The process's counters, after reading any noted replay: ``copies``
+    ({site: {"visits": n, direction: [copies, bytes]}}), ``replays``
+    (replays timed), ``replay_ms`` ({span: device ms summed over them}),
+    ``warmup_ms`` and ``record_ms`` (the first capture's)."""
+    read_replay_timers()
+    return copy.deepcopy(_STATE)
+
+
+def reset():
+    """Zero the process's counters and drop unread replays."""
+    _pending.clear()
+    _STATE.clear()
+    _STATE.update(_fresh())
 
 
 @contextlib.contextmanager
