@@ -10,11 +10,14 @@ exits non-zero without the final line):
 2. build: compile ``tpu_renderer_torch/csrc/*.cu`` with nvcc for sm_90a;
    K8's ptxas report (registers, stack, spills: the kernel fails the
    phase if it uses any local memory) and its persistent grid; K3's, for
-   both its instances (16-byte and 4-byte accesses), under the same rule;
-3. per kernel: K1-K8 (K5 in its flat, gouraud and pbr layouts; K8 on the
+   both its instances (16-byte and 4-byte accesses), and K9's, for its 24
+   (access width, light type, shadows, background kind), under the same
+   rule;
+3. per kernel: K1-K9 (K5 in its flat, gouraud and pbr layouts; K8 on the
    flagship's silhouette rows, its tables compared over all their rows,
-   NaN where NaN, and, as K3, also timed as a captured graph of calls; K4
-   on K8's tables with their count) against
+   NaN where NaN, and, as K3 and K9, also timed as a captured graph of
+   calls; K4 on K8's tables with their count; K9 on the frame's G-buffer,
+   samples and stencil) against
    their plain PyTorch versions on the card, at the flagship frame's
    shapes, each timed with CUDA events (median of a few runs after a
    warm-up) and alone in a profile, beside its bound: the larger of the
@@ -35,13 +38,16 @@ exits non-zero without the final line):
    timed as above, with the faces that take the per-pixel clip test with
    and without the debug camera; then K3 on its adversarial inputs
    (``k3_adversarial_inputs``), through each of its instances, equal to
-   its plain version;
+   its plain version; then K9 on its adversarial inputs
+   (``k9_adversarial_inputs``: each light type, shadows on and off, a
+   colour and a skybox plane, H*W not a multiple of 4, model ids that
+   name no row, a frame without maps), equal to its plain version;
 4. end to end, general shader: the flagship frame — a seeded procedural
    shadow-casting mesh of 4,992 faces with 1024² diffuse and tangent-space
    normal maps over a textured floor, point light, shadow volumes,
    1024×1024, LH/OpenGL — through ``Scene.render()``, whose first frame
    captures the compiled program (ops/compiled.py) and whose second
-   replays it; K1-K4's and K8's launch counts must rise in the replay,
+   replays it; K1-K4's, K8's and K9's launch counts must rise in the replay,
    and tid, stencil and frame must match the same render through the plain
    versions; then a camera orbit of ``Scene.render()`` frames is timed,
    and a few frames through the eager entry points (``render_eager``) are
@@ -91,8 +97,8 @@ exits non-zero without the final line):
    SSAA_ORBIT-frame orbit pairs and profiled (``tr.ssaa`` and the kernels
    alone); gouraud at ss = 2 through K5; ss = 4 (4096²) once, against its
    plain path, with the coarse-list scratch and the device's peak memory;
-   K1-K5 and K8 timed at 2048² and 4096² beside their bounds
-   (``needed_bytes``), K3 and K8 equal to their plain versions there,
+   K1-K5, K8 and K9 timed at 2048² and 4096² beside their bounds
+   (``needed_bytes``), K3, K8 and K9 equal to their plain versions there,
    each as its wrapper (CUDA events) and as the device time per call of a
    captured graph of 20 wrapper calls (``_graph_ms``: no profile, whose
    events went missing there); then the flagship mesh written with
@@ -133,16 +139,17 @@ exits non-zero without the final line):
    shadowing models' edges E, the silhouette rows n_sil that K8 prepares
    and K4 bins, the active shadow quads, texel-pool bytes, distinct
    texture stacks and an eager profile, with the ``shadow_quads`` and
-   ``stencil`` stages' busy ms; K1-K4 and K8 at the crowd's shapes timed
-   with ``_graph_ms`` beside their bounds (K3 and K8 equal to their plain
-   versions there, K8 also timed with a count of 0: its zero rows alone),
+   ``stencil`` stages' busy ms; K1-K4, K8 and K9 at the crowd's shapes
+   timed with ``_graph_ms`` beside their bounds (K3, K8 and K9 equal to
+   their plain versions there, K8 also timed with a count of 0: its zero
+   rows alone),
    with K1's and K4's coarse lists against their plain version; the two
    crowd paths must give equal frames and stencils, the same texel pool,
    and one stack tensor per map in the instances' packets.
 
 Before the last line it prints the card's ``name, power.limit`` line and
 one JSON object with the per-kernel records (each with its launches in
-the render of its path: K1-K4 and K8 from phase 4, each K5 layout from its
+the render of its path: K1-K4, K8 and K9 from phase 4, each K5 layout from its
 shader's render, K6 from the wireframe render, the sharded modes from
 the 1x2 renders' rank whose inputs phase 3 took, the debug modes from
 phase 7 and the debug 1x2 render); the last line is
@@ -233,6 +240,7 @@ def kernel_inputs(scene):
     inputs["quad_prep"] = prep_args
     inputs = {case: (args, {}) for case, args in inputs.items()}
     inputs["stencil"] = (inputs["stencil"][0], {"n_rows": prep_args[2]})
+    inputs["shade"] = shade_inputs(cfg, dyn)
     inputs.update(shard_inputs(cfg, dyn, zb_sign))
     inputs.update(debug_inputs(cfg, dyn))
     return inputs, zb_sign
@@ -419,6 +427,123 @@ def k3_adversarial_inputs(seed=0, vector=False, device="cpu"):
              to(slots.astype(np.int32)), to(pool)), {"gid0": gid0})
 
 
+def shade_inputs(cfg, dyn, ops=None, **core_kw):
+    """K9's arguments in the frame of (cfg, dyn), as
+    ``pipeline.render_core`` (its ``local_height`` and ``row0`` in
+    ``core_kw``) calls ``ops.shade``, through ``ops`` (default the plain
+    versions), as (args, kwargs)."""
+    import copy
+
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    got = []
+    ops = copy.copy(rc.PLAIN if ops is None else ops)
+    shade = ops.shade
+
+    def capture(*args):
+        got.append(args)
+        return shade(*args)
+
+    ops.shade = capture
+    pl.render_core(cfg, dyn, ops, **core_kw)
+    return got[0], {}
+
+
+#: K9's adversarial frames (``k9_adversarial_inputs``): case -> (light
+#: type, shadows, background "sky" (a plane) or "color", (H, W), maps).
+#: Their H*W are 37*61 = 1 and 33*35 = 3 past a multiple of 4.
+K9_ADV = {"shade-adv-spot-sky": ("SPOT_LIGHTNING", True, "sky", (37, 61),
+                                 True),
+          "shade-adv-directional": ("DIRECTIONAL_LIGHTNING", False, "color",
+                                    (48, 64), True),
+          "shade-adv-point-nomaps": ("POINT_LIGHTNING", True, "color",
+                                     (33, 35), False)}
+#: The adversarial frames' models: per model, its maps' (scale, offset) by
+#: kind; model 0 has none, models 1 and 2 are instances (equal rows),
+#: model 3 has a specular map and a diffuse map of its own scale.
+K9_ADV_MODELS = ({}, {"kd": (1.0, 0.0), "norm": (2.0, -1.0)},
+                 {"kd": (1.0, 0.0), "norm": (2.0, -1.0)},
+                 {"kd": (0.5, 0.25), "ks": (1.0, 0.0)},
+                 {"norm": (2.0, -1.0), "ks": (0.75, 0.125)})
+#: Model ids that name no row of the table (planted at a few pixels).
+K9_ADV_UNKNOWN = (-1.0, 5.0, 1.5, float("nan"), 1e10, -0.0)
+
+
+def k9_adversarial_inputs(case, seed=0, device="cpu"):
+    """K9's seeded adversarial inputs for a case of ``K9_ADV``, as (args,
+    kwargs). Per pixel: background (tid -1) at a quarter; a model of
+    K9_ADV_MODELS, or at 3% an id of K9_ADV_UNKNOWN; world positions
+    around the light's axis (some inside the spot's cone, some on the
+    light and on the camera: zero distances); normals, tangents and
+    bitangents with zero vectors planted; tangent-space or object-space
+    normal maps; Ns from 0 to 100; each kind's mask bit set at 80% of the
+    pixels whose model has the map and 5% of the others (whose rows are
+    zeros); stencil from -1 to 2 with shadows; a colour or a per-pixel
+    skybox plane."""
+    import torch
+    from tpu_renderer_torch.ops import raster_cuda as rc
+    from tpu_renderer_torch.ops.lightning import Lightning
+    from tpu_renderer_torch.ops.transforms import normalize
+
+    light_type, shadows, bg_kind, (h, w), maps = K9_ADV[case]
+    rng = np.random.default_rng(seed)
+    n = h * w
+    to = lambda a, dt=torch.float32: torch.as_tensor(
+        np.ascontiguousarray(a)).to(dt).to(device)
+    vec3 = lambda lo, hi: rng.uniform(lo, hi, (3, n)).astype(np.float32)
+    tid = np.where(rng.random(n) < 0.25, -1, rng.integers(0, 1000, n))
+    n_models = len(K9_ADV_MODELS)
+    model = rng.integers(0, n_models, n).astype(np.float32)
+    odd = rng.random(n) < 0.03
+    model[odd] = rng.choice(np.array(K9_ADV_UNKNOWN, np.float32), odd.sum())
+    position = np.array([0.5, 3.0, 1.0], np.float32)
+    center = np.array([0.0, 0.0, 0.0], np.float32)
+    camera = np.array([2.0, 2.5, 4.0], np.float32)
+    gb = rng.uniform(-1.0, 1.0, (rc.GB_CHANNELS, n)).astype(np.float32)
+    gb[rc.GB_WORLD:rc.GB_WORLD + 3] = (center[:, None] + vec3(-1.5, 1.5))
+    on = rng.random(n)
+    gb[rc.GB_WORLD:rc.GB_WORLD + 3, on < 0.01] = position[:, None]
+    gb[rc.GB_WORLD:rc.GB_WORLD + 3, (on >= 0.01) & (on < 0.02)] = \
+        camera[:, None]
+    for c in (rc.GB_N, rc.GB_TAN, rc.GB_BIT):
+        gb[c:c + 3, rng.random(n) < 0.02] = 0.0
+    gb[rc.GB_KD:rc.GB_KD + 6] = rng.random((6, n))
+    gb[rc.GB_NS] = rng.choice(np.array([0.0, 0.5, 1.0, 5.0, 20.0, 100.0],
+                                       np.float32), n)
+    gb[rc.GB_NORM_SLOT + 3] = rng.random(n) < 0.5
+    gb[rc.GB_MODEL] = model
+    gb[:, tid < 0] = 0.0
+    args = [to(tid.reshape(h, w), torch.int32),
+            to(rng.integers(-1, 3, (h, w)), torch.int32) if shadows else None,
+            to(gb.reshape(rc.GB_CHANNELS, h, w)), None, None, None]
+    if maps:
+        so = np.zeros((n_models, rc.N_KINDS, 2), np.float32)
+        has = np.zeros((n_models + 1, rc.N_KINDS), bool)
+        for m, kinds in enumerate(K9_ADV_MODELS):
+            for k, kind in enumerate(rc.KINDS):
+                if kind in kinds:
+                    so[m, k], has[m, k] = kinds[kind], True
+        m_idx = np.where(odd, n_models, np.where(odd, 0, model).astype(
+            np.int64))
+        p_bit = np.where(has[m_idx], 0.8, 0.05)
+        bits = rng.random((n, rc.N_KINDS)) < p_bit
+        mask = (bits * (1 << np.arange(rc.N_KINDS))).sum(1)
+        args[3:] = [to(rng.integers(0, 1 << 24, (rc.N_KINDS, h, w)),
+                       torch.int32), to(mask.reshape(h, w), torch.int32),
+                    to(so)]
+    kind = Lightning[light_type]
+    light = {"position": to(position), "center": to(center),
+             "color": to([1.0, 0.9, 0.8]), "ambient": to([0.1, 0.12, 0.08]),
+             "specular_strength": to(0.5), "constant": to(1.0),
+             "linear": to(0.05), "quadratic": to(0.01), "light_type": kind}
+    light["direction"] = normalize(light["position"]
+                                   - light["center"]).reshape(-1)
+    background = (rng.random((h, w, 3)) if bg_kind == "sky"
+                  else [64 / 255, 0.5, 198 / 255])
+    return (*args, light, to(camera), to(background)), {}
+
+
 def wrapper_of(case):
     """raster_cuda wrapper name of a kernel case."""
     case = case.removesuffix("_dbg").removesuffix("_fill")
@@ -464,7 +589,7 @@ OPS_PER_VISIT = {"visibility": 20, "tidpass": 20, "stencil": 5, "lines": 16,
                  "quad_prep": 720}
 OPS_PER_PIXEL = {"gbuffer": 100, "sample_textures": 45,
                  "gbuffer_slim_flat": 0, "gbuffer_slim_gouraud": 25,
-                 "gbuffer_slim_pbr": 40}
+                 "gbuffer_slim_pbr": 40, "shade": 100}
 
 
 #: Columns of each face table a G-buffer kernel reads per winning face:
@@ -481,6 +606,9 @@ def _computed(case, args, kw):
     faces)."""
     import torch
 
+    if wrapper_of(case) == "shade":
+        own = args[0] >= 0
+        return own, torch.zeros(0, dtype=torch.long, device=own.device)
     if wrapper_of(case) == "sample_textures":
         tid, table = args[0], args[3]
     else:
@@ -538,6 +666,8 @@ def needed_bytes(case, args, kw, out):
         active = args[2]
         return (n + int(active.sum()) * (rc.L_COLS + 4) * 4 + active.numel()
                 + _lines_reach(args) * 4)
+    if kind == "shade":
+        return n + shade_bytes(args)
     _, faces = _computed(case, args, kw)
     if kind != "sample_textures":
         return (n + args[2].numel() * 4
@@ -551,6 +681,37 @@ def needed_bytes(case, args, kw, out):
     return (n + tid.numel() * 4 + int(hit.any(0).sum()) * 8
             + faces.numel() * ftex.shape[1] * 3 * 4 + used.numel() * 8
             + torch.unique(idx[hit]).numel() * 4)
+
+
+def shade_bytes(args):
+    """Bytes K9 must read for its frame: tid and the light table; per
+    foreground pixel the world position, normal and Ns planes, Kd where
+    no diffuse sample replaces it and Ks where no specular one does, the
+    stencil with shadows, and with maps the mask, the model id where a
+    sample is taken, each sample taken, the tangent flag where the normal
+    map's is, the tangent and bitangent where that map is in tangent space,
+    and the model table; per background pixel its skybox texel, or the
+    colour once."""
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    tid, stencil, gb, samp, mask, scale_off, _, _, background = args
+    fg = tid >= 0
+    n_fg = int(fg.sum())
+    n = tid.numel() * 4 + 19 * 4 + n_fg * 7 * 4
+    if stencil is not None:
+        n += n_fg * 4
+    if samp is None:
+        n += n_fg * 6 * 4
+    else:
+        hit = [fg & (((mask >> k) & 1) > 0) for k in range(rc.N_KINDS)]
+        norm = hit[rc.KINDS.index("norm")]
+        tangent = norm & (gb[rc.GB_NORM_SLOT + 3] > 0.5)
+        n += ((n_fg - int(hit[0].sum())) * 12
+              + (n_fg - int(hit[2].sum())) * 12 + n_fg * 4
+              + int((hit[0] | hit[1] | hit[2]).sum()) * 4
+              + sum(int(h.sum()) for h in hit) * 4 + int(norm.sum()) * 4
+              + int(tangent.sum()) * 24 + scale_off.numel() * 4)
+    return n + (int((~fg).sum()) * 12 if background.dim() == 3 else 12)
 
 
 def _prep_rows(args):
@@ -669,8 +830,8 @@ def _time_ms(fn, runs=5):
 
 #: The port's kernels as the profiler names them (csrc/*.cu).
 _OUR_KERNEL = re.compile(r"::(visibility|tidpass|gbuffer|gbuffer_slim|sample|"
-                         r"stencil|lines|lines_clear|coarse_bins|quad_prep)"
-                         r"_kernel[<(]")
+                         r"stencil|lines|lines_clear|coarse_bins|quad_prep|"
+                         r"shade)_kernel[<(]")
 #: The kernels (``_OUR_KERNEL``'s names) each wrapper launches once per call
 #: where they are not just the wrapper's name: K1, K4 and K7 bin first with
 #: csrc/bins.cu, K6 clears its mask first.
@@ -762,11 +923,33 @@ EXACT = ("visibility_z", "tidpass", "gbuffer_owned", "sample_textures_owned",
          "visibility_dbg", "visibility_z_dbg", "tidpass_dbg", "quad_prep")
 
 
+def ulps_apart(a, b):
+    """(values that differ, the most units in the last place between two
+    of them, the pixels they lie in) of two float32 tensors of one shape
+    (H, W, ...); NaN where the other is NaN counts as equal."""
+    import torch
+
+    bits = lambda t: t.contiguous().view(torch.int32).to(torch.int64)
+    ia, ib = bits(a), bits(b)
+    # Order the float bit patterns as integers: negatives count down.
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    off = (a != b) & ~(torch.isnan(a) & torch.isnan(b))
+    px = off.reshape(off.shape[0], off.shape[1], -1).any(-1)
+    return (int(off.sum()), int((ia - ib).abs()[off].max()) if off.any()
+            else 0, int(px.sum()))
+
+
 def _compare(name, got, ref):
     """(max_abs_err, verdict) against the kernel's stated tolerance; raises
     on disagreement."""
     import torch
 
+    if wrapper_of(name) == "shade":
+        if not _same(got, ref):
+            raise AssertionError(f"{name}: differs from its plain version: "
+                                 f"{ulps_apart(got, ref)}")
+        return 0.0, "exact"
     if name in EXACT or wrapper_of(name) in ("gbuffer_slim", "lines"):
         if not _same(got, ref):
             raise AssertionError(f"{name}: differs from its plain version")
@@ -935,7 +1118,7 @@ def _profile(scene, n_frames=5):
                       if f"::{n}_kernel(" in k or f"::{n}_kernel<" in k)
                for n in ("visibility", "gbuffer", "sample", "stencil",
                          "gbuffer_slim", "lines", "lines_clear", "tidpass",
-                         "coarse_bins", "quad_prep")}
+                         "coarse_bins", "quad_prep", "shade")}
     kernels = {k: v for k, v in kernels.items() if v > 0}
     r = lambda d: {k[:60]: round(v, 4) for k, v in d}
     return {"wall": wall_ms, "busy": busy, "busy_share": busy / wall_ms,
@@ -964,6 +1147,10 @@ SOURCES = {
     # silhouette (shadow.py:262-339 and raster_pallas.pack_quads :903).
     "quad_prep": ("tpu_renderer_torch/csrc/quad_prep.cu",
                   "tpu_renderer/ops/shadow.py:262"),
+    # Not a pallas_call: the XLA deferred shade (pipeline._shade_gbuffer
+    # :388, then shading.shade_general).
+    "shade": ("tpu_renderer_torch/csrc/shade.cu",
+              "tpu_renderer/ops/pipeline.py:388"),
 }
 #: The TPU kernel a sharded mode replaces, where its wrapper's differs.
 REPLACES = {
@@ -979,16 +1166,16 @@ REPLACES = {
 #: then K4).
 PATH_KERNELS = {
     "general": ("visibility", "gbuffer", "sample_textures", "quad_prep",
-                "stencil"),
+                "stencil", "shade"),
     "slim": ("visibility", "gbuffer_slim", "quad_prep", "stencil"),
     "wireframe": ("visibility", "gbuffer_slim", "quad_prep", "stencil",
                   "lines"),
     "sharded": ("visibility_z", "tidpass", "gbuffer", "sample_textures",
-                "quad_prep", "stencil"),
+                "quad_prep", "stencil", "shade"),
     "sharded_slim": ("visibility_z", "tidpass", "gbuffer_slim", "quad_prep",
                      "stencil"),
     "overlay": ("visibility_dbg", "gbuffer", "sample_textures", "quad_prep",
-                "stencil"),
+                "stencil", "shade"),
     "wireframe_dbg": ("visibility_dbg", "gbuffer_slim", "quad_prep",
                       "stencil", "lines"),
     "sharded_slim_dbg": ("visibility_z_dbg", "tidpass_dbg", "gbuffer_slim",
@@ -1415,17 +1602,19 @@ SSAA_PAIRS = 3
 SSAA_ORBIT = 10
 #: K1-K5 and K8 as phase 8 times them at the supersampled sizes.
 SSAA_CASES = ("visibility", "gbuffer", "sample_textures", "stencil",
-              "gbuffer_slim_gouraud", "quad_prep")
+              "gbuffer_slim_gouraud", "quad_prep", "shade")
 
 
-def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
-    """``cases`` of K1-K5 and K8 (K5 in the gouraud layout; K8 also as
+def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=(), detail=False):
+    """``cases`` of K1-K5, K8 and K9 (K5 in the gouraud layout; K8 also as
     ``quad_prep_fill``, its count set to 0: the zero rows alone) at the
     scene's ss-scaled size, on inputs built through the kernels (K4 on
-    K8's tables and count): {case: (wrapper ms, graph ms, bound ms, bound
-    by, MB)}, for K8 also "<case> bound without zero rows" (ms), and K1's
-    and K4's coarse-list scratch bytes; K3 and K8 must equal their plain
-    versions;
+    K8's tables and count, K9 on the frame's): {case: (wrapper ms, graph
+    ms, bound ms, bound by, MB)}, for K8 also "<case> bound without zero
+    rows" (ms), with ``detail`` for each case "<case> alone, plain" (its
+    kernels alone in a profile and its plain version, ms), and K1's
+    and K4's coarse-list scratch bytes; K3, K8 and K9 must equal their
+    plain versions;
     for each case of ``lists`` (K1, K4), its coarse lists
     checked against their plain version, as (scratch bytes, longest list,
     entries, longest 16x16 bbox list) under the key "<case> lists". The
@@ -1461,6 +1650,8 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
         "gbuffer_slim_gouraud": (fdata, rc.pack_slim_attrs(attrs, "gouraud"),
                                  tid, "gouraud"),
     }
+    if "shade" in cases:
+        inputs["shade"] = shade_inputs(cfg, dyn, rc.KERNELS)[0]
     kws = {"stencil": {"n_rows": prep_args[2]}}
     del gb
     out = {}
@@ -1469,7 +1660,7 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
         kern = getattr(rc, wrapper_of(case))
         got = kern(*args, **kw)
         torch.cuda.synchronize()
-        if wrapper_of(case) in ("quad_prep", "sample_textures"):
+        if wrapper_of(case) in ("quad_prep", "sample_textures", "shade"):
             _compare(wrapper_of(case), got, getattr(
                 rc, f"{wrapper_of(case)}_plain")(*args, **kw))
         ms = _time_ms(lambda: kern(*args, **kw))
@@ -1480,6 +1671,12 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=()):
         if wrapper_of(case) == "quad_prep":
             out[f"{case} bound without zero rows"] = round(
                 (nbytes - zero_row_bytes(args)) / PEAK_BYTES * 1e3, 5)
+        if detail:
+            plain = getattr(rc, f"{wrapper_of(case)}_plain")
+            out[f"{case} alone, plain"] = (
+                round(_alone_ms(lambda: kern(*args, **kw), wrapper_of(case)),
+                      4),
+                round(_time_ms(lambda: plain(*args, **kw), runs=3), 3))
         del got
     for case in lists:
         out[f"{case} lists"] = _check_coarse_bins(case, inputs[case],
@@ -1908,7 +2105,7 @@ CROWD_ORBIT = 5
 #: K1-K4 and K8 as phase 10 times them at the crowd's shapes; K8 also with a
 #: count of 0 (``quad_prep_fill``: its zero rows alone).
 CROWD_CASES = ("visibility", "gbuffer", "sample_textures", "quad_prep",
-               "quad_prep_fill", "stencil")
+               "quad_prep_fill", "stencil", "shade")
 
 
 def config_position(position, center, t):
@@ -2129,6 +2326,20 @@ def main():
         raise AssertionError(f"sample_kernel uses local memory: {k3}")
     print(f"[2 K3] sample_kernel ptxas: vector {k3[True]}, scalar "
           f"{k3[False]}", flush=True)
+    # K9's 24 instances (16-byte or scalar accesses; light type; shadows;
+    # background plane or colour) keep their pixels in registers.
+    k9 = {(vec, light, shadows, sky): ptxas_report(
+        _build.last_build["log"],
+        f"shade_kernelILb{vec}ELi{light}ELb{shadows}ELb{sky}E")
+        for vec in (1, 0) for light in (0, 1, 2) for shadows in (1, 0)
+        for sky in (1, 0)}
+    if any(r["stack"] or r["spill_stores"] or r["spill_loads"]
+           for r in k9.values()):
+        raise AssertionError(f"shade_kernel uses local memory: {k9}")
+    regs = sorted({r["registers"] for r in k9.values()})
+    print(f"[2 K9] shade_kernel ptxas: 24 instances, no stack or spills, "
+          f"registers {regs}; point light, shadows, colour: vector "
+          f"{k9[(1, 1, 1, 0)]}, scalar {k9[(0, 1, 1, 0)]}", flush=True)
 
     # 3. per kernel, at the flagship frame's shapes
     scene = build_flagship("cuda")
@@ -2155,7 +2366,7 @@ def main():
                      f"bbox list {fine}")
         ms = _time_ms(lambda: kern(*args, **kw))
         alone = _alone_ms(lambda: kern(*args, **kw), wrapper_of(name))
-        if wrapper_of(name) in ("quad_prep", "sample_textures"):
+        if wrapper_of(name) in ("quad_prep", "sample_textures", "shade"):
             bins += (f"; graph {_graph_ms(lambda: kern(*args, **kw)):.4f} ms"
                      f" (device ms per call of a captured graph of 20 calls)")
         plain_ms = _time_ms(lambda: plain(*args, **kw), runs=3)
@@ -2166,6 +2377,10 @@ def main():
                          "launches": None, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None}
+        if name == "shade":
+            shown = {"light": args[6]["light_type"].name,
+                     "shadows": args[1] is not None,
+                     "models": tuple(args[5].shape)[0]}
         shown = {k: (v if not isinstance(v, torch.Tensor) else int(v)
                      if v.dim() == 0 else
                      f"({v.shape[0]}, {v.shape[1]}) debug planes")
@@ -2190,6 +2405,13 @@ def main():
               f" {K3_ADV_RES}, {args[3].shape[1]} kinds, gid0 {kw['gid0']}: "
               f"exact; sampled px {int((got[1] != 0).sum())} of "
               f"{got[1].numel()}", flush=True)
+    for case in K9_ADV:
+        args, kw = k9_adversarial_inputs(case, device="cuda")
+        got = rc.shade(*args, **kw)
+        torch.cuda.synchronize()
+        _compare("shade", got, rc.shade_plain(*args, **kw))
+        print(f"[3 adversarial] {case} {K9_ADV[case]}: exact; foreground px "
+              f"{int((args[0] >= 0).sum())} of {args[0].numel()}", flush=True)
     from tpu_renderer_torch.ops import raster_plain as rp
     ppc = {case: int(((inputs[case][0][1] & rp.FLAG_PPC) > 0).sum())
            for case in ("visibility", "visibility_dbg")}

@@ -6,6 +6,7 @@ of a captured graph of 20 calls (``chip_smoke._graph_ms``), in
 
     python3 kernel_times.py lines tidpass [--root DIR] [--rounds 3]
     python3 kernel_times.py sample_textures --at flagship ss2 ss4 cfg5-merged
+    python3 kernel_times.py shade --at flagship ss2 ss4 cfg5-instances --detail
     python3 kernel_times.py --shadow cfg5-merged [--root DIR] [--rounds 3]
 
 Cases are the keys of ``chip_smoke.kernel_inputs`` (``visibility``,
@@ -14,8 +15,9 @@ through ``chip_smoke._kernel_times`` (phases 8 and 10: inputs built
 through the kernels; wrapper ms, graph ms, bound ms and MB) at each
 SHAPE: ``flagship``, ``ss2`` and ``ss4`` (the flagship at 2048² and
 4096²) or any ``bench_torch.CONFIGS`` name; cases it does not build
-(the sharded and debug modes) are skipped there. ``--root`` imports
-chip_smoke.py and tpu_renderer_torch from another checkout, e.g. a
+(the sharded and debug modes) are skipped there; ``--detail`` adds each
+case's kernels alone (a profile) and its plain version's ms. ``--root``
+imports chip_smoke.py and tpu_renderer_torch from another checkout, e.g. a
 parent commit unpacked with ``git archive``, so that two trees are
 compared inside one run on the same card: run parent, change, change,
 parent. Prints the card's ``name, power.limit``, then one JSON line per
@@ -53,6 +55,9 @@ def main():
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)))
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--detail", action="store_true",
+                    help="with --at: also each case's kernels alone (a "
+                         "profile) and its plain version, ms")
     opts = ap.parse_args()
     root = os.path.abspath(opts.root)
     sys.path.insert(0, root)
@@ -78,14 +83,19 @@ def main():
         cases = [c for c in opts.cases if c in cs.SSAA_CASES]
         for rnd in range(opts.rounds):
             for at, (scene, ss) in scenes.items():
-                times, _ = cs._kernel_times(scene, ss, cases)
+                times, _ = cs._kernel_times(scene, ss, cases,
+                                            detail=opts.detail)
                 for case in cases:
                     ms, graph_ms, bound_ms, _, mb = times[case]
+                    more = {}
+                    if opts.detail:
+                        more = dict(zip(("alone_ms", "plain_ms"),
+                                        times[f"{case} alone, plain"]))
                     print(json.dumps({"root": root, "case": case, "at": at,
                                       "round": rnd, "ms": ms,
                                       "graph_ms": graph_ms,
-                                      "bound_ms": bound_ms, "MB": mb}),
-                          flush=True)
+                                      "bound_ms": bound_ms, "MB": mb,
+                                      **more}), flush=True)
         return
     inputs, _ = cs.kernel_inputs(cs.build_flagship("cuda"))
     for rnd in range(opts.rounds):

@@ -114,6 +114,16 @@ def build_scene(pkg, gizmos, resolution=RES, **scene_kw):
     return scene
 
 
+def small_crowd(n, device="cuda", **kw):
+    """bench_torch's crowd of ``n`` instances as separate models over its
+    floor, small: 96x96, 32x32 maps, 10 x 14 meshes."""
+    import bench_torch
+
+    return bench_torch.build_highpoly_scene(
+        n, merged=False, resolution=(96, 96), tex=32, mesh=(10, 14),
+        device=device, **kw)
+
+
 #: The compiled frame's paths (pipeline.*_jit): five shaders, general over
 #: a cubemap, ss = 2, and the debug camera's render_core.
 PATHS = tuple(chip_smoke.COMPILED_PATHS)
@@ -554,7 +564,11 @@ CASES = {"visibility": ("visibility", "visibility"),
          "tidpass-dbg-long-row0": ("tidpass", "tidpass_dbg"),
          "quad_prep": ("quad_prep", "quad_prep"),
          "sample_textures-adv": ("sample_textures", "sample_textures"),
-         "sample_textures-adv-vec": ("sample_textures", "sample_textures")}
+         "sample_textures-adv-vec": ("sample_textures", "sample_textures"),
+         "shade": ("shade", "shade"),
+         "shade-row0-sky": ("shade", "shade"),
+         "shade-instances": ("shade", "shade"),
+         **{name: ("shade", "shade") for name in chip_smoke.K9_ADV}}
 
 #: K3's adversarial cases (chip_smoke.k3_adversarial_inputs): case id ->
 #: ``vector`` (its scalar instance, then its vector one with a tail).
@@ -562,6 +576,15 @@ K3_ADV = {"sample_textures-adv": False, "sample_textures-adv-vec": True}
 
 #: row0 of the adversarial ``-row0`` cases.
 ADV_ROW0 = 40
+
+#: row0 of K9's case over a cubemap: its 32 rows from there hold the
+#: skybox and the floor.
+K9_ROW0 = 24
+
+#: K9's instanced case: distinct texture (scale, offset) rows planted in
+#: the small crowd's models (model -> kind -> row); instances 0 and 2 keep
+#: their shared rows.
+K9_ROWS = {1: {"kd": (0.5, 0.25)}, 3: {"kd": (0.75, 0.125)}}
 
 
 #: chip_smoke.shard_inputs' case names -> the sharded cases' ids here.
@@ -581,6 +604,7 @@ def stage_inputs():
 
     scene = build_scene(tt, gz_torch, device="cpu")
     cfg, dyn = scene._prepare()
+    scene_inputs = (cfg, dyn)
     h, w = cfg.resolution
     cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
     faces, attrs = pl._build_face_batch(cfg, dyn, cam_m)
@@ -658,12 +682,30 @@ def stage_inputs():
         {"row0": ADV_ROW0, "gid0": ADV_GID0, "fdbg": fdbg})
     for name, vector in K3_ADV.items():
         inputs[name] = chip_smoke.k3_adversarial_inputs(vector=vector)
+    # K9: the scene's frame; 32 rows from K9_ROW0 of the scene over a
+    # cubemap (its skybox plane at row0 > 0); three instances and the floor
+    # with distinct (scale, offset) rows; the adversarial frames.
+    inputs["shade"] = chip_smoke.shade_inputs(*scene_inputs)
+    sky = path_scene(tt, gz_torch, "cubemap", device="cpu")
+    inputs["shade-row0-sky"] = chip_smoke.shade_inputs(
+        *sky._prepare(), local_height=32, row0=K9_ROW0)
+    cfg, dyn = small_crowd(3, device="cpu")._prepare()
+    for m, rows in K9_ROWS.items():
+        for kind, row in rows.items():
+            dyn["models"][m][f"{kind}_scale_off"] = torch.tensor(row)
+    inputs["shade-instances"] = chip_smoke.shade_inputs(cfg, dyn)
+    for name in chip_smoke.K9_ADV:
+        inputs[name] = chip_smoke.k9_adversarial_inputs(name)
     return inputs
 
 
 def _moved(args, kw, device):
-    """A case's tensors, positional and keyword, on ``device``."""
-    to = lambda a: a.to(device) if isinstance(a, torch.Tensor) else a
+    """A case's tensors, positional and keyword (and those of a dict
+    argument, as K9's light), on ``device``."""
+    def to(a):
+        if isinstance(a, dict):
+            return {k: to(v) for k, v in a.items()}
+        return a.to(device) if isinstance(a, torch.Tensor) else a
     return tuple(to(a) for a in args), {k: to(v) for k, v in kw.items()}
 
 
@@ -832,6 +874,144 @@ def test_k3_plain_skips_slots_and_indices_out_of_range():
     assert mask.tolist() == [[1, 4, 7, 0]]
     assert samp[:, 0].tolist() == [[105, 0, 105, 0], [0, 0, 105, 0],
                                    [0, 105, 105, 0]]
+
+
+def test_shade_inputs_are_not_degenerate(stage_inputs):
+    """K9's cases reach every branch: each light type, shadows on (some
+    pixels shadowed) and off, a colour and a skybox plane, background
+    and foreground pixels; every kind's sample taken, normal maps in
+    tangent and object space, models without maps, three or more distinct
+    (scale, offset) rows with instances sharing theirs, model ids that
+    name no row, frames whose H*W is not a multiple of 4, and a frame
+    without maps."""
+    from tpu_renderer_torch.ops.lightning import Lightning
+
+    names = [n for n, (fn, _) in CASES.items() if fn == "shade"]
+    seen = {"lights": set(), "shadows": set(), "sky": set(), "odd": False,
+            "nomaps": False, "tangent": set(), "unknown": False,
+            "kinds": set()}
+    for name in names:
+        (tid, stencil, gb, samp, mask, so, light, _, bg), _ = \
+            stage_inputs[name]
+        fg = tid >= 0
+        assert fg.any() and (~fg).any(), name
+        seen["lights"].add(light["light_type"])
+        seen["shadows"].add(stencil is not None)
+        if stencil is not None:
+            assert (fg & (stencil != 0)).any(), name
+        seen["sky"].add(bg.dim() == 3)
+        seen["odd"] |= tid.numel() % 4 != 0
+        if samp is None:
+            seen["nomaps"] = True
+            continue
+        model = gb[rc.GB_MODEL]
+        known = (model == model.round()) & (model >= 0) & (
+            model < so.shape[0])
+        seen["unknown"] |= bool((fg & ~known).any())
+        for k in range(rc.N_KINDS):
+            if (fg & known & ((mask >> k) & 1 > 0)).any():
+                seen["kinds"].add(k)
+        normal_map = fg & known & ((mask >> 1) & 1 > 0)
+        for flag in (True, False):
+            if (normal_map & ((gb[rc.GB_NORM_SLOT + 3] > 0.5) == flag)).any():
+                seen["tangent"].add(flag)
+        rows = {tuple(r.tolist()) for r in so.reshape(so.shape[0], -1)}
+        if name in ("shade-instances", "shade-adv-directional"):
+            assert len(rows) >= 3 and len(rows) < so.shape[0], name
+        assert (so == 0).all(2).any() or name == "shade-instances", name
+    assert seen["lights"] == set(Lightning)
+    assert seen["shadows"] == {True, False} and seen["sky"] == {True, False}
+    assert seen["odd"] and seen["nomaps"] and seen["unknown"]
+    assert seen["tangent"] == {True, False}
+    assert seen["kinds"] == set(range(rc.N_KINDS))
+
+
+def _frozen_shade_loops(cfg, dyn, tid, stencil, gb, samp, samp_mask,
+                        camera_position, background):
+    """The port's deferred shade before K9, frozen: pipeline._shade_gbuffer
+    with its three loops over the models (one pass per model and map
+    kind), then shading.shade_general."""
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import shading as sh
+    from tpu_renderer_torch.ops.transforms import normalize
+
+    def unpack(packed, scale_off):
+        r = (packed & 0xFF).to(torch.float32)
+        g = ((packed >> 8) & 0xFF).to(torch.float32)
+        b = ((packed >> 16) & 0xFF).to(torch.float32)
+        rgb = torch.stack([r, g, b], dim=-1) / 255.0
+        return rgb * scale_off[0] + scale_off[1]
+
+    bg = tid < 0
+    vec = lambda c: torch.movedim(gb[c:c + 3], 0, -1)
+    frag_world = vec(rc.GB_WORLD)
+    model_id = gb[rc.GB_MODEL]
+
+    def sampled(m, md, kind):
+        k = rc.KINDS.index(kind)
+        rgb = unpack(samp[k], md[f"{kind}_scale_off"])
+        return rgb, (model_id == m) & (((samp_mask >> k) & 1) > 0)
+
+    color = vec(rc.GB_KD)
+    for m, (mc, md) in enumerate(zip(cfg.models, dyn["models"])):
+        if mc.has_map_kd:
+            rgb, mask = sampled(m, md, "kd")
+            color = torch.where(mask[..., None], rgb, color)
+
+    n_base = normalize(vec(rc.GB_N))
+    normal = n_base
+    for m, (mc, md) in enumerate(zip(cfg.models, dyn["models"])):
+        if not mc.has_norm:
+            continue
+        s, mask = sampled(m, md, "norm")
+        tangent_n = (normalize(vec(rc.GB_TAN)) * s[..., 0:1] +
+                     normalize(vec(rc.GB_BIT)) * s[..., 1:2] +
+                     n_base * s[..., 2:3])
+        is_tangent = gb[rc.GB_NORM_SLOT + 3] > 0.5
+        mapped = torch.where(is_tangent[..., None], tangent_n, s)
+        normal = torch.where(mask[..., None], normalize(mapped), normal)
+
+    specular_light = vec(rc.GB_KS) * 255.0
+    for m, (mc, md) in enumerate(zip(cfg.models, dyn["models"])):
+        if mc.has_map_ks:
+            rgb, mask = sampled(m, md, "ks")
+            specular_light = torch.where(mask[..., None],
+                                         rgb[..., 0:1] * 255.0,
+                                         specular_light)
+
+    pix = {"color": color, "normal": normal, "frag_world": frag_world,
+           "specular_light": specular_light, "ns": gb[rc.GB_NS][..., None]}
+    rgb = sh.shade_general(pix, pl._light(cfg, dyn), camera_position,
+                           shadows_mask=(stencil != 0) if cfg.shadows
+                           else None)
+    return torch.where(bg[..., None], background, rgb)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_shade_plain_equals_the_per_model_loops(seed):
+    """shade_plain, the table form, gives the frozen per-model loops'
+    frame bit for bit on a 21-model stand-in of the crowd (20 instances of
+    one mesh over the floor, small) and on the same frame with each
+    instance's diffuse (scale, offset) its own."""
+    cfg, dyn = small_crowd(20, device="cpu", seed=seed)._prepare()
+    assert len(cfg.models) == 21
+    for distinct in (False, True):
+        if distinct:
+            for m in range(20):
+                dyn["models"][m]["kd_scale_off"] = torch.tensor(
+                    [1.0 - m / 64, m / 128])
+        (tid, stencil, gb, samp, mask, so, light, position, bg), _ = \
+            chip_smoke.shade_inputs(cfg, dyn)
+        assert samp is not None and (tid >= 0).float().mean() > 0.1
+        for k in range(rc.N_KINDS - 1):         # the crowd has no ks map
+            assert ((mask >> k) & 1).sum() > 100
+        got = rc.shade_plain(tid, stencil, gb, samp, mask, so, light,
+                             position, bg)
+        want = _frozen_shade_loops(cfg, dyn, tid, stencil, gb, samp, mask,
+                                   position,
+                                   bg.expand(*tid.shape, 3))
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want)
 
 
 def test_debug_inputs_are_not_degenerate(stage_inputs):
@@ -1081,6 +1261,26 @@ def test_replay_equals_eager_on_card(card, path):
         assert chip_smoke._same(tuple(got), tuple(want))
         assert (got[2] >= 0).any()
     assert compiled.CACHE.builds == builds + 1 and prog.calls == 3
+
+
+@pytest.mark.cuda
+def test_crowd_replay_shades_in_one_launch_on_card(card):
+    """A compiled frame of the small crowd (20 instances and the floor: 21
+    models, 41 model and map pairs) launches K9 once per replay, whatever
+    its number of models, and its frame equals the eager frame."""
+    from tpu_renderer_torch.ops import compiled
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    compiled.clear_compiled()
+    scene = small_crowd(20)
+    scene.render()
+    rc.reset_launches()
+    frame = scene.render()
+    torch.cuda.synchronize()
+    assert rc.LAUNCHES["shade"] == 1
+    cfg, dyn = scene._prepare()
+    assert len(cfg.models) == 21
+    np.testing.assert_array_equal(frame, pl.render_frame(cfg, dyn)[0].cpu())
 
 
 @pytest.mark.cuda

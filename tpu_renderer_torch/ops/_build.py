@@ -67,6 +67,11 @@ _SIGNATURES = {
     "tr_gbuffer_slim": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # ldata, lbbox, active, n_edges, zbuf, H, W, mask, stream
     "tr_lines": [_P, _P, _P, _I, _P, _I, _I, _P, _P],
+    # tid, stencil (null: no shadows), gb, samp, samp_mask, scale_off (null:
+    # no maps), n_models, light table, light type, background, sky plane,
+    # spot edge0, spot scale, H, W, frame, stream
+    "tr_shade": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _F, _F, _I, _I,
+                 _P, _P],
     # stamps (int64 slots the card can write), slot, stream
     "tr_stamp": [_P, _I, _P],
 }

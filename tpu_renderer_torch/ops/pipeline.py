@@ -12,8 +12,9 @@ branches of ``tpu_renderer/ops/pipeline.py``.
     -> shadow quads (silhouette, extrude, order)    ops/shadow.py
     -> K8 clip, project, pack the silhouette quads  raster_cuda.quad_prep
     -> K4 signed stencil                            raster_cuda.stencil
-    -> deferred shading over the background         _shade_gbuffer / _shade_slim
-       (a color, or the cubemap skybox)             _background, ops/cubemap.py
+    -> deferred shading over the background         K9 raster_cuda.shade /
+       (a color, or the cubemap skybox)             _shade_slim; _background,
+                                                    ops/cubemap.py
     -> vertical flip, gamma 0.8, uint8              render_frame
 
 Supersampling (``render_ssaa``) runs the same path on a ``SceneConfig``
@@ -326,16 +327,6 @@ def texture_tables(cfg: SceneConfig, dyn, attrs):
             torch.cat(pool).to(torch.int32).contiguous())
 
 
-def _unpack_texel(packed, scale_off):
-    """RGB-packed int32 texels -> float RGB under the stack's (scale,
-    offset) dequantization affine (models/scene.py _texture_stack)."""
-    r = (packed & 0xFF).to(torch.float32)
-    g = ((packed >> 8) & 0xFF).to(torch.float32)
-    b = ((packed >> 16) & 0xFF).to(torch.float32)
-    rgb = torch.stack([r, g, b], dim=-1) / 255.0
-    return rgb * scale_off[0] + scale_off[1]
-
-
 def _light(cfg: SceneConfig, dyn):
     light = dict(dyn["light"])
     light["light_type"] = cfg.light_type
@@ -351,53 +342,6 @@ def _background(cfg: SceneConfig, dyn, st, height, width, row0=0):
         return dyn["background_color"].expand(height, width, 3)
     return fill_skybox(dyn["skybox"]["packed"], st["sky_rays"],
                        st["sky_tri"], (height, width), row0)
-
-
-def _shade_gbuffer(cfg: SceneConfig, dyn, tid, stencil, gb, samp, samp_mask,
-                   camera_position, background):
-    """Deferred shading from the G-buffer and the K3 texture samples
-    (pipeline._shade_gbuffer :388, sampler branch)."""
-    bg = tid < 0
-    vec = lambda c: torch.movedim(gb[c:c + 3], 0, -1)
-    frag_world = vec(rc.GB_WORLD)
-    model_id = gb[rc.GB_MODEL]
-
-    def sampled(m, md, kind):
-        k = rc.KINDS.index(kind)
-        rgb = _unpack_texel(samp[k], md[f"{kind}_scale_off"])
-        return rgb, (model_id == m) & (((samp_mask >> k) & 1) > 0)
-
-    color = vec(rc.GB_KD)
-    for m, (mc, md) in enumerate(zip(cfg.models, dyn["models"])):
-        if mc.has_map_kd:
-            rgb, mask = sampled(m, md, "kd")
-            color = torch.where(mask[..., None], rgb, color)
-
-    n_base = normalize(vec(rc.GB_N))
-    normal = n_base
-    for m, (mc, md) in enumerate(zip(cfg.models, dyn["models"])):
-        if not mc.has_norm:
-            continue
-        s, mask = sampled(m, md, "norm")
-        tangent_n = (normalize(vec(rc.GB_TAN)) * s[..., 0:1] +
-                     normalize(vec(rc.GB_BIT)) * s[..., 1:2] +
-                     n_base * s[..., 2:3])
-        is_tangent = gb[rc.GB_NORM_SLOT + 3] > 0.5
-        mapped = torch.where(is_tangent[..., None], tangent_n, s)
-        normal = torch.where(mask[..., None], normalize(mapped), normal)
-
-    specular_light = vec(rc.GB_KS) * 255.0
-    for m, (mc, md) in enumerate(zip(cfg.models, dyn["models"])):
-        if mc.has_map_ks:
-            rgb, mask = sampled(m, md, "ks")
-            specular_light = torch.where(mask[..., None], rgb[..., 0:1] * 255.0,
-                                         specular_light)
-
-    pix = {"color": color, "normal": normal, "frag_world": frag_world,
-           "specular_light": specular_light, "ns": gb[rc.GB_NS][..., None]}
-    rgb = sh.shade_general(pix, _light(cfg, dyn), camera_position,
-                           shadows_mask=(stencil != 0) if cfg.shadows else None)
-    return torch.where(bg[..., None], background, rgb)
 
 
 def _shade_slim(cfg: SceneConfig, dyn, tid, gb, camera_position, background):
@@ -524,12 +468,18 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
             stencil = all_reduce(stencil, "sum", tris_group, "stencil")
 
     with span("shade"):
-        background = _background(cfg, dyn, st, *shape, row0)
         if slim:
+            background = _background(cfg, dyn, st, *shape, row0)
             frame = _shade_slim(cfg, dyn, tid, gb, st["position"], background)
         else:
-            frame = _shade_gbuffer(cfg, dyn, tid, stencil, gb, samp,
-                                   samp_mask, st["position"], background)
+            # K9 takes a colour background as its three floats.
+            background = (dyn["background_color"] if cfg.background == "color"
+                          else _background(cfg, dyn, st, *shape, row0))
+            scale_off = (None if samp is None
+                         else rc.shade_scale_off(cfg, dyn, device))
+            frame = ops.shade(tid, stencil if cfg.shadows else None, gb, samp,
+                              samp_mask, scale_off, _light(cfg, dyn),
+                              st["position"], background)
     return frame, zb_sign * sign, tid, stencil
 
 

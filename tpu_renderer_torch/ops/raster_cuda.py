@@ -20,6 +20,9 @@ Counterpart of ``tpu_renderer/ops/raster_pallas.py``:
 | ``quad_prep``       | csrc/quad_prep.cu      | no pallas_call: the XLA clip, projection|
 |                     |                        | and pack_quads of the compacted         |
 |                     |                        | silhouette (shadow.py:262-339 there)    |
+| ``shade``           | csrc/shade.cu          | no pallas_call: the XLA deferred shade  |
+|                     |                        | (pipeline._shade_gbuffer :388 and       |
+|                     |                        | shading.shade_general there)            |
 
 Sharded rendering (parallel/sharded.py) gives the raster kernels a block of
 frame rows from ``row0`` (pixel math stays in global coordinates) and a
@@ -55,6 +58,10 @@ whose count it reads on the device, into tables of a capacity the host
 knows, on a persistent grid sized from the card (:func:`quad_prep_grid`);
 K4 bins only the rows below that count (``n_rows``). The work of both
 follows the count, and neither wrapper reads it on the host.
+
+K9 (``shade``) shades the whole frame in one launch whatever the number of
+models: each pixel finds its model's texture (scale, offset) in a table by
+its G-buffer model id (:func:`shade_scale_off`), so no pass runs per model.
 """
 from __future__ import annotations
 
@@ -64,6 +71,9 @@ import ctypes
 import torch
 
 from tpu_renderer_torch.ops import raster_plain as rp
+from tpu_renderer_torch.ops import shading as sh
+from tpu_renderer_torch.ops.lightning import Lightning
+from tpu_renderer_torch.ops.transforms import normalize
 from tpu_renderer_torch.ops.shadow import QUAD_PMAX, quad_edge_coeffs, \
     quad_fragments, _cross, _dot3
 
@@ -75,7 +85,8 @@ __all__ = [
     "visibility", "gbuffer", "sample_textures", "stencil", "gbuffer_slim",
     "lines", "tidpass", "visibility_plain", "gbuffer_plain",
     "sample_textures_plain", "stencil_plain", "gbuffer_slim_plain",
-    "lines_plain", "tidpass_plain", "texel_indices",
+    "lines_plain", "tidpass_plain", "texel_indices", "shade", "shade_plain",
+    "shade_scale_off",
     "LAUNCHES", "reset_launches", "counting_into", "KERNELS", "PLAIN",
     "GB_CHANNELS", "SLIM_CHANNELS",
     "N_KINDS", "KINDS", "TILE",
@@ -87,7 +98,7 @@ __all__ = [
 LAUNCHES = {"visibility": 0, "visibility_z": 0, "visibility_dbg": 0,
             "visibility_z_dbg": 0, "gbuffer": 0, "sample_textures": 0,
             "stencil": 0, "gbuffer_slim": 0, "lines": 0, "tidpass": 0,
-            "tidpass_dbg": 0, "quad_prep": 0}
+            "tidpass_dbg": 0, "quad_prep": 0, "shade": 0}
 
 
 def reset_launches():
@@ -716,6 +727,80 @@ def lines_plain(ldata, bbox, active, zbuf, height, width):
     return (lit_any & inframe).to(torch.int32)
 
 
+def shade_scale_off(cfg, dyn, device):
+    """K9's model table: (M, N_KINDS, 2) float32, each model's texture
+    (scale, offset) per kind of :data:`KINDS` (models/scene.py
+    _texture_stack), zeros where the model has no such map (K3 samples no
+    kind a model lacks, so those rows are never read). Built on
+    ``device`` from the models' tensors, with no copy from the host."""
+    has = {"kd": "has_map_kd", "norm": "has_norm", "ks": "has_map_ks"}
+    zero = torch.zeros(2, dtype=torch.float32, device=device)
+    rows = [md[f"{kind}_scale_off"] if getattr(mc, has[kind]) else zero
+            for mc, md in zip(cfg.models, dyn["models"]) for kind in KINDS]
+    return torch.stack(rows).reshape(len(cfg.models), N_KINDS, 2)
+
+
+def _unpack_texel(packed, scale, offset):
+    """RGB-packed int32 texels -> float RGB under the (scale, offset)
+    dequantization affine (models/scene.py _texture_stack)."""
+    r = (packed & 0xFF).to(torch.float32)
+    g = ((packed >> 8) & 0xFF).to(torch.float32)
+    b = ((packed >> 16) & 0xFF).to(torch.float32)
+    rgb = torch.stack([r, g, b], dim=-1) / 255.0
+    return rgb * scale + offset
+
+
+def shade_plain(tid, stencil, gb, samp, samp_mask, scale_off, light,
+                position, background):
+    """K9's plain version: the general shader's deferred shading
+    (pipeline._shade_gbuffer :388 of the JAX package, sampler branch, then
+    shading.shade_general), the texture maps' (scale, offset) looked up per
+    pixel by its model id.
+
+    tid (H, W) int32; stencil (H, W) int32, or None without shadows; gb the
+    (32, H, W) float32 G-buffer; samp (N_KINDS, H, W) int32 and samp_mask
+    (H, W) int32 (K3's), or both None where no model has a map; scale_off
+    (M, N_KINDS, 2) float32 (:func:`shade_scale_off`); light the frame's
+    light dict (its tensors, ``direction`` and ``light_type``); position
+    (3,) the camera's; background (3,) a colour or (H, W, 3) the skybox.
+    Kind k's sample replaces the G-buffer's value where bit k of samp_mask
+    is set and the pixel's model id is a row of scale_off. Returns the
+    (H, W, 3) float32 frame.
+    """
+    vec = lambda c: torch.movedim(gb[c:c + 3], 0, -1)
+    n_base = normalize(vec(GB_N))
+    color, normal = vec(GB_KD), n_base
+    specular_light = vec(GB_KS) * 255.0
+    if samp is not None:
+        model_id = gb[GB_MODEL]
+        m = model_id.to(torch.int64)
+        known = ((m >= 0) & (m < scale_off.shape[0])
+                 & (m.to(torch.float32) == model_id))
+        so = scale_off[torch.where(known, m, torch.zeros_like(m))]
+
+        def sampled(k):
+            rgb = _unpack_texel(samp[k], so[..., k, 0:1], so[..., k, 1:2])
+            return rgb, known & (((samp_mask >> k) & 1) > 0)
+
+        rgb, mask = sampled(0)
+        color = torch.where(mask[..., None], rgb, color)
+        s, mask = sampled(1)
+        tangent_n = (normalize(vec(GB_TAN)) * s[..., 0:1] +
+                     normalize(vec(GB_BIT)) * s[..., 1:2] +
+                     n_base * s[..., 2:3])
+        is_tangent = gb[GB_NORM_SLOT + 3] > 0.5
+        mapped = torch.where(is_tangent[..., None], tangent_n, s)
+        normal = torch.where(mask[..., None], normalize(mapped), n_base)
+        rgb, mask = sampled(2)
+        specular_light = torch.where(mask[..., None], rgb[..., 0:1] * 255.0,
+                                     specular_light)
+    pix = {"color": color, "normal": normal, "frag_world": vec(GB_WORLD),
+           "specular_light": specular_light, "ns": gb[GB_NS][..., None]}
+    rgb = sh.shade_general(pix, light, position, shadows_mask=(
+        None if stencil is None else stencil != 0))
+    return torch.where((tid < 0)[..., None], background, rgb)
+
+
 # ------------------------------------------------------------- wrappers
 
 def _on_cpu(*tensors):
@@ -1013,12 +1098,73 @@ def lines(ldata, bbox, active, zbuf, height, width):
     return mask
 
 
+#: The light's entries in K9's light table (:func:`_light_table`).
+_LIGHT_KEYS = ("position", "direction", "color", "ambient",
+               "specular_strength", "constant", "linear", "quadratic")
+#: The spot cone's smoothstep as PyTorch computes it on the card
+#: (shading.smoothstep): x - cos 20°, times the float32 reciprocal of
+#: cos 10° - cos 20°.
+_SPOT_EDGE0 = float(torch.tensor(sh._COS20, dtype=torch.float32))
+_SPOT_SCALE = float(torch.tensor(1.0) / torch.tensor(sh._COS10 - sh._COS20,
+                                                     dtype=torch.float32))
+
+
+def _light_table(light, position):
+    """K9's light table, (19,) float32 on the light's device: the light's
+    position, direction, color, ambient (3 each), specular_strength,
+    constant, linear and quadratic, then the camera ``position``."""
+    return torch.cat([light[k].reshape(-1) for k in _LIGHT_KEYS]
+                     + [position.reshape(-1)])
+
+
+def shade(tid, stencil, gb, samp, samp_mask, scale_off, light, position,
+          background):
+    """K9: the general shader's deferred shading of the frame in one launch
+    (see shade_plain for the arguments), 4 pixels a thread over the flat
+    frame (one where a plane is not 16-byte aligned); the light type,
+    shadows (a stencil given) and the background kind (a (3,) colour or an
+    (H, W, 3) plane) pick the kernel's instance. Returns the (H, W, 3)
+    float32 frame."""
+    table = [light[k] for k in _LIGHT_KEYS]
+    maps = () if samp is None else (samp, samp_mask, scale_off)
+    tensors = (tid, gb, position, background, *table, *maps) + (
+        () if stencil is None else (stencil,))
+    if _on_cpu(*tensors):
+        return shade_plain(tid, stencil, gb, samp, samp_mask, scale_off,
+                           light, position, background)
+    height, width = tid.shape
+    _require(tid, "tid", torch.int32, (height, width))
+    if stencil is not None:
+        _require(stencil, "stencil", torch.int32, (height, width))
+    _require(gb, "gb", torch.float32, (GB_CHANNELS, height, width))
+    if (samp is None) != (samp_mask is None):
+        raise ValueError("shade: samp and samp_mask come together")
+    if samp is not None:
+        _require(samp, "samp", torch.int32, (N_KINDS, height, width))
+        _require(samp_mask, "samp_mask", torch.int32, (height, width))
+        _require(scale_off, "scale_off", torch.float32, (None, N_KINDS, 2))
+    sky = background.dim() != 1
+    _require(background, "background", torch.float32,
+             (height, width, 3) if sky else (3,))
+    lt = _light_table(light, position)
+    _require(lt, "light", torch.float32, (19,))
+    out = torch.empty((height, width, 3), dtype=torch.float32,
+                      device=tid.device)
+    _launch("shade", tid.data_ptr(), _ptr(stencil), gb.data_ptr(),
+            _ptr(samp), _ptr(samp_mask), _ptr(scale_off),
+            0 if samp is None else scale_off.shape[0], lt.data_ptr(),
+            Lightning(light["light_type"]).value, background.data_ptr(),
+            int(sky), _SPOT_EDGE0, _SPOT_SCALE, height, width,
+            out.data_ptr())
+    return out
+
+
 class _Ops:
     """The per-frame raster operations render_core and render_debug_frame
     call."""
 
     def __init__(self, visibility, gbuffer, sample_textures, stencil,
-                 gbuffer_slim, lines, tidpass, quad_prep):
+                 gbuffer_slim, lines, tidpass, quad_prep, shade):
         self.visibility = visibility
         self.gbuffer = gbuffer
         self.sample_textures = sample_textures
@@ -1027,12 +1173,13 @@ class _Ops:
         self.lines = lines
         self.tidpass = tidpass
         self.quad_prep = quad_prep
+        self.shade = shade
 
 
 #: The main path: kernels on CUDA tensors, plain versions on CPU tensors.
 KERNELS = _Ops(visibility, gbuffer, sample_textures, stencil, gbuffer_slim,
-               lines, tidpass, quad_prep)
+               lines, tidpass, quad_prep, shade)
 #: The plain versions on any device: the oracle a kernel run is held to.
 PLAIN = _Ops(visibility_plain, gbuffer_plain, sample_textures_plain,
              stencil_plain, gbuffer_slim_plain, lines_plain, tidpass_plain,
-             quad_prep_plain)
+             quad_prep_plain, shade_plain)
