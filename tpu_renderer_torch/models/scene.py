@@ -21,7 +21,9 @@ kernels). On a host without CUDA, ``Scene()`` raises RuntimeError.
 Scene goes through its jitted ones: on the card each frame replays a CUDA
 graph captured once per static key (ops/compiled.py); a camera or light
 move, new vertex positions or new texels of the same shape replay the same
-graph.
+graph. The frame's per-face tables (``pipeline.face_tables``) are built once
+per packing; new faces, uv, normals or materials (``Model.bump_version``)
+build new ones, and with them a new program.
 """
 from __future__ import annotations
 
@@ -170,6 +172,8 @@ class Scene:
         self.supersample = int(supersample)
         self._packets: Dict[int, dict] = {}
         self._shared: Dict[tuple, tuple] = {}
+        self._face_parts: Dict[tuple, tuple] = {}
+        self._faces = None
         self.camera = camera if camera is not None else Camera(
             position=(0, 0, 1), center=(0, 0, 0))
         self.light = light if light is not None else Light(position=(1, 1, 1))
@@ -229,7 +233,9 @@ class Scene:
         version (:meth:`_pack_shared`): instances of one mesh get the same
         device tensors, texture stacks and slot tables included, as the
         JAX package's instances share one atlas (scene.py:459-480 there).
-        A texture change bumps the version, which keys a new part."""
+        A texture change bumps the version, which keys a new part; its
+        per-face tables stay the same tensors while they are equal
+        (:meth:`_intern_faces`)."""
         key = id(model)
         cached = self._packets.get(key)
         if (cached is not None and cached["_verts_src"] is model.vertices
@@ -245,8 +251,8 @@ class Scene:
         if hit is None:
             # The sources are pinned beside the part, so no key can alias
             # the id() of a freed object.
-            hit = self._shared[skey] = (self._pack_shared(model, F, Fp),
-                                        srcs)
+            hit = self._shared[skey] = (
+                self._pack_shared(model, F, Fp, srcs), srcs)
         fields, flags = hit[0]
         packet = {
             "_verts_src": model.vertices,
@@ -261,12 +267,12 @@ class Scene:
         self._packets[key] = packet
         return packet
 
-    def _pack_shared(self, model: Model, F: int, Fp: int):
+    def _pack_shared(self, model: Model, F: int, Fp: int, srcs):
         """The part of a packet that instances share: (tensors by name,
-        ModelConfig's flags of it)."""
+        with ``_faces`` the dict of its per-face tables, ModelConfig's flags
+        of it)."""
         faces = model.face_array
-        dev = self.device
-        t = lambda a, dtype=None: torch.as_tensor(a, dtype=dtype, device=dev)
+        t = lambda a: torch.as_tensor(a, device=self.device)
 
         vid = _pad_rows(faces[:, :, 0].astype(np.int64), Fp)
         pad_valid = np.zeros(Fp, bool)
@@ -276,21 +282,23 @@ class Scene:
         else:
             uv = np.zeros((F, 3, 2), np.float32)
         mtl = faces[:, 0, 3].astype(np.int64)
+        # Host arrays of the per-face tables, tensors of the rest, in the
+        # packet's order.
         packet = {
-            "vid": t(vid),
-            "pad_valid": t(pad_valid),
-            "uv": t(_pad_rows(uv, Fp)),
-            "kd": t(_pad_rows(_material_table(model, "Kd", 3)[mtl], Fp)),
-            "ks": t(_pad_rows(_material_table(model, "Ks", 3)[mtl], Fp)),
-            "ns": t(_pad_rows(_material_table(model, "Ns", 1)[:, 0][mtl], Fp)),
-            "pm": t(_pad_rows(_material_table(model, "Pm", 1)[:, 0][mtl], Fp)),
-            "pr": t(_pad_rows(_material_table(model, "Pr", 1)[:, 0][mtl], Fp)),
-            "ka": t(_pad_rows(_material_table(model, "Ka", 3)[mtl], Fp)),
+            "vid": vid,
+            "pad_valid": pad_valid,
+            "uv": _pad_rows(uv, Fp),
+            "kd": _pad_rows(_material_table(model, "Kd", 3)[mtl], Fp),
+            "ks": _pad_rows(_material_table(model, "Ks", 3)[mtl], Fp),
+            "ns": _pad_rows(_material_table(model, "Ns", 1)[:, 0][mtl], Fp),
+            "pm": _pad_rows(_material_table(model, "Pm", 1)[:, 0][mtl], Fp),
+            "pr": _pad_rows(_material_table(model, "Pr", 1)[:, 0][mtl], Fp),
+            "ka": _pad_rows(_material_table(model, "Ka", 3)[mtl], Fp),
         }
         has_vn = model.normals is not None
         if has_vn:
-            packet["vn"] = t(_pad_rows(
-                model.normals[faces[:, :, 2]].astype(np.float32), Fp))
+            packet["vn"] = _pad_rows(
+                model.normals[faces[:, :, 2]].astype(np.float32), Fp)
 
         # Edge incidence tensors for batched silhouette extraction.
         et = model.edge_table
@@ -300,30 +308,64 @@ class Scene:
         inc_edge[:3 * F] = et.incidence_edge
         inc_dir[:3 * F] = et.incidence_dir
         inc_valid[:3 * F] = True
-        packet.update(inc_edge=t(inc_edge), inc_dir=t(inc_dir),
-                      inc_valid=t(inc_valid))
+        packet.update(inc_edge=inc_edge, inc_dir=inc_dir, inc_valid=inc_valid)
 
         flags = {}
         for kind, attr in (("kd", "map_Kd"), ("ks", "map_Ks"), ("norm", "norm")):
             st = _texture_stack(model, attr)
             flags[kind] = st is not None
             if st is None:
-                packet[f"{kind}_slot"] = t(np.full(Fp, -1, np.int32))
-                packet[f"{kind}_shape"] = t(np.ones((Fp, 2), np.float32))
+                packet[f"{kind}_slot"] = np.full(Fp, -1, np.int32)
+                packet[f"{kind}_shape"] = np.ones((Fp, 2), np.float32)
                 continue
             stack, slot, shape, tangent, scale_off = st
             packet[f"{kind}_stack"] = t(stack)
-            packet[f"{kind}_slot"] = t(_pad_rows(slot[mtl], Fp))
-            packet[f"{kind}_shape"] = t(_pad_rows(shape[mtl], Fp))
+            packet[f"{kind}_slot"] = _pad_rows(slot[mtl], Fp)
+            packet[f"{kind}_shape"] = _pad_rows(shape[mtl], Fp)
             packet[f"{kind}_scale_off"] = t(scale_off)
             if kind == "norm":
-                packet["norm_tangent"] = t(_pad_rows(tangent[mtl], Fp))
+                packet["norm_tangent"] = _pad_rows(tangent[mtl], Fp)
         if "norm_tangent" not in packet:
-            packet["norm_tangent"] = t(np.zeros(Fp, bool))
+            packet["norm_tangent"] = np.zeros(Fp, bool)
+        part = self._intern_faces(srcs, F, Fp, {
+            k: a for k, a in packet.items() if isinstance(a, np.ndarray)})
+        packet = {k: part.get(k, a) for k, a in packet.items()}
+        packet["_faces"] = part
         return packet, dict(
             has_vn=has_vn, has_uv=model.uv is not None,
             has_map_kd=flags["kd"], has_map_ks=flags["ks"],
             has_norm=flags["norm"], num_edges=et.num_edges)
+
+    def _intern_faces(self, srcs, F: int, Fp: int, arrays: dict) -> dict:
+        """The device tensors of a shared part's per-face tables (host
+        ``arrays`` by name): those of the last part packed from the same
+        sources if every array equals its, so that a texture change keeps
+        them, and with them the frame's ``dyn["faces"]`` and its compiled
+        program; new ones otherwise."""
+        key = tuple(id(s) for s in srcs) + (F, Fp)
+        hit = self._face_parts.get(key)
+        if hit is not None and hit[1].keys() == arrays.keys() and all(
+                a.dtype == hit[1][k].dtype and np.array_equal(a, hit[1][k])
+                for k, a in arrays.items()):
+            return hit[2]
+        part = {k: torch.as_tensor(a, device=self.device)
+                for k, a in arrays.items()}
+        # The sources are pinned beside the part, as in _shared.
+        self._face_parts[key] = (srcs, arrays, part)
+        return part
+
+    def _face_tables(self, cfg, packets) -> dict:
+        """``dyn["faces"]``: ``pipeline.face_tables`` of the frame, built
+        again only when a model's per-face tables, vertex count or flags
+        change."""
+        key = tuple((id(p["_faces"]), p["verts"].shape[0], p["_config"])
+                    for p in packets)
+        if self._faces is None or self._faces[0] != key:
+            # The parts are pinned beside the tables, so no key can alias
+            # the id() of a freed part.
+            self._faces = (key, [p["_faces"] for p in packets],
+                           pl.face_tables(cfg, packets))
+        return self._faces[2]
 
     @staticmethod
     def _cam_dyn(cam) -> dict:
@@ -386,6 +428,8 @@ class Scene:
                 "camera": self._cam_dyn(self.camera),
                 "light": self._light_dyn(),
             }
+            if packets:
+                dyn["faces"] = self._face_tables(cfg, packets)
             if self.debug_camera is not None:
                 dyn["debug_camera"] = self._cam_dyn(self.debug_camera)
             if background == "color":

@@ -17,7 +17,10 @@ The port's counterpart of ``jax.jit`` over the JAX package's frame
   ``pipeline.frame_inputs``), the light, vertex positions, texture and
   cubemap texels and the background colour are inputs, copied into the
   program's static buffers before every replay, so a camera orbit or an
-  animated model never captures again, as jit never retraces;
+  animated model never captures again, as jit never retraces. A packing's
+  face tables (``pipeline.face_tables``), which no frame writes, are no
+  input: the body closes over them and the key holds their identity
+  (``pipeline._jit``), as jit closes over a constant;
 - **tracing and compiling** — :class:`Program`'s first call: it stages the
   inputs into static buffers, one per distinct tensor (the body sees a
   shared tensor as one tensor, as jit sees one array passed twice), runs

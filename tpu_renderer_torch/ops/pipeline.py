@@ -1,8 +1,8 @@
 """The whole-frame render path, in PyTorch: the single-device kernel
 branches of ``tpu_renderer/ops/pipeline.py``.
 
-    vertex stage (per model)                        ops/vertex.py
-    -> global face batch (models concatenated)      _build_face_batch
+    vertex stage over every model at once           ops/vertex.py,
+       (packing-only tables: face_tables)           _build_face_batch
     -> K1 visibility: z-buffer + winning face id    raster_cuda.visibility
     general shader:
     -> K2 G-buffer: 32 interpolated channels        raster_cuda.gbuffer
@@ -91,7 +91,7 @@ __all__ = ["SceneConfig", "ModelConfig", "render_core", "render_frame",
            "render_ssaa", "render_debug_frame", "face_statistics",
            "render_core_jit", "render_frame_jit", "render_ssaa_jit",
            "render_debug_frame_jit", "face_statistics_jit", "frame_inputs",
-           "staged", "texture_tables", "SHADER_GENERAL",
+           "staged", "face_tables", "texture_tables", "SHADER_GENERAL",
            "SHADER_FLAT", "SHADER_GOURAUD", "SHADER_PBR", "SHADER_WIREFRAME",
            "SHADER_POINTS", "SHADERS", "SLIM_SHADERS", "DEBUG_SHADERS"]
 
@@ -227,54 +227,87 @@ def _body_dyn(dyn):
             if k not in ("camera", "debug_camera")}
 
 
-def _build_face_batch(cfg: SceneConfig, dyn, cam_m, dbg_mvp=None):
-    """Vertex stage + per-face gathers for every model, concatenated
-    (pipeline._build_face_batch :133 without the sampler-window fields;
-    the attrs carry what every shader reads, :218-229). ``cam_m`` holds
-    MVP, viewport, near and far (:func:`_cam_matrices`, or the staged
-    views). With the debug camera's ``dbg_mvp``, the raster dict also
-    carries ``clip_dbg``, each face's vertices in its clip space
-    (:175-178). Returns (raster dict, attrs dict) of per-face tensors."""
-    height, width = cfg.resolution
-    near, far = cam_m["near"], cam_m["far"]
-    raster_parts, attr_parts = [], []
-    for m_i, (mc, md) in enumerate(zip(cfg.models, dyn["models"])):
-        va = transform_vertices(md["verts"], cam_m["MVP"], cam_m["viewport"],
-                                near, far)
-        f = gather_faces(va, md["vid"], height, width, cfg.backface_culling)
-        F = md["vid"].shape[0]
-        world = f["world"]                              # (F, 3, 3)
-        face_normal = normalize(_cross(world[:, 1] - world[:, 0],
-                                       world[:, 2] - world[:, 0]))
-        # Faces without vertex normals shade with the face normal
-        # (reference Face.get_normals fallback, core.py:186-187).
-        vn = md["vn"] if mc.has_vn else face_normal[:, None, :].expand(F, 3, 3)
-        dev = world.device
-        raster_parts.append({
-            "sx": f["sx"], "sy": f["sy"], "inv_w": f["inv_w"], "aff": f["aff"],
-            "clip": f["clip"], "bbox": f["bbox"],
-            "valid": f["valid"] & md["pad_valid"],
+#: Per-face shading attributes of a model's packet, which the vertex stage
+#: hands on as they are.
+_FACE_ATTRS = ("uv", "kd", "ks", "ns", "pm", "pr", "ka", "kd_slot",
+               "ks_slot", "norm_slot", "norm_tangent", "kd_shape",
+               "ks_shape", "norm_shape")
+
+
+def face_tables(cfg: SceneConfig, models):
+    """The per-face tables of a frame that depend only on its packing,
+    every model's in model order: its packet's shading attributes and
+    padding mask ``pad_valid``; ``vid``, the vertex ids offset by the
+    vertices of the models before (ids into every model's vertices stacked
+    in order); ``vn`` and ``has_vn``, the vertex normals (zeros for a model
+    without them) and where they hold; and the constants ``clip_en``,
+    ``z_write`` and ``model_id``.
+
+    ``Scene._prepare`` builds them once per packing, as ``dyn["faces"]``;
+    :func:`_build_face_batch` builds them from ``models`` for a ``dyn``
+    without. Whoever changes ``dyn["models"]`` drops ``dyn["faces"]``
+    (parallel/sharded.py)."""
+    parts, n_verts = [], 0
+    for m_i, (mc, md) in enumerate(zip(cfg.models, models)):
+        vid = md["vid"].long()
+        F, dev = vid.shape[0], vid.device
+        parts.append({
+            **{k: md[k] for k in _FACE_ATTRS},
+            "pad_valid": md["pad_valid"],
+            "vid": vid + n_verts,
+            "vn": (md["vn"] if mc.has_vn else
+                   torch.zeros((F, 3, 3), dtype=torch.float32, device=dev)),
+            "has_vn": torch.full((F,), mc.has_vn, device=dev),
             "clip_en": torch.full((F,), mc.clip, device=dev),
             "z_write": torch.full((F,), mc.depth_test, device=dev),
-        })
-        if dbg_mvp is not None:
-            # Elementwise in float32, as transform_vertices' clip space.
-            raster_parts[-1]["clip_dbg"] = _rowvec(
-                md["verts"].to(torch.float32), dbg_mvp)[md["vid"].long()]
-        attr_parts.append({
-            "sx": f["sx"], "sy": f["sy"], "szlin": f["szlin"],
-            "world": world, "vn": vn, "face_normal": face_normal,
-            "uv": md["uv"], "kd": md["kd"], "ks": md["ks"], "ns": md["ns"],
-            "pm": md["pm"], "pr": md["pr"], "ka": md["ka"],
-            "kd_slot": md["kd_slot"], "ks_slot": md["ks_slot"],
-            "norm_slot": md["norm_slot"], "norm_tangent": md["norm_tangent"],
-            "kd_shape": md["kd_shape"], "ks_shape": md["ks_shape"],
-            "norm_shape": md["norm_shape"],
             "model_id": torch.full((F,), m_i, dtype=torch.int32, device=dev),
         })
-    cat = lambda parts: {k: torch.cat([p[k] for p in parts], dim=0)
-                         for k in parts[0]}
-    return cat(raster_parts), cat(attr_parts)
+        n_verts += md["verts"].shape[0]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def _build_face_batch(cfg: SceneConfig, dyn, cam_m, dbg_mvp=None):
+    """Vertex stage + per-face gathers for every model at once
+    (pipeline._build_face_batch :133 without the sampler-window fields;
+    the attrs carry what every shader reads, :218-229): one transform of
+    every model's vertices, stacked in model order, one gather of every
+    face through the offset ids of :func:`face_tables` (``dyn["faces"]``),
+    one face normal. Every operation is elementwise or a row gather, so
+    each face's values round as a pass over its model alone would.
+    ``cam_m`` holds MVP, viewport, near and far (:func:`_cam_matrices`,
+    or the staged views). With the debug camera's ``dbg_mvp``, the raster
+    dict also carries ``clip_dbg``, each face's vertices in its clip space
+    (:175-178). Returns (raster dict, attrs dict) of per-face tensors, the
+    faces in model order."""
+    height, width = cfg.resolution
+    ft = dyn.get("faces")
+    if ft is None:
+        ft = face_tables(cfg, dyn["models"])
+    verts = torch.cat([md["verts"] for md in dyn["models"]]).to(torch.float32)
+    va = transform_vertices(verts, cam_m["MVP"], cam_m["viewport"],
+                            cam_m["near"], cam_m["far"])
+    f = gather_faces(va, ft["vid"], height, width, cfg.backface_culling)
+    world = f["world"]                                  # (G, 3, 3)
+    face_normal = normalize(_cross(world[:, 1] - world[:, 0],
+                                   world[:, 2] - world[:, 0]))
+    # Faces without vertex normals shade with the face normal
+    # (reference Face.get_normals fallback, core.py:186-187).
+    vn = torch.where(ft["has_vn"][:, None, None], ft["vn"],
+                     face_normal[:, None, :])
+    faces = {
+        "sx": f["sx"], "sy": f["sy"], "inv_w": f["inv_w"], "aff": f["aff"],
+        "clip": f["clip"], "bbox": f["bbox"],
+        "valid": f["valid"] & ft["pad_valid"],
+        "clip_en": ft["clip_en"], "z_write": ft["z_write"],
+    }
+    if dbg_mvp is not None:
+        # Elementwise in float32, as transform_vertices' clip space.
+        faces["clip_dbg"] = _rowvec(verts, dbg_mvp)[ft["vid"]]
+    attrs = {"sx": f["sx"], "sy": f["sy"], "szlin": f["szlin"],
+             "world": world, "vn": vn, "face_normal": face_normal,
+             **{k: ft[k] for k in _FACE_ATTRS},
+             "model_id": ft["model_id"]}
+    return faces, attrs
 
 
 def texture_tables(cfg: SceneConfig, dyn, attrs):
@@ -631,12 +664,24 @@ def _rgb(r, g, b, device):
 def _jit(name, static, cfg, dyn, body, *tensors):
     """Stage on the host, then run ``body(inputs, staged views)`` as the
     program of ops/compiled.py keyed by (name, cfg, ``static``, the staging
-    layout; the device and every input's shape and dtype): ``inputs`` is
-    (dyn without the host camera, ``tensors``)."""
+    layout, the identity of ``dyn["faces"]``; the device and every input's
+    shape and dtype): ``inputs`` is (dyn without the host camera,
+    ``tensors``). ``dyn["faces"]`` (:func:`face_tables`, built once per
+    packing and never written) is no input: the body reads it as it is, so
+    no frame copies it, and another packing's tables are another program."""
     buf, layout = frame_inputs(cfg, dyn)
-    return compiled.call((name, cfg, static, layout),
-                         lambda inputs, b: body(inputs, staged(b, layout)),
-                         buf, (_body_dyn(dyn), tensors), _device(dyn))
+    inputs = _body_dyn(dyn)
+    faces = inputs.pop("faces", None)
+
+    def run(inputs, b):
+        d, rest = inputs
+        if faces is not None:
+            d = dict(d, faces=faces)
+        return body((d, rest), staged(b, layout))
+
+    return compiled.call((name, cfg, static, layout,
+                          None if faces is None else id(faces)),
+                         run, buf, (inputs, tensors), _device(dyn))
 
 
 def render_frame_jit(cfg: SceneConfig, dyn):

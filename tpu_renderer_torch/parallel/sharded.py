@@ -42,6 +42,13 @@ _FACE_KEYS = ("vid", "pad_valid", "uv", "kd", "ks", "ns", "pm", "pr", "ka",
 _INC_KEYS = ("inc_edge", "inc_dir", "inc_valid")
 
 
+def _with_models(dyn, models):
+    """``dyn`` over ``models``, without the face tables of its own models
+    (``dyn["faces"]``, pipeline.face_tables): the vertex stage builds the
+    new models' own."""
+    return dict({k: v for k, v in dyn.items() if k != "faces"}, models=models)
+
+
 def _pad(a, n):
     return torch.cat([a, a.new_zeros((n,) + tuple(a.shape[1:]))])
 
@@ -63,7 +70,7 @@ def pad_models_for_tris(dyn, n_tris: int, chunk: int = 8):
             for k in _INC_KEYS:
                 md[k] = _pad(md[k], 3 * pad)
         models.append(md)
-    return dict(dyn, models=models)
+    return _with_models(dyn, models)
 
 
 def shard_dyn(dyn, n_tris: int, tris_idx: int):
@@ -78,7 +85,7 @@ def shard_dyn(dyn, n_tris: int, tris_idx: int):
                 n = md[k].shape[0] // n_tris
                 md[k] = md[k][tris_idx * n:(tris_idx + 1) * n]
         models.append(md)
-    return dict(dyn, models=models)
+    return _with_models(dyn, models)
 
 
 def render_frame_sharded(cfg: SceneConfig, dyn, mesh, ops=rc.KERNELS):
