@@ -28,8 +28,12 @@ case (and shape) and round.
 or of the flagship frame (``flagship``), into its steps on the checkout
 at DIR, each step's device ms per call from a
 captured CUDA graph of calls timed with CUDA events
-(``chip_smoke._graph_ms``): ``silhouette`` (silhouette_edges of every
-shadowing model), ``extrude`` (extrude_quads), and over all E edges
+(``chip_smoke._graph_ms``): ``silhouette`` (the light-facing test,
+parity and last light-facing incidence: on a checkout with the one pass
+over every shadowing model, ``shadow.edge_tables``, that pass on the
+vertex stage's face positions; before it, silhouette_edges per shadowing
+model), ``extrude`` (extrude_quads: once over every edge, or per model
+before the one pass), and over all E edges
 ``clip`` (frustum.clip_polygon), ``project`` (MVP, divide by w,
 viewport) and ``pack`` (raster_cuda.pack_quads), as a checkout without
 silhouette compaction runs them; on a checkout with it (``quad_prep``,
@@ -135,25 +139,45 @@ def shadow_split(cs, config):
     light = dyn["light"]
     dev = light["position"].device
     cam_m = pl._cam_matrices(cfg, dyn["camera"], dev)
-    shadowing = [(mc, md) for mc, md in zip(cfg.models, dyn["models"])
-                 if mc.shadowing and mc.num_edges]
+    stage = {}
+    if hasattr(sh, "edge_tables"):
+        # The one pass, on the vertex stage's stacked vertices and face
+        # positions, as render_core runs it.
+        verts = pl.stacked_vertices(dyn)
+        _, attrs = pl._build_face_batch(cfg, dyn, cam_m, None, verts)
+        stage = {"verts": verts, "world": attrs["world"]}
+        et = dyn["faces"]["edges"]
 
-    def silhouette():
-        return [sh.silhouette_edges(
-            md["verts"], md["vid"], md["pad_valid"], md["inc_edge"],
-            md["inc_dir"], md["inc_valid"], light["position"], mc.num_edges)
-            for mc, md in shadowing]
+        def silhouette():
+            inc_lf = (sh.light_facing(stage["world"], light["position"])
+                      [et["inc_face"]] & et["inc_valid"])
+            return sh._silhouette(inc_lf, et["inc_edge"], et["inc_dir"],
+                                  et["edge_first"], None, 0)
 
-    sils = silhouette()
-
-    def extrude():
-        return torch.cat([sh.extrude_quads(md["verts"], a, b, light,
+        sil, a_vid, b_vid = silhouette()
+        extrude = lambda: sh.extrude_quads(verts, a_vid, b_vid, light,
                                            cfg.light_type)
-                          for (_, md), (_, a, b) in zip(shadowing, sils)])
+    else:
+        shadowing = [(mc, md) for mc, md in zip(cfg.models, dyn["models"])
+                     if mc.shadowing and mc.num_edges]
+
+        def silhouette():
+            return [sh.silhouette_edges(
+                md["verts"], md["vid"], md["pad_valid"], md["inc_edge"],
+                md["inc_dir"], md["inc_valid"], light["position"],
+                mc.num_edges) for mc, md in shadowing]
+
+        sils = silhouette()
+
+        def extrude():
+            return torch.cat([sh.extrude_quads(md["verts"], a, b, light,
+                                               cfg.light_type)
+                              for (_, md), (_, a, b) in zip(shadowing, sils)])
+
+        sil = torch.cat([s for s, _, _ in sils])
 
     quad = extrude()
     e = quad.shape[0]
-    sil = torch.cat([s for s, _, _ in sils])
     padded = torch.zeros((e, sh.QUAD_PMAX, 4), device=dev)
     padded[:, :4] = quad
     fours = torch.full((e,), 4, dtype=torch.int32, device=dev)
@@ -175,7 +199,7 @@ def shadow_split(cs, config):
                 cam_m["MVP"], cam_m["viewport"], h, w)
         steps.update(order=lambda: sh.silhouette_order(sil),
                      quad_prep=lambda: rc.quad_prep(*prep))
-        whole = lambda: sh.quad_tables(cfg, dyn, cam_m, h, w)
+        whole = lambda: sh.quad_tables(cfg, dyn, cam_m, h, w, **stage)
         qdata, qi, n = whole()
         kw = {"n_rows": n}
     else:

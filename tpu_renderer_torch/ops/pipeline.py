@@ -9,7 +9,8 @@ branches of ``tpu_renderer/ops/pipeline.py``.
     -> K3 texture samples from the texel pool       raster_cuda.sample_textures
     flat / gouraud / pbr shaders:
     -> K5 slim G-buffer: 3 or 11 channels           raster_cuda.gbuffer_slim
-    -> shadow quads (silhouette, extrude, order)    ops/shadow.py
+    -> shadow quads (silhouette, extrude, order),   ops/shadow.py
+       one pass over every shadowing model
     -> K8 clip, project, pack the silhouette quads  raster_cuda.quad_prep
     -> K4 signed stencil                            raster_cuda.stencil
     -> deferred shading over the background         K9 raster_cuda.shade /
@@ -79,7 +80,7 @@ from tpu_renderer_torch.ops import raster_cuda as rc
 from tpu_renderer_torch.ops import shading as sh
 from tpu_renderer_torch.ops.cubemap import fill_skybox, skybox_inputs
 from tpu_renderer_torch.ops.lightning import Lightning
-from tpu_renderer_torch.ops.shadow import _cross, quad_tables
+from tpu_renderer_torch.ops.shadow import _cross, edge_tables, quad_tables
 from tpu_renderer_torch.ops.transforms import bound_box_batch, normalize
 from tpu_renderer_torch.ops.vertex import (_rowvec, gather_faces,
                                            screen_normal_z,
@@ -91,9 +92,10 @@ __all__ = ["SceneConfig", "ModelConfig", "render_core", "render_frame",
            "render_ssaa", "render_debug_frame", "face_statistics",
            "render_core_jit", "render_frame_jit", "render_ssaa_jit",
            "render_debug_frame_jit", "face_statistics_jit", "frame_inputs",
-           "staged", "face_tables", "texture_tables", "SHADER_GENERAL",
-           "SHADER_FLAT", "SHADER_GOURAUD", "SHADER_PBR", "SHADER_WIREFRAME",
-           "SHADER_POINTS", "SHADERS", "SLIM_SHADERS", "DEBUG_SHADERS"]
+           "staged", "face_tables", "stacked_vertices", "texture_tables",
+           "SHADER_GENERAL", "SHADER_FLAT", "SHADER_GOURAUD", "SHADER_PBR",
+           "SHADER_WIREFRAME", "SHADER_POINTS", "SHADERS", "SLIM_SHADERS",
+           "DEBUG_SHADERS"]
 
 SHADER_GENERAL = "general"
 SHADER_FLAT = "flat"
@@ -240,13 +242,13 @@ def face_tables(cfg: SceneConfig, models):
     padding mask ``pad_valid``; ``vid``, the vertex ids offset by the
     vertices of the models before (ids into every model's vertices stacked
     in order); ``vn`` and ``has_vn``, the vertex normals (zeros for a model
-    without them) and where they hold; and the constants ``clip_en``,
-    ``z_write`` and ``model_id``.
+    without them) and where they hold; the constants ``clip_en``,
+    ``z_write`` and ``model_id``; and, when a model casts shadows,
+    ``edges``, the shadow pass's incidence tables (shadow.edge_tables).
 
     ``Scene._prepare`` builds them once per packing, as ``dyn["faces"]``;
-    :func:`_build_face_batch` builds them from ``models`` for a ``dyn``
-    without. Whoever changes ``dyn["models"]`` drops ``dyn["faces"]``
-    (parallel/sharded.py)."""
+    a body builds them from ``models`` for a ``dyn`` without. Whoever
+    changes ``dyn["models"]`` drops ``dyn["faces"]`` (parallel/sharded.py)."""
     parts, n_verts = [], 0
     for m_i, (mc, md) in enumerate(zip(cfg.models, models)):
         vid = md["vid"].long()
@@ -263,10 +265,21 @@ def face_tables(cfg: SceneConfig, models):
             "model_id": torch.full((F,), m_i, dtype=torch.int32, device=dev),
         })
         n_verts += md["verts"].shape[0]
-    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    tables = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    edges = edge_tables(cfg, models)
+    if edges is not None:
+        tables["edges"] = edges
+    return tables
 
 
-def _build_face_batch(cfg: SceneConfig, dyn, cam_m, dbg_mvp=None):
+def stacked_vertices(dyn):
+    """(V, 4) float32: every model's vertices stacked in model order, the
+    vertices that the ids of :func:`face_tables` index."""
+    return torch.cat([md["verts"] for md in dyn["models"]]).to(torch.float32)
+
+
+def _build_face_batch(cfg: SceneConfig, dyn, cam_m, dbg_mvp=None,
+                      verts=None):
     """Vertex stage + per-face gathers for every model at once
     (pipeline._build_face_batch :133 without the sampler-window fields;
     the attrs carry what every shader reads, :218-229): one transform of
@@ -277,13 +290,15 @@ def _build_face_batch(cfg: SceneConfig, dyn, cam_m, dbg_mvp=None):
     ``cam_m`` holds MVP, viewport, near and far (:func:`_cam_matrices`,
     or the staged views). With the debug camera's ``dbg_mvp``, the raster
     dict also carries ``clip_dbg``, each face's vertices in its clip space
-    (:175-178). Returns (raster dict, attrs dict) of per-face tensors, the
-    faces in model order."""
+    (:175-178). ``verts``: :func:`stacked_vertices` of ``dyn``, where the
+    caller holds them. Returns (raster dict, attrs dict) of per-face
+    tensors, the faces in model order."""
     height, width = cfg.resolution
     ft = dyn.get("faces")
     if ft is None:
         ft = face_tables(cfg, dyn["models"])
-    verts = torch.cat([md["verts"] for md in dyn["models"]]).to(torch.float32)
+    if verts is None:
+        verts = stacked_vertices(dyn)
     va = transform_vertices(verts, cam_m["MVP"], cam_m["viewport"],
                             cam_m["near"], cam_m["far"])
     f = gather_faces(va, ft["vid"], height, width, cfg.backface_culling)
@@ -438,8 +453,14 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
         zbuf = torch.full(shape, float("inf") * sign, device=device)
         tid = torch.full(shape, -1, dtype=torch.int32, device=device)
         return frame, zbuf, tid, torch.zeros_like(tid)
+    if "faces" not in dyn:
+        # One build of the packing's tables, for the vertex and shadow
+        # stages both.
+        dyn = dict(dyn, faces=face_tables(cfg, dyn["models"]))
     with span("vertex"):
-        faces, attrs = _build_face_batch(cfg, dyn, st, st.get("dbg_MVP"))
+        verts = stacked_vertices(dyn)
+        faces, attrs = _build_face_batch(cfg, dyn, st, st.get("dbg_MVP"),
+                                         verts)
         fdata = rc.pack_faces(faces)
         flags = rc.face_flags(faces)
         fdbg = rc.pack_debug_planes(faces)
@@ -488,11 +509,13 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
     if cfg.shadows:
         # Computed for every shader and returned; the slim shaders do not
         # read it (pipeline.py:878-939 of the JAX package).
-        # Only the silhouette quads are clipped, projected, packed (K8)
-        # and binned (K4), as many as the count on the device says.
+        # One pass over every shadowing model, on the vertex stage's
+        # stacked vertices and face positions; only the silhouette quads
+        # are clipped, projected, packed (K8) and binned (K4), as many as
+        # the count on the device says.
         with span("shadow_quads"):
             tables = quad_tables(cfg, dyn, st, height, width, ops,
-                                 tris_group, tris_idx)
+                                 tris_group, tris_idx, verts, attrs["world"])
         if tables is not None:
             qdata, qi, n_sil = tables
             with span("stencil"):

@@ -6,9 +6,13 @@ Counterpart of ``tpu_renderer/ops/shadow.py``:
    unique-edge ids (odd = silhouette); the surviving edge keeps the vertex
    order of the *last* light-facing incidence (reference XOR set,
    triangular.py:294-302). The facing test is ``normal @ light.position > 0``
-   — position, not direction — like triangular.py:295.
+   — position, not direction — like triangular.py:295. One pass covers
+   every shadowing model: the packing's edge tables (:func:`edge_tables`)
+   offset each model's edge and vertex ids, so one scatter over all
+   incidences gives, edge for edge, what a pass per model gives.
 2. **Extrusion** (core.py:613-621), including the reference's homogeneous
-   quirk for directional lights (w = 2 on the extruded points).
+   quirk for directional lights (w = 2 on the extruded points), once over
+   every edge.
 3. **Compaction** (shadow.py:306-339 there): the edges in the stable
    silhouette-first order (JAX's ``argsort(~sil, stable=True)``, here an
    exclusive prefix sum and a scatter) and their silhouette count
@@ -31,11 +35,12 @@ Counterpart of ``tpu_renderer/ops/shadow.py``:
    rasterizes only the first ``n_sil`` rows.
 
 Under triangle sharding (a process ``group`` over the ``tris`` axis) each
-rank holds a slice of the faces and their edge incidences: the parity
-counts SUM and the last light-facing incidence MAXes over the group, so
-every rank sees the global silhouette and the same global order; rank r
-then prepares the contiguous compact rows ``[r*c, min(n_sil, (r+1)*c))``,
-c = ceil(n_sil / n) computed on the device, and the partial stencils SUM.
+rank holds a slice of every model's faces and their edge incidences: the
+parity counts SUM and the last light-facing incidence MAXes over the
+group, once per frame, so every rank sees the global silhouette and the
+same global order; rank r then prepares the contiguous compact rows
+``[r*c, min(n_sil, (r+1)*c))``, c = ceil(n_sil / n) computed on the
+device, and the partial stencils SUM.
 """
 from __future__ import annotations
 
@@ -48,8 +53,9 @@ from tpu_renderer_torch.ops.transforms import normalize
 from tpu_renderer_torch.ops.vertex import _rowvec
 from tpu_renderer_torch.parallel.mesh import all_reduce
 
-__all__ = ["silhouette_edges", "extrude_quads", "quad_edge_coeffs",
-           "prepare_quads", "silhouette_order", "clip_project",
+__all__ = ["light_facing", "edge_tables", "silhouette_edges",
+           "extrude_quads", "quad_edge_coeffs", "prepare_quads",
+           "silhouette_order", "clip_project",
            "quad_tables", "shadow_stencil",
            "QUAD_PMAX"]
 
@@ -68,47 +74,116 @@ def _dot3(a, b):
     return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
 
 
-def silhouette_edges(verts, vid, pad_valid, inc_edge, inc_dir, inc_valid,
-                     light_position, num_edges, group=None, inc_order_base=0):
-    """Per-edge silhouette mask + directed vertex ids.
-
-    verts: (V, 4); vid: (Fp, 3); pad_valid: (Fp,); inc_edge / inc_dir /
-    inc_valid: (3Fp,) / (3Fp, 2) / (3Fp,) incidence tensors.
-    Returns (silhouette (E,) bool, a_vid (E,), b_vid (E,)).
-
-    With a process ``group`` the faces and incidences are this rank's slice,
-    whose first incidence has the global index ``inc_order_base``: parity
-    SUMs and the last light-facing incidence MAXes over the group, and the
-    rank that holds that incidence gives its vertex pair (a MAX over the
-    others' -1), so every rank returns the global silhouette (JAX
-    shadow.py:46-97).
-    """
-    world = verts[vid.long()][..., :3]
+def light_facing(world, light_position):
+    """(F,) bool: the faces of ``world`` (F, 3, 3), each face's world
+    positions, whose normal points at the light's position
+    (``normal @ light.position > 0``, triangular.py:295)."""
     n = _cross(world[:, 1] - world[:, 0], world[:, 2] - world[:, 0])
-    light_facing = (_dot3(n, light_position) > 0) & pad_valid
+    return _dot3(n, light_position) > 0
 
-    # Each face's flag on its three incidences (an expand, not
-    # repeat_interleave, so that a captured frame never waits for a count).
-    inc_lf = light_facing[:, None].expand(-1, 3).reshape(-1) & inc_valid
-    edge = inc_edge.long()
-    parity = torch.zeros(num_edges, dtype=torch.int32, device=verts.device)
-    parity.index_add_(0, edge, inc_lf.to(torch.int32))
-    order = torch.where(
-        inc_lf, torch.arange(inc_lf.shape[0], device=verts.device)
-        + inc_order_base, torch.full_like(edge, -1))
-    last = torch.full((num_edges,), -1, dtype=torch.int64, device=verts.device)
-    last.scatter_reduce_(0, edge, order, reduce="amax", include_self=True)
+
+def edge_tables(cfg, models):
+    """The packing-only incidence tables of the shadow pass, over every
+    shadowing model (``shadowing`` and ``num_edges > 0``) in model order,
+    or None without one:
+
+    - ``inc_edge`` (I,): each incidence's edge, offset by the edges of the
+      shadowing models before;
+    - ``inc_dir`` (I, 2): its directed vertex ids, offset by the vertices
+      of all models before (ids into the vertex stage's stacked vertices);
+    - ``inc_valid`` (I,): where it holds and its face is no padding;
+    - ``inc_face`` (I,): its face's row in the frame's face order;
+    - ``edge_first`` (E,): the first incidence of each edge's model, whose
+      vertex pair an edge without a light-facing incidence takes (as
+      :func:`silhouette_edges` gives such an edge its incidence 0's).
+
+    Edge ids are offset so that no two models share an edge, and each
+    edge's incidences lie in its own model's block, so one pass over the
+    tables picks, edge for edge, what a pass per model would.
+    ``pipeline.face_tables`` holds them as ``edges``."""
+    parts = []
+    n_verts = n_faces = n_edges = n_inc = 0
+    for mc, md in zip(cfg.models, models):
+        if mc.shadowing and mc.num_edges > 0:
+            edge = md["inc_edge"].long()
+            dev, count = edge.device, edge.shape[0]
+            parts.append({
+                "inc_edge": edge + n_edges,
+                "inc_dir": md["inc_dir"].long() + n_verts,
+                "inc_valid": (md["inc_valid"]
+                              & md["pad_valid"].repeat_interleave(3)),
+                "inc_face": torch.arange(count, device=dev) // 3 + n_faces,
+                "edge_first": torch.full((mc.num_edges,), n_inc,
+                                         dtype=torch.int64, device=dev),
+            })
+            n_edges += mc.num_edges
+            n_inc += count
+        n_verts += md["verts"].shape[0]
+        n_faces += md["vid"].shape[0]
+    if not parts:
+        return None
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def _silhouette(inc_lf, inc_edge, inc_dir, edge_first, group, inc_order_base):
+    """(silhouette (E,) bool, a_vid (E,), b_vid (E,)) of the light-facing
+    incidences ``inc_lf`` (I,) over the tables of :func:`edge_tables`.
+
+    The parity of an edge's light-facing incidences decides the silhouette;
+    the edge keeps the direction of its last light-facing incidence, or of
+    its ``edge_first`` incidence without one. With a process ``group`` the
+    incidences are this rank's, whose first has the key
+    ``inc_order_base`` (the rank's index times I): parity SUMs and the last
+    key MAXes over the group, and the rank that holds that key gives the
+    vertex pair (a MAX over the others' -1), so every rank returns the
+    global silhouette (JAX shadow.py:46-97). Keys grow with the rank within
+    each model, and ``edge_first`` is rank 0's key."""
+    dev = inc_lf.device
+    parity = torch.zeros(edge_first.shape[0], dtype=torch.int32, device=dev)
+    parity.index_add_(0, inc_edge, inc_lf.to(torch.int32))
+    n_inc = inc_lf.shape[0]
+    key = torch.where(inc_lf, torch.arange(inc_order_base,
+                                           inc_order_base + n_inc,
+                                           device=dev), -1)
+    last = torch.scatter_reduce(edge_first, 0, inc_edge, key, reduce="amax",
+                                include_self=True)
     parity = all_reduce(parity, "sum", group, "silhouette")
     last = all_reduce(last, "max", group, "silhouette")
 
     silhouette = (parity & 1) == 1
-    local = last - inc_order_base
-    ab = inc_dir.long()[torch.clamp(local, 0, inc_dir.shape[0] - 1)]
-    if group is not None:
-        owns = (local >= 0) & (local < inc_dir.shape[0])
+    if group is None:
+        ab = inc_dir[last]
+    else:
+        local = last - inc_order_base
+        owns = (local >= 0) & (local < n_inc)
+        ab = inc_dir[torch.clamp(local, 0, n_inc - 1)]
         ab = all_reduce(torch.where(owns[:, None], ab, -1), "max", group,
                         "silhouette")
     return silhouette, ab[:, 0], ab[:, 1]
+
+
+def silhouette_edges(verts, vid, pad_valid, inc_edge, inc_dir, inc_valid,
+                     light_position, num_edges, group=None, inc_order_base=0):
+    """Per-edge silhouette mask + directed vertex ids of one model's tables.
+
+    verts: (V, 4); vid: (Fp, 3); pad_valid: (Fp,); inc_edge / inc_dir /
+    inc_valid: (3Fp,) / (3Fp, 2) / (3Fp,) incidence tensors.
+    Returns (silhouette (E,) bool, a_vid (E,), b_vid (E,)); an edge without
+    a light-facing incidence takes incidence 0's vertex pair.
+
+    With a process ``group`` the faces and incidences are this rank's slice,
+    whose first incidence has the global index ``inc_order_base``
+    (:func:`_silhouette`). The frame's pass (:func:`prepare_quads`) runs
+    the same steps once over every shadowing model.
+    """
+    world = verts[vid.long()][..., :3]
+    facing = light_facing(world, light_position) & pad_valid
+    # Each face's flag on its three incidences (an expand, not
+    # repeat_interleave, so that a captured frame never waits for a count).
+    inc_lf = facing[:, None].expand(-1, 3).reshape(-1) & inc_valid
+    first = torch.zeros(num_edges, dtype=torch.int64, device=verts.device)
+    return _silhouette(inc_lf, inc_edge.long(), inc_dir.long(), first, group,
+                       inc_order_base)
 
 
 def extrude_quads(verts, a_vid, b_vid, light, light_type):
@@ -174,8 +249,10 @@ def quad_fragments(qrow, zb_sign, rows, cols, sign, nf2, fpn, fmn):
     return torch.where(mask, contrib, 0).sum(0, dtype=torch.int32)
 
 
-def prepare_quads(cfg, dyn, group=None, shard_idx=0):
-    """Silhouette -> extruded quads -> the silhouette-first order and count.
+def prepare_quads(cfg, dyn, group=None, shard_idx=0, verts=None,
+                  world=None):
+    """Silhouette -> extruded quads -> the silhouette-first order and count,
+    in one pass over every shadowing model.
 
     Returns (quad (E, 4, 4) float32, order (C,) int32, count () int32), or
     None when no model casts shadows: the rows to prepare are
@@ -190,23 +267,34 @@ def prepare_quads(cfg, dyn, group=None, shard_idx=0):
     the ranks' rows partition the one-device rows. No step waits for the
     device. The camera enters at K8 (JAX's takes ``cam_m`` here because
     its ``prepare_quads`` also clips and projects).
+
+    The pass reads the edge tables of ``dyn["faces"]`` (``edges``,
+    :func:`edge_tables`), built from the models when ``dyn`` has none.
+    ``verts`` (V, 4) float32, every model's vertices stacked in model
+    order, and ``world`` (G, 3, 3), each face's world positions, are the
+    vertex stage's (``pipeline._build_face_batch``); without them the pass
+    stacks and gathers its own.
     """
-    light = dyn["light"]
-    quads, flags = [], []
-    for mc, md in zip(cfg.models, dyn["models"]):
-        if not mc.shadowing or mc.num_edges == 0:
-            continue
-        sil, a_vid, b_vid = silhouette_edges(
-            md["verts"], md["vid"], md["pad_valid"], md["inc_edge"],
-            md["inc_dir"], md["inc_valid"], light["position"], mc.num_edges,
-            group, shard_idx * md["inc_edge"].shape[0])
-        quads.append(extrude_quads(md["verts"], a_vid, b_vid, light,
-                                   cfg.light_type))
-        flags.append(sil)
-    if not quads:
+    from tpu_renderer_torch.ops.pipeline import face_tables, stacked_vertices
+
+    ft = dyn.get("faces")
+    if ft is None:
+        ft = face_tables(cfg, dyn["models"])
+    et = ft.get("edges")
+    if et is None:
         return None
-    quad = torch.cat(quads, dim=0)
-    order, n_sil = silhouette_order(torch.cat(flags, dim=0))
+    if verts is None:
+        verts = stacked_vertices(dyn)
+    if world is None:
+        world = verts[ft["vid"]][..., :3]
+    light = dyn["light"]
+    inc_lf = (light_facing(world, light["position"])[et["inc_face"]]
+              & et["inc_valid"])
+    sil, a_vid, b_vid = _silhouette(
+        inc_lf, et["inc_edge"], et["inc_dir"], et["edge_first"], group,
+        shard_idx * inc_lf.shape[0])
+    quad = extrude_quads(verts, a_vid, b_vid, light, cfg.light_type)
+    order, n_sil = silhouette_order(sil)
     if group is None:
         return quad, order, n_sil
     e = quad.shape[0]
@@ -250,16 +338,17 @@ def clip_project(quad, cam_m):
 
 
 def quad_tables(cfg, dyn, cam_m, height, width, ops=None, group=None,
-                shard_idx=0):
-    """The stencil kernel's quad tables of a frame: :func:`prepare_quads`,
-    then ``ops.quad_prep`` (``raster_cuda.KERNELS`` by default: K8 on the
-    card, its plain version on the CPU). ``cam_m`` holds frustum_planes,
-    MVP and viewport on the quads' device. Returns (qdata (C, 44) float32,
-    qi (C, 8) int32, count () int32), rows past the count zero, or None
-    when no model casts shadows."""
+                shard_idx=0, verts=None, world=None):
+    """The stencil kernel's quad tables of a frame: :func:`prepare_quads`
+    (with the vertex stage's ``verts`` and ``world`` where the caller has
+    them), then ``ops.quad_prep`` (``raster_cuda.KERNELS`` by default: K8
+    on the card, its plain version on the CPU). ``cam_m`` holds
+    frustum_planes, MVP and viewport on the quads' device. Returns (qdata
+    (C, 44) float32, qi (C, 8) int32, count () int32), rows past the count
+    zero, or None when no model casts shadows."""
     from tpu_renderer_torch.ops import raster_cuda
 
-    prepared = prepare_quads(cfg, dyn, group, shard_idx)
+    prepared = prepare_quads(cfg, dyn, group, shard_idx, verts, world)
     if prepared is None:
         return None
     ops = raster_cuda.KERNELS if ops is None else ops
