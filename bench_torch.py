@@ -1,16 +1,9 @@
-"""bench.py's scenes through the PyTorch/CUDA port, on one CUDA card.
+"""bench.py's scenes, built for the PyTorch/CUDA port: the scene builders
+that chip_smoke.py, kernel_times.py and the tests render.
 
-    python3 bench_torch.py           # the flagship frame (bench.py's main())
-    python3 bench_torch.py --all     # bench_all's configurations 1-6 first
-
-The counterpart of ``bench.py``. It prints the card's ``name, power.limit``
-line (nvidia-smi), then one JSON line per configuration: faces, resolution,
-the first frame's ms (it captures the compiled program), frames timed,
-ms/frame (median and min over rounds of frames through ``Scene.render()``,
-the uint8 frame on the host, host clock), Mtri/s at the median, and the
-device's peak memory (``torch.cuda.max_memory_allocated``). It runs on a
-CUDA card and raises without one. It is not the port's benchmark: it has
-no bound and writes no file.
+The port's measurements are the benchmark's (``benchmark/run.py``, its
+own frozen copy of these builders in ``benchmark/builders``); this module
+times nothing.
 
 bench.py opens assets that are not in the repository, so every scene uses
 procedural stand-ins made from a seed (``SEED``): the diablo3_pose mesh
@@ -30,11 +23,6 @@ are the same bits.
 from __future__ import annotations
 
 import importlib
-import json
-import statistics
-import subprocess
-import sys
-import time
 
 import numpy as np
 
@@ -380,72 +368,3 @@ def build_config(name, device="cuda", resolution=None, tex=TEX, mesh=MESH,
                                  ((c - 2) * 0.8, 0.35 * r - 0.2, -0.6 * r)))
         return scene
     raise ValueError(f"unknown configuration {name!r}; one of {CONFIGS}")
-
-
-def card_line():
-    """The card's ``name, power.limit`` as nvidia-smi reports them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
-def bench_scene(name, scene, frames=10, rounds=3, orbit=False):
-    """One JSON line of ``scene`` through the compiled ``Scene.render()``:
-    the first frame (warm-up and capture) timed on its own, then
-    ``rounds`` rounds of ``frames`` frames, each frame's uint8 image on the
-    host; the camera orbits (bench.orbit_position) where ``orbit``, else
-    stays, as bench.py's ``_bench_scene`` keeps it."""
-    import torch
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    scene.render()
-    capture_ms = (time.perf_counter() - t0) * 1e3
-    per_frame = []
-    for _ in range(rounds):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(frames):
-            if orbit:
-                scene.camera.set_position(orbit_position(0.2 + 0.1 * i))
-            scene.render()
-        per_frame.append((time.perf_counter() - t0) / frames * 1e3)
-    faces = sum(m.num_faces for m in scene.models)
-    ms = statistics.median(per_frame)
-    row = {"config": name, "faces": faces,
-           "resolution": list(scene.resolution),
-           "first_frame_ms": round(capture_ms, 3), "frames": frames,
-           "rounds": rounds, "ms_per_frame": round(ms, 4),
-           "ms_per_frame_min": round(min(per_frame), 4),
-           "mtri_per_s": round(faces / ms / 1e3, 4),
-           "peak_mib": round(torch.cuda.max_memory_allocated() / 2**20, 1),
-           "device": torch.cuda.get_device_name(0)}
-    print(json.dumps(row), flush=True)
-    return row
-
-
-def main(argv=()):
-    import torch
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("bench_torch.py runs on a CUDA card; CUDA is not "
-                           "available here")
-    print(card_line(), flush=True)
-    rows = []
-    if "--all" in argv:
-        for name in CONFIGS:
-            scene = build_config(name)
-            rows.append(bench_scene(name, scene,
-                                    frames=5 if name.startswith("cfg5")
-                                    else 15))
-            del scene
-            _port().clear_compiled()
-    rows.append(bench_scene("flagship", build_scene(), frames=30,
-                            orbit=True))
-    return rows
-
-
-if __name__ == "__main__":
-    main(sys.argv[1:])

@@ -116,12 +116,8 @@ exits non-zero without the final line):
    and stencil; one capture for the key, its ms and its graph pool's
    bytes; no host sync in a replay (``_assert_no_sync``); a replay's
    launches, which must be the capture's tally and cover the path's
-   kernels, K8 once; ms/frame (pack, render, frame to the host)
-   compiled against eager in COMPILED_PAIRS interleaved orbit pairs, host
-   clock; over an untraced stretch of compiled frames, the device's busy share (the
-   graph's replay alone, timed with CUDA events, over the frame's host
-   ms) and the device ms between CUDA events around each call; and the
-   host clock's split of a compiled frame (``_compiled_split``);
+   kernels, K8 once. The frame's times are the benchmark's
+   (benchmark/run.py), not this script's;
 10. bench.py's configurations (``bench_torch.build_config``, procedural
    stand-ins): cfg1 (gouraud, K5), cfg2-persp and cfg2-ortho (culling),
    cfg3 (spot light, tangent normal map), cfg3-rh-shadows (SYSTEM.RH,
@@ -202,6 +198,19 @@ def _stencil_constants(dyn, device):
                         device=device)
 
 
+def vertex_stage(cfg, dyn, cam_m, dbg_mvp=None):
+    """``pipeline.render_core``'s vertex stage over ``dyn``, which carries
+    its face tables (``pipeline.with_face_tables``): (faces, attrs, the
+    keywords ``verts`` and ``world`` of the shadow pass,
+    ``shadow.quad_tables``)."""
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    verts = pl.stacked_vertices(dyn)
+    faces, attrs = pl._build_face_batch(cfg, dyn, cam_m, dbg_mvp,
+                                        verts=verts)
+    return faces, attrs, {"verts": verts, "world": attrs["world"]}
+
+
 def kernel_inputs(scene):
     """Every kernel's inputs at the scene's shapes, keyed by case (K5 once
     per layout), as (args, kwargs): the stage calls of pipeline.render_core
@@ -213,7 +222,7 @@ def kernel_inputs(scene):
     cfg, dyn = scene._prepare()
     h, w = cfg.resolution
     cam_m = pl._cam_matrices(cfg, dyn["camera"], scene.device)
-    faces, attrs = pl._build_face_batch(cfg, dyn, cam_m)
+    faces, attrs, _ = vertex_stage(cfg, dyn, cam_m)
     fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
     zb_sign, tid = rc.visibility_plain(fdata, flags, h, w, cfg.system)
     adata = rc.pack_face_attrs(attrs)
@@ -234,7 +243,7 @@ def kernel_inputs(scene):
             fdata, rc.pack_slim_attrs(attrs, layout), tid, layout)
     # The wireframe frame's K6 call: its z-buffer is K1's (the shader does
     # not change visibility), its edges every face's (no culling).
-    sx, sy, sz, _, valid = pl._debug_vertices(dyn, cam_m)
+    sx, sy, sz, _, valid = pl._debug_vertices(cfg, dyn, cam_m)
     inputs["lines"] = pl._wireframe_lines(sx, sy, sz, valid,
                                           zb_sign * cfg.system, h, w)
     inputs["quad_prep"] = prep_args
@@ -247,12 +256,13 @@ def kernel_inputs(scene):
 
 
 def quad_prep_args(cfg, dyn, cam_m):
-    """K8's arguments for the frame (``shadow.prepare_quads`` and the
-    camera's planes and matrices): (quad, order, n_sil, planes, MVP,
-    viewport, H, W)."""
+    """K8's arguments for the frame (``shadow.prepare_quads`` on the vertex
+    stage's vertices and face positions, and the camera's planes and
+    matrices): (quad, order, n_sil, planes, MVP, viewport, H, W)."""
     from tpu_renderer_torch.ops.shadow import prepare_quads
 
-    return (*prepare_quads(cfg, dyn), cam_m["frustum_planes"],
+    stage = vertex_stage(cfg, dyn, cam_m)[2]
+    return (*prepare_quads(cfg, dyn, **stage), cam_m["frustum_planes"],
             cam_m["MVP"], cam_m["viewport"], *cfg.resolution)
 
 
@@ -272,8 +282,8 @@ def debug_inputs(cfg, dyn):
     device = dyn["light"]["position"].device
     h, w = cfg.resolution
     cam_m = pl._cam_matrices(cfg, dyn["camera"], device)
-    faces, _ = pl._build_face_batch(cfg, dyn, cam_m,
-                                    pl._debug_mvp(cfg, dyn, device))
+    faces, _, _ = vertex_stage(cfg, dyn, cam_m,
+                               pl._debug_mvp(cfg, dyn, device))
     fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
     fdbg = rc.pack_debug_planes(faces)
     zb_sign, _ = rc.visibility_plain(fdata, flags, h, w, cfg.system,
@@ -308,7 +318,7 @@ def shard_inputs(cfg, dyn, zb_sign, mesh=SHARD_RANK[0], at=SHARD_RANK[1]):
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
     from tpu_renderer_torch.parallel.sharded import (pad_models_for_tris,
-                                                     shard_dyn)
+                                                     shard_config, shard_dyn)
 
     (n_rows, n_tris), (row_idx, tris_idx) = mesh, at
     h, w = cfg.resolution
@@ -320,16 +330,20 @@ def shard_inputs(cfg, dyn, zb_sign, mesh=SHARD_RANK[0], at=SHARD_RANK[1]):
     padded = pad_models_for_tris(dyn, n_tris)
     shards = []
     for t in range(n_tris):
+        # As render_frame_sharded: the shard's rows in its config, its face
+        # tables built before the stage.
         d = shard_dyn(padded, n_tris, t)
-        faces, attrs = pl._build_face_batch(cfg, d, cam_m, dbg_mvp)
+        c = shard_config(cfg, d)
+        d = pl.with_face_tables(c, d)
+        faces, attrs, _ = vertex_stage(c, d, cam_m, dbg_mvp)
         fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
-        shards.append((d, attrs, fdata, flags, t * fdata.shape[0],
+        shards.append(((c, d), attrs, fdata, flags, t * fdata.shape[0],
                        rc.pack_debug_planes(faces)))
     tid = torch.stack([rc.tidpass_plain(f, fl, zb, cfg.system, row0, g0, fd)
                        for _, _, f, fl, g0, fd in shards]).amax(0)
     gb = sum(rc.gbuffer_plain(f, rc.pack_face_attrs(a), tid, row0, g0)
              for _, a, f, _, g0, _ in shards)
-    d, attrs, fdata, flags, gid0, fdbg = shards[tris_idx]
+    (c, d), attrs, fdata, flags, gid0, fdbg = shards[tris_idx]
     owned = (tid >= gid0) & (tid < gid0 + fdata.shape[0])
     if not (owned.any() and ((tid >= 0) & ~owned).any()):
         raise AssertionError(f"rank {at} of {mesh}: degenerate shard inputs")
@@ -342,7 +356,7 @@ def shard_inputs(cfg, dyn, zb_sign, mesh=SHARD_RANK[0], at=SHARD_RANK[1]):
         "gbuffer_owned": ((fdata, rc.pack_face_attrs(attrs), tid), own),
         "sample_textures_owned": (
             (tid, gb[rc.GB_IU].contiguous(), gb[rc.GB_IV].contiguous(),
-             *pl.texture_tables(cfg, d, attrs)), {"gid0": gid0}),
+             *pl.texture_tables(c, d, attrs)), {"gid0": gid0}),
     }
     for layout in ("gouraud", "pbr"):
         inputs[f"gbuffer_slim_{layout}_owned"] = (
@@ -1629,7 +1643,7 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=(), detail=False):
     h, w = scene.resolution[0] * ss, scene.resolution[1] * ss
     cfg, dyn = scene._prepare(resolution=(h, w))
     cam_m = pl._cam_matrices(cfg, dyn["camera"], scene.device)
-    faces, attrs = pl._build_face_batch(cfg, dyn, cam_m)
+    faces, attrs, _ = vertex_stage(cfg, dyn, cam_m)
     fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
     zb_sign, tid = rc.visibility(fdata, flags, h, w, cfg.system)
     adata = rc.pack_face_attrs(attrs)
@@ -1893,9 +1907,8 @@ COMPILED_PATHS = {"general": "general", "flat": "slim", "gouraud": "slim",
                   "pbr": "slim", "wireframe": "wireframe", "points": "slim",
                   "cubemap": "general", "ssaa2": "general",
                   "debug_core": "overlay"}
-#: Frames of phase 9's orbits, and its interleaved (compiled, eager) pairs.
+#: Frames of phase 9's orbits.
 COMPILED_ORBIT = 10
-COMPILED_PAIRS = 5
 
 
 def light_position(t):
@@ -1929,64 +1942,6 @@ def compiled_entries(scene, path, sky, dbg_cam):
     return prepare, pl.render_frame_jit, pl.render_frame
 
 
-def _orbit_frames(scene, prepare, fn, n_frames, events=None):
-    """ms per frame (host clock) of ``n_frames`` frames of phase 9's orbit
-    through ``fn``: the camera and the light move, the scene is packed, the
-    frame is rendered and brought to the host. Given a list ``events``,
-    the CUDA events recorded just before and after each ``fn`` call are
-    appended to it."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n_frames):
-        t = 2 * np.pi * i / n_frames
-        scene.camera.set_position(orbit_position(t))
-        scene.light.set_position(light_position(t))
-        cfg, dyn = prepare()
-        if events is not None:
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-        out = fn(cfg, dyn)
-        if events is not None:
-            b.record()
-            events.append((a, b))
-        out[0].cpu()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / n_frames * 1e3
-
-
-def _compiled_split(scene, prepare, jit, n_frames):
-    """Host ms per compiled frame of phase 9's orbit, step by step: ``pack``
-    (``Scene._prepare``), ``stage`` (``pipeline.frame_inputs``, timed on
-    its own: the part of ``call`` that composes the camera's inputs),
-    ``call`` (the compiled entry point: staging, the copies into the static
-    buffers, the replay's launch, the output clones; it returns before the
-    device is done) and ``to_host`` (the frame to the host, which waits
-    for the device)."""
-    import torch
-    from tpu_renderer_torch.ops import pipeline as pl
-
-    split = dict.fromkeys(("pack", "stage", "call", "to_host"), 0.0)
-    torch.cuda.synchronize()
-    for i in range(n_frames):
-        t = 2 * np.pi * i / n_frames
-        scene.camera.set_position(orbit_position(t))
-        scene.light.set_position(light_position(t))
-        t0 = time.perf_counter()
-        cfg, dyn = prepare()
-        t1 = time.perf_counter()
-        pl.frame_inputs(cfg, dyn)
-        t2 = time.perf_counter()
-        out = jit(cfg, dyn)
-        t3 = time.perf_counter()
-        out[0].cpu()
-        t4 = time.perf_counter()
-        for k, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-            split[k] += dt * 1e3 / n_frames
-    return {k: round(v, 3) for k, v in split.items()}
-
-
 def _compiled_phase(tr, scene, start, sky):
     """Phase 9 (module docstring) on the flagship ``scene``, which it
     leaves as it found it (general, no skybox, no debug camera, the
@@ -1995,8 +1950,6 @@ def _compiled_phase(tr, scene, start, sky):
     from tpu_renderer_torch.ops import compiled
     from tpu_renderer_torch.ops import raster_cuda as rc
 
-    spread = lambda xs: (f"median {statistics.median(xs):.3f} "
-                         f"[{min(xs):.3f}, {max(xs):.3f}]")
     mesh = scene.models[0]
     mat = mesh.materials["default"]
     verts0, kd0 = mesh.vertices, mat.map_Kd
@@ -2049,35 +2002,13 @@ def _compiled_phase(tr, scene, start, sky):
                 or replayed.get("quad_prep") != 1):
             raise AssertionError(f"[9 {path}]: a replay launched {replayed}, "
                                  f"its capture recorded {prog.launches}")
-        assets(verts0, kd0)
-        comp_ms, eager_ms = [], []
-        for _ in range(COMPILED_PAIRS):
-            comp_ms.append(_orbit_frames(scene, prepare, jit, COMPILED_ORBIT))
-            eager_ms.append(_orbit_frames(scene, prepare, eager,
-                                          COMPILED_ORBIT))
-        diff = [c - e for c, e in zip(comp_ms, eager_ms)]
-        events = []
-        wall = _orbit_frames(scene, prepare, jit, 2 * COMPILED_ORBIT, events)
-        bracket = sum(a.elapsed_time(b) for a, b in events) / len(events)
-        replay_ms = _time_ms(prog.graph.replay)
-        split = _compiled_split(scene, prepare, jit, COMPILED_ORBIT)
         print(f"[9 {path}] {COMPILED_ORBIT}-frame camera and light orbit, "
               f"then new vertices and a new diffuse map: every replay equal "
               f"to the eager frame (frame, zbuf, tid, stencil); 1 capture "
               f"for all {prog.calls} compiled frames of the path, "
-              f"{prog.capture_ms:.1f} ms (warm-up and capture); graph pool {prog.pool_bytes / 2**20:.1f} MiB; "
-              f"no host sync in a replay; launches per replay "
-              f"{prog.launches}; ms/frame (pack, render, frame to the host; "
-              f"host clock; {COMPILED_PAIRS} interleaved {COMPILED_ORBIT}-"
-              f"frame orbit pairs): compiled {spread(comp_ms)}, eager "
-              f"{spread(eager_ms)}, compiled - eager {spread(diff)}; "
-              f"{2 * COMPILED_ORBIT} untraced compiled frames: "
-              f"{wall:.3f} ms/frame; the graph's replay alone "
-              f"{replay_ms:.4f} ms (CUDA events), so the device is busy "
-              f"{replay_ms / wall:.3f} of the frame; {bracket:.3f} ms/frame "
-              f"between CUDA events around each call (an upper bound: it "
-              f"holds the host's staging inside the call too); host split "
-              f"(ms/frame) {split}", flush=True)
+              f"{prog.capture_ms:.1f} ms (warm-up and capture); graph pool "
+              f"{prog.pool_bytes / 2**20:.1f} MiB; no host sync in a "
+              f"replay; launches per replay {prog.launches}", flush=True)
     assets(verts0, kd0)
     scene.shader, scene.skybox, scene.debug_camera = "general", None, None
     scene.camera.set_position(start)
@@ -2125,7 +2056,7 @@ def texel_pool_bytes(cfg, dyn):
 
     device = dyn["light"]["position"].device
     cam_m = pl._cam_matrices(cfg, dyn["camera"], device)
-    _, attrs = pl._build_face_batch(cfg, dyn, cam_m)
+    _, attrs, _ = vertex_stage(cfg, dyn, cam_m)
     tables = pl.texture_tables(cfg, dyn, attrs)
     return 0 if tables is None else tables[2].numel() * 4
 
@@ -2141,7 +2072,8 @@ def shadow_counts(cfg, dyn):
         return 0, 0, 0
     device = dyn["light"]["position"].device
     cam_m = pl._cam_matrices(cfg, dyn["camera"], device)
-    tables = quad_tables(cfg, dyn, cam_m, *cfg.resolution)
+    tables = quad_tables(cfg, dyn, cam_m, *cfg.resolution,
+                         **vertex_stage(cfg, dyn, cam_m)[2])
     if tables is None:
         return 0, 0, 0
     _, qi, n_sil = tables

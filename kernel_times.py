@@ -29,16 +29,13 @@ or of the flagship frame (``flagship``), into its steps on the checkout
 at DIR, each step's device ms per call from a
 captured CUDA graph of calls timed with CUDA events
 (``chip_smoke._graph_ms``): ``silhouette`` (the light-facing test,
-parity and last light-facing incidence: on a checkout with the one pass
-over every shadowing model, ``shadow.edge_tables``, that pass on the
-vertex stage's face positions; before it, silhouette_edges per shadowing
-model), ``extrude`` (extrude_quads: once over every edge, or per model
-before the one pass), and over all E edges
-``clip`` (frustum.clip_polygon), ``project`` (MVP, divide by w,
-viewport) and ``pack`` (raster_cuda.pack_quads), as a checkout without
-silhouette compaction runs them; on a checkout with it (``quad_prep``,
-K8) also ``order`` (the silhouette-first order and count) and
-``quad_prep`` (K8 on the silhouette rows); ``shadow_quads`` the whole
+parity and last light-facing incidence, one pass over every shadowing
+model's edge tables on the vertex stage's face positions), ``extrude``
+(extrude_quads, once over every edge), and over all E edges ``clip``
+(frustum.clip_polygon), ``project`` (MVP, divide by w, viewport) and
+``pack`` (raster_cuda.pack_quads), as the stage ran them before
+silhouette compaction; ``order`` (the silhouette-first order and count)
+and ``quad_prep`` (K8 on the silhouette rows); ``shadow_quads`` the whole
 stage as render_core runs it; ``stencil`` K4 on the stage's tables. One
 JSON line per round, with E and n_sil.
 """
@@ -70,7 +67,6 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: CUDA is not available")
     import chip_smoke as cs
-    import tpu_renderer_torch as tr
     from tpu_renderer_torch.ops import raster_cuda as rc
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -139,43 +135,20 @@ def shadow_split(cs, config):
     light = dyn["light"]
     dev = light["position"].device
     cam_m = pl._cam_matrices(cfg, dyn["camera"], dev)
-    stage = {}
-    if hasattr(sh, "edge_tables"):
-        # The one pass, on the vertex stage's stacked vertices and face
-        # positions, as render_core runs it.
-        verts = pl.stacked_vertices(dyn)
-        _, attrs = pl._build_face_batch(cfg, dyn, cam_m, None, verts)
-        stage = {"verts": verts, "world": attrs["world"]}
-        et = dyn["faces"]["edges"]
+    # The one pass, on the vertex stage's stacked vertices and face
+    # positions, as render_core runs it.
+    faces, _, stage = cs.vertex_stage(cfg, dyn, cam_m)
+    et = dyn["faces"]["edges"]
 
-        def silhouette():
-            inc_lf = (sh.light_facing(stage["world"], light["position"])
-                      [et["inc_face"]] & et["inc_valid"])
-            return sh._silhouette(inc_lf, et["inc_edge"], et["inc_dir"],
-                                  et["edge_first"], None, 0)
+    def silhouette():
+        inc_lf = (sh.light_facing(stage["world"], light["position"])
+                  [et["inc_face"]] & et["inc_valid"])
+        return sh._silhouette(inc_lf, et["inc_edge"], et["inc_dir"],
+                              et["edge_first"], None, 0)
 
-        sil, a_vid, b_vid = silhouette()
-        extrude = lambda: sh.extrude_quads(verts, a_vid, b_vid, light,
-                                           cfg.light_type)
-    else:
-        shadowing = [(mc, md) for mc, md in zip(cfg.models, dyn["models"])
-                     if mc.shadowing and mc.num_edges]
-
-        def silhouette():
-            return [sh.silhouette_edges(
-                md["verts"], md["vid"], md["pad_valid"], md["inc_edge"],
-                md["inc_dir"], md["inc_valid"], light["position"],
-                mc.num_edges) for mc, md in shadowing]
-
-        sils = silhouette()
-
-        def extrude():
-            return torch.cat([sh.extrude_quads(md["verts"], a, b, light,
-                                               cfg.light_type)
-                              for (_, md), (_, a, b) in zip(shadowing, sils)])
-
-        sil = torch.cat([s for s, _, _ in sils])
-
+    sil, a_vid, b_vid = silhouette()
+    extrude = lambda: sh.extrude_quads(stage["verts"], a_vid, b_vid, light,
+                                       cfg.light_type)
     quad = extrude()
     e = quad.shape[0]
     padded = torch.zeros((e, sh.QUAD_PMAX, 4), device=dev)
@@ -193,26 +166,20 @@ def shadow_split(cs, config):
                                           cam_m["frustum_planes"]),
              "project": project,
              "pack": lambda: rc.pack_quads(screen, counts, sil & (counts >= 3),
-                                           h, w)}
-    if hasattr(rc, "quad_prep"):
-        prep = (*sh.prepare_quads(cfg, dyn), cam_m["frustum_planes"],
-                cam_m["MVP"], cam_m["viewport"], h, w)
-        steps.update(order=lambda: sh.silhouette_order(sil),
-                     quad_prep=lambda: rc.quad_prep(*prep))
-        whole = lambda: sh.quad_tables(cfg, dyn, cam_m, h, w, **stage)
-        qdata, qi, n = whole()
-        kw = {"n_rows": n}
-    else:
-        whole = lambda: rc.pack_quads(*sh.prepare_quads(cfg, dyn, cam_m), h, w)
-        qdata, qi = whole()
-        kw = {}
-    faces, _ = pl._build_face_batch(cfg, dyn, cam_m)
+                                           h, w),
+             "order": lambda: sh.silhouette_order(sil)}
+    prep = (*sh.prepare_quads(cfg, dyn, **stage), cam_m["frustum_planes"],
+            cam_m["MVP"], cam_m["viewport"], h, w)
+    steps["quad_prep"] = lambda: rc.quad_prep(*prep)
+    whole = lambda: sh.quad_tables(cfg, dyn, cam_m, h, w, **stage)
+    qdata, qi, n = whole()
     zb, _ = rc.visibility(rc.pack_faces(faces), rc.face_flags(faces), h, w,
                           cfg.system)
     zc = torch.tensor(rc.stencil_scalars(dyn["camera"]["near"],
                                          dyn["camera"]["far"]), device=dev)
     steps["shadow_quads"] = whole
-    steps["stencil"] = lambda: rc.stencil(qdata, qi, zb, cfg.system, zc, **kw)
+    steps["stencil"] = lambda: rc.stencil(qdata, qi, zb, cfg.system, zc,
+                                          n_rows=n)
     out = {"E": e, "n_sil": int(sil.sum())}
     for name, fn in steps.items():
         out[name] = cs._graph_ms(fn, calls=10)

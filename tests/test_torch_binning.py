@@ -52,10 +52,12 @@ def scene_inputs():
     cfg, dyn = scene._prepare()
     h, w = cfg.resolution
     cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-    faces, _ = pl._build_face_batch(cfg, dyn, cam_m)
+    verts = pl.stacked_vertices(dyn)
+    faces, attrs = pl._build_face_batch(cfg, dyn, cam_m, verts=verts)
     fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
     zb, _ = rc.visibility_plain(fdata, flags, h, w, cfg.system)
-    qdata, qi, _ = quad_tables(cfg, dyn, cam_m, h, w)
+    qdata, qi, _ = quad_tables(cfg, dyn, cam_m, h, w, verts=verts,
+                               world=attrs["world"])
     zc = torch.tensor(rc.stencil_scalars(dyn["camera"]["near"],
                                          dyn["camera"]["far"]))
     return {"faces": (fdata, flags, h, w, cfg.system),

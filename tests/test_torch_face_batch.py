@@ -5,10 +5,17 @@
   over the models returned: 20 instances and a floor, an instance
   without vertex normals, one with ``clip`` and
   ``depth_test`` off; culling on and off; with and without a debug
-  camera; with the Scene's face tables (``dyn["faces"]``) and with tables
-  built from the models on the spot;
+  camera; with the Scene's face tables (``dyn["faces"]``) and with the
+  tables of ``pipeline.with_face_tables``;
+- so do the statistics (``pipeline._stats``, eager and compiled) and the
+  debug shaders' vertex pass (``pipeline._debug_vertices``), which read
+  the same pass, against frozen copies of their per-model loops;
 - the Scene keeps its face tables, and the compiled program that reads
   them, across a texture change, and builds new ones for a material change;
+- a Scene program's inputs are each model's vertices and texture maps, the
+  light and the background, and nothing else: no per-face table is a
+  static buffer; no Scene frame, eager or compiled, builds face tables,
+  and a dyn without them (interop.dyn_from_numpy) builds them once a frame;
 - the number of ATen operations in the ``tr.vertex`` span of a frame, eager
   or compiled, does not grow with the number of models.
 
@@ -19,11 +26,13 @@ import pytest
 import torch
 
 import tpu_renderer_torch as tt
+from tpu_renderer_torch.interop import dyn_from_numpy
 from tpu_renderer_torch.ops import compiled
 from tpu_renderer_torch.ops import pipeline as pl
 from tpu_renderer_torch.ops.shadow import _cross
-from tpu_renderer_torch.ops.transforms import normalize
+from tpu_renderer_torch.ops.transforms import bound_box_batch, normalize
 from tpu_renderer_torch.ops.vertex import (_rowvec, gather_faces,
+                                           screen_normal_z,
                                            transform_vertices)
 
 import bench_torch as bt
@@ -74,6 +83,70 @@ def loop_face_batch(cfg, dyn, cam_m, dbg_mvp=None):
     return cat(raster_parts), cat(attr_parts)
 
 
+def loop_stats(cfg, dyn, cam_m, tid):
+    """The per-model loop of ``pipeline._stats``, as it was before it read
+    the one vertex pass: the plain version the statistics are held to."""
+    height, width = cfg.resolution
+    device = tid.device
+    g_total = sum(md["vid"].shape[0] for md in dyn["models"])
+    ids = tid.reshape(-1).long()
+    fg = ids >= 0
+    owned = torch.zeros(g_total + 1, dtype=torch.int32, device=device)
+    owned.index_add_(0, torch.where(fg, ids, g_total), fg.to(torch.int32))
+
+    stats = []
+    offset = 0
+    for md in dyn["models"]:
+        va = transform_vertices(md["verts"], cam_m["MVP"], cam_m["viewport"],
+                                cam_m["near"], cam_m["far"])
+        vid = md["vid"].long()
+        n = vid.shape[0]
+        screen = va["screen"][vid]
+        sx, sy, sz = screen[..., 0], screen[..., 1], screen[..., 2]
+        real = md["pad_valid"]
+        culled = (real & (screen_normal_z(sx, sy, sz) < 0)
+                  if cfg.backface_culling else torch.zeros_like(real))
+        v0x, v0y = sx[:, 1] - sx[:, 0], sy[:, 1] - sy[:, 0]
+        v1x, v1y = sx[:, 2] - sx[:, 0], sy[:, 2] - sy[:, 0]
+        d01 = v0x * v1x + v0y * v1y
+        denom = ((v0x * v0x + v0y * v0y) * (v1x * v1x + v1y * v1y)
+                 - d01 * d01)
+        degenerate = real & ~culled & (denom == 0)
+        _, box_valid = bound_box_batch(torch.stack([sx, sy], -1), height,
+                                       width)
+        offscreen = real & ~culled & ~degenerate & ~box_valid
+        rendered = real & (owned[offset:offset + n] > 0)
+        leftover = real & ~culled & ~degenerate & ~offscreen & ~rendered
+        stats.append({"total": real.sum(), "rendered": rendered.sum(),
+                      "backface_culled": culled.sum(),
+                      "degenerate": degenerate.sum(),
+                      "offscreen": offscreen.sum(),
+                      "occluded_or_clipped": leftover.sum()})
+        offset += n
+    return stats
+
+
+def loop_debug_vertices(dyn, cam_m):
+    """The per-model loop of ``pipeline._debug_vertices``, as it was before
+    it read the one vertex pass."""
+    sxs, sys_, szs, fns, valids = [], [], [], [], []
+    for md in dyn["models"]:
+        va = transform_vertices(md["verts"], cam_m["MVP"], cam_m["viewport"],
+                                cam_m["near"], cam_m["far"])
+        vid = md["vid"].long()
+        screen = va["screen"][vid]
+        sxs.append(screen[..., 0])
+        sys_.append(screen[..., 1])
+        szs.append(va["zlin"][vid])
+        world = va["world"][vid]
+        n = _cross(world[:, 1] - world[:, 0], world[:, 2] - world[:, 0])
+        nn = torch.linalg.vector_norm(n, dim=1, keepdim=True)
+        fns.append(n / torch.where(nn == 0, torch.ones_like(nn), nn))
+        valids.append(md["pad_valid"])
+    return (torch.cat(sxs), torch.cat(sys_), torch.cat(szs), torch.cat(fns),
+            torch.cat(valids))
+
+
 def crowd(n, cull=True, device="cpu"):
     """bench_torch's crowd of ``n`` separate instances and its floor, small."""
     return bt.build_highpoly_scene(n, merged=False, cull=cull, device=device,
@@ -114,12 +187,22 @@ def assert_same(got, want):
 
 
 def face_batch_cases(cfg, dyn, device):
+    """(cam_m, dbg_mvp, the loop's batch, ``dyn`` with the face tables of
+    ``with_face_tables`` in place of the Scene's)."""
     cam_m = pl._cam_matrices(cfg, dyn["camera"], device)
     dbg = pl._debug_mvp(cfg, dyn, device)
     want = loop_face_batch(cfg, dyn, cam_m, dbg)
     built = dict(dyn)
     del built["faces"]
+    built = pl.with_face_tables(cfg, built)
+    assert built["faces"] is not dyn["faces"]
     return cam_m, dbg, want, built
+
+
+def face_batch(cfg, dyn, cam_m, dbg=None):
+    """The vertex stage as render_core runs it."""
+    return pl._build_face_batch(cfg, dyn, cam_m, dbg,
+                                verts=pl.stacked_vertices(dyn))
 
 
 @pytest.mark.parametrize("debug", [False, True], ids=["", "debug"])
@@ -136,8 +219,57 @@ def test_batched_face_batch_equals_the_per_model_loop(kind, cull, debug):
         assert not (cfg.models[2].clip or cfg.models[2].depth_test)
     assert cfg.backface_culling == cull and cfg.has_debug_camera == debug
     cam_m, dbg, want, built = face_batch_cases(cfg, dyn, "cpu")
-    assert_same(pl._build_face_batch(cfg, dyn, cam_m, dbg), want)
-    assert_same(pl._build_face_batch(cfg, built, cam_m, dbg), want)
+    assert_same(face_batch(cfg, dyn, cam_m, dbg), want)
+    assert_same(face_batch(cfg, built, cam_m, dbg), want)
+
+
+@pytest.mark.parametrize("cull", [True, False], ids=["cull", "nocull"])
+@pytest.mark.parametrize("kind", ["crowd", "no_normals", "no_clip_depth"])
+def test_stats_equal_the_per_model_loop(kind, cull):
+    """``face_statistics`` and its compiled program, which read the one
+    vertex pass and sum per model over ``model_id``, return what the loop
+    over the models returned: the same list of dicts, keys in the same
+    order, each value a 0-d int64 tensor of the same count."""
+    scene = scene_of(kind, cull, False)
+    scene.render()
+    cfg, dyn = scene._prepare()
+    tid = scene.last_tid
+    cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
+    want = loop_stats(cfg, dyn, cam_m, tid)
+    assert sum(int(s["rendered"]) for s in want) > 0
+    if cull:
+        assert sum(int(s["backface_culled"]) for s in want) > 0
+    for got in (pl.face_statistics(cfg, dyn, tid),
+                pl.face_statistics_jit(cfg, dyn, tid)):
+        assert len(got) == len(want) == len(cfg.models)
+        for g, w in zip(got, want):
+            assert list(g) == list(w)
+            for k in w:
+                assert (g[k].dtype, g[k].shape) == (torch.int64, ()), k
+                assert int(g[k]) == int(w[k]), k
+
+
+@pytest.mark.parametrize("cull", [True, False], ids=["cull", "nocull"])
+@pytest.mark.parametrize("kind", ["crowd", "no_normals", "no_clip_depth"])
+def test_debug_vertices_equal_the_per_model_loop(kind, cull):
+    """The wireframe and points shaders' vertex pass returns, bit for bit,
+    what the loop over the models returned, whatever the culling: every
+    face's screen x, y, linearized z, unit face normal and padding mask;
+    and the wireframe frame is the same, eager and compiled."""
+    scene = scene_of(kind, cull, False)
+    cfg, dyn = scene._prepare()
+    cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
+    got = pl._debug_vertices(cfg, dyn, cam_m)
+    want = loop_debug_vertices(dyn, cam_m)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), i
+        assert torch.equal(bits(g), bits(w)), i
+    scene.shader = "wireframe"
+    cfg, dyn = scene._prepare()
+    eager = pl.render_debug_frame(cfg, dyn, "wireframe")
+    for g, w in zip(pl.render_debug_frame_jit(cfg, dyn, "wireframe"), eager):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
@@ -153,8 +285,8 @@ def test_batched_face_batch_equals_the_per_model_loop_on_card(debug):
                                        near=0.5, far=30)
     cfg, dyn = scene._prepare()
     cam_m, dbg, want, built = face_batch_cases(cfg, dyn, "cuda")
-    assert_same(pl._build_face_batch(cfg, dyn, cam_m, dbg), want)
-    assert_same(pl._build_face_batch(cfg, built, cam_m, dbg), want)
+    assert_same(face_batch(cfg, dyn, cam_m, dbg), want)
+    assert_same(face_batch(cfg, built, cam_m, dbg), want)
 
 
 def test_face_tables_follow_the_packing():
@@ -174,7 +306,7 @@ def test_face_tables_follow_the_packing():
         np.testing.assert_array_equal(frame,
                                       pl.render_frame(cfg, dyn)[0].numpy())
         cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-        assert_same(pl._build_face_batch(cfg, dyn, cam_m),
+        assert_same(face_batch(cfg, dyn, cam_m),
                     loop_face_batch(cfg, dyn, cam_m))
         return frame, dyn
 
@@ -195,6 +327,87 @@ def test_face_tables_follow_the_packing():
     assert torch.equal(dyn["faces"]["ks"][0], torch.tensor([8.0, 8.0, 8.0]))
     assert compiled.CACHE.builds == builds + 1
     assert (painted != recoloured).any()
+
+
+def program_leaves(dyn):
+    """The tensors a program of ``dyn`` may take as inputs, by their place:
+    each model's vertices and texture maps (stack and scale, offset), the
+    light, and the background colour or the skybox."""
+    maps = [f"{kind}_{part}" for kind in ("kd", "norm", "ks")
+            for part in ("stack", "scale_off")]
+    models = [{k: md[k] for k in ["verts"] + maps if k in md}
+              for md in dyn["models"]]
+    return {"models": models,
+            **{k: dyn[k] for k in ("light", "background_color", "skybox")
+               if k in dyn}}
+
+
+@pytest.mark.parametrize("shader", ["general", "gouraud", "points"])
+@pytest.mark.parametrize("background", ["color", "cubemap"])
+def test_scene_program_inputs_are_what_a_frame_changes(background, shader):
+    """The input tree of a Scene's program is exactly each model's vertices
+    and texture maps, the light and the background; its static buffers are
+    those tensors', one per distinct tensor, so no per-face table is a
+    static buffer or a copy of a frame."""
+    compiled.clear_compiled()
+    scene = crowd(3)
+    scene.shader = shader
+    if background == "cubemap":
+        scene.skybox = tt.CubeMap(**bt.cubemap_faces(8))
+    scene.render()
+    prog = compiled.CACHE.last
+    _, dyn = scene._prepare()
+    want = program_leaves(dyn)
+    assert prog._tree == compiled._structure((want, ()))
+    leaves = list(compiled._leaves(want))
+    distinct = {id(t): t for t in leaves}
+    assert len(prog._static) == len(distinct) < len(leaves)
+    for buf, t in zip(prog._static, distinct.values()):
+        assert (buf.shape, buf.dtype) == (t.shape, t.dtype)
+    n_faces = dyn["faces"]["vid"].shape[0]
+    assert not any(b.shape[:1] == (n_faces,) for b in prog._static)
+
+
+def interop_dyn(dyn):
+    """``dyn`` carried through ``interop.dyn_from_numpy``, as a dyn of the
+    JAX package arrives: numpy leaves, no face tables."""
+    np_tree = lambda t: ({k: np_tree(v) for k, v in t.items()}
+                         if isinstance(t, dict) else t.numpy())
+    out = dyn_from_numpy({"models": [np_tree(md) for md in dyn["models"]],
+                          "camera": np_tree(dyn["camera"]),
+                          "light": np_tree(dyn["light"]),
+                          "background_color": dyn["background_color"]
+                          .numpy()}, "cpu")
+    assert "faces" not in out
+    return out
+
+
+@pytest.mark.parametrize("path, builds", [
+    ("scene-eager", 0), ("scene-compiled", 0), ("interop-eager", 1),
+    ("interop-compiled", 1)])
+def test_face_tables_are_built_before_the_body(path, builds, monkeypatch):
+    """With ``pipeline.face_tables`` counting its calls: a Scene frame,
+    eager or compiled, builds no tables once the Scene has packed; a dyn
+    without them builds them once per frame, and renders the Scene's
+    frame."""
+    compiled.clear_compiled()
+    scene = crowd(3)
+    cfg, dyn = scene._prepare()
+    want = pl.render_frame(cfg, dyn)
+    calls = []
+    build = pl.face_tables
+    monkeypatch.setattr(pl, "face_tables",
+                        lambda *a: calls.append(1) or build(*a))
+    if path.startswith("interop"):
+        dyn = interop_dyn(dyn)
+    got = (pl.render_frame(cfg, dyn) if path.endswith("eager")
+           else pl.render_frame_jit(cfg, dyn))
+    if path == "scene-compiled":
+        # Scene.render packs from its caches and replays the program.
+        scene.render()
+    assert len(calls) == builds
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def vertex_ops(run):

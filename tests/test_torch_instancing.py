@@ -92,7 +92,8 @@ def test_instances_share_their_packing():
 def pool_size(scene):
     cfg, dyn = scene._prepare()
     cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-    _, attrs = pl._build_face_batch(cfg, dyn, cam_m)
+    _, attrs = pl._build_face_batch(cfg, dyn, cam_m,
+                                    verts=pl.stacked_vertices(dyn))
     ftex, slots, pool = pl.texture_tables(cfg, dyn, attrs)
     return pool.numel(), slots.shape[0], ftex
 
@@ -146,9 +147,9 @@ def test_scene_program_has_a_buffer_per_distinct_tensor():
     scene = crowd(4, merged=False)
     scene.render()
     _, dyn = scene._prepare()
-    # The face tables are no input: the program reads them as they are
-    # (pipeline._jit).
-    inputs = {k: v for k, v in pl._body_dyn(dyn).items() if k != "faces"}
+    # The program's inputs are what a frame can change; the face tables are
+    # none of them (pipeline._jit).
+    inputs = pl._program_inputs(dyn)
     leaves = list(compiled._leaves(inputs))
     prog = compiled.CACHE.last
     assert len(prog._static) == len({id(t) for t in leaves}) < len(leaves)

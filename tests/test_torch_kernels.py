@@ -607,7 +607,7 @@ def stage_inputs():
     scene_inputs = (cfg, dyn)
     h, w = cfg.resolution
     cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-    faces, attrs = pl._build_face_batch(cfg, dyn, cam_m)
+    faces, attrs, _ = chip_smoke.vertex_stage(cfg, dyn, cam_m)
     fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
     zb, tid = rc.visibility_plain(fdata, flags, h, w, cfg.system)
     adata = rc.pack_face_attrs(attrs)
@@ -625,7 +625,7 @@ def stage_inputs():
                             *pl.texture_tables(cfg, dyn, attrs)),
         "stencil": (qdata, qi, zb, cfg.system, zc),
         "lines": pl._wireframe_lines(
-            *pl._debug_vertices(dyn, cam_m)[:3],
+            *pl._debug_vertices(cfg, dyn, cam_m)[:3],
             torch.cat([md["pad_valid"] for md in dyn["models"]]),
             zb * cfg.system, h, w),
         "quad_prep": prep_args,
@@ -658,8 +658,8 @@ def stage_inputs():
                         debug_camera=tt.Camera(**DEBUG_CAM))
     cfg, dyn = scene._prepare()
     cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-    faces, _ = pl._build_face_batch(cfg, dyn, cam_m,
-                                    pl._debug_mvp(cfg, dyn, "cpu"))
+    faces, _, _ = chip_smoke.vertex_stage(cfg, dyn, cam_m,
+                                          pl._debug_mvp(cfg, dyn, "cpu"))
     fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
     fdbg = rc.pack_debug_planes(faces)
     inputs["visibility-dbg"] = ((fdata, flags, h, w, cfg.system),
@@ -1384,7 +1384,7 @@ def test_quad_bins_follow_the_count_on_card(card):
     stale_d[n:2 * n], stale_i[n:2 * n] = qdata[:n], qi[:n]
     from tpu_renderer_torch.ops import pipeline as pl
 
-    faces, _ = pl._build_face_batch(cfg, dyn, cam_m)
+    faces, _, _ = chip_smoke.vertex_stage(cfg, dyn, cam_m)
     zb, _ = rc.visibility(rc.pack_faces(faces), rc.face_flags(faces), h, w,
                           cfg.system)
     zc = chip_smoke._stencil_constants(dyn, "cuda")
@@ -1437,7 +1437,6 @@ def test_replay_with_a_shrinking_silhouette_on_card(card):
     import bench_torch
     from tpu_renderer_torch.ops import compiled
     from tpu_renderer_torch.ops import pipeline as pl
-    from tpu_renderer_torch.ops.shadow import prepare_quads
 
     compiled.clear_compiled()
     builds = compiled.CACHE.builds
@@ -1450,7 +1449,8 @@ def test_replay_with_a_shrinking_silhouette_on_card(card):
         torch.cuda.synchronize()
         assert rc.LAUNCHES["quad_prep"] >= 1 and rc.LAUNCHES["stencil"] >= 1
         cfg, dyn = scene._prepare()
-        counts.append(int(prepare_quads(cfg, dyn)[2]))
+        cam_m = pl._cam_matrices(cfg, dyn["camera"], "cuda")
+        counts.append(int(chip_smoke.quad_prep_args(cfg, dyn, cam_m)[2]))
         want = pl.render_frame(cfg, dyn)
         got = (torch.from_numpy(frame).cuda(), scene.last_zbuf,
                scene.last_tid, scene.last_stencil)

@@ -90,10 +90,11 @@ def _scene_lines():
     cfg, dyn = scene._prepare()
     h, w = cfg.resolution
     cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-    faces, _ = pl._build_face_batch(cfg, dyn, cam_m)
+    faces, _ = pl._build_face_batch(cfg, dyn, cam_m,
+                                    verts=pl.stacked_vertices(dyn))
     zb, _ = rc.visibility_plain(rc.pack_faces(faces), rc.face_flags(faces),
                                 h, w, cfg.system)
-    sx, sy, sz, _, valid = pl._debug_vertices(dyn, cam_m)
+    sx, sy, sz, _, valid = pl._debug_vertices(cfg, dyn, cam_m)
     return pl._wireframe_lines(sx, sy, sz, valid, zb * cfg.system, h, w)
 
 
@@ -236,7 +237,8 @@ def _claim_case(case):
         h, w = cfg.resolution
         cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
         faces, _ = pl._build_face_batch(cfg, dyn, cam_m,
-                                        pl._debug_mvp(cfg, dyn, "cpu"))
+                                        pl._debug_mvp(cfg, dyn, "cpu"),
+                                        verts=pl.stacked_vertices(dyn))
         fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
         fdbg = rc.pack_debug_planes(faces)
         zb, _ = rc.visibility_plain(fdata, flags, h, w, cfg.system,

@@ -77,12 +77,15 @@ def _rank(rank, world, out_dir, runs):
             out = [t.numpy() for t in tt.render_frame_sharded(cfg, dyn, mesh)]
             if n_tris > 1 and shader == "general":
                 idx = mesh.get_local_rank("tris")
-                shard = shard_dyn(pad_models_for_tris(dyn, n_tris), n_tris,
-                                  idx)
+                shard = pl.with_face_tables(cfg, shard_dyn(
+                    pad_models_for_tris(dyn, n_tris), n_tris, idx))
                 cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
+                verts = pl.stacked_vertices(shard)
+                _, attrs = pl._build_face_batch(cfg, shard, cam_m,
+                                                verts=verts)
                 out += [t.numpy() for t in quad_tables(
                     cfg, shard, cam_m, *RES_P, group=mesh.get_group("tris"),
-                    shard_idx=idx)]
+                    shard_idx=idx, verts=verts, world=attrs["world"])]
             np.savez(f"{out_dir}/{_name(shader, (n_rows, n_tris))}_{rank}",
                      *out)
     finally:
@@ -212,8 +215,11 @@ def test_silhouette_shards_partition(port_sharded, port_one_device, shape):
 
     scene = build_scene(tt, gz_torch, resolution=RES_P, device="cpu")
     cfg, dyn = scene._prepare()
-    qdata, qi, n_sil = quad_tables(
-        cfg, dyn, pl._cam_matrices(cfg, dyn["camera"], "cpu"), *RES_P)
+    cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
+    verts = pl.stacked_vertices(dyn)
+    _, attrs = pl._build_face_batch(cfg, dyn, cam_m, verts=verts)
+    qdata, qi, n_sil = quad_tables(cfg, dyn, cam_m, *RES_P, verts=verts,
+                                   world=attrs["world"])
     n_sil = int(n_sil)
     c = -(-n_sil // shape[1])
     ranks = port_sharded["general", shape][:shape[1]]    # row block 0

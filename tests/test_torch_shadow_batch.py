@@ -7,8 +7,8 @@ loop it replaced.
   20 instances and a floor that casts no shadow, a model that casts none
   between two that do, a shadowing model without edges, no shadowing
   model at all; a point and a directional light; culling on and off; with
-  the Scene's edge tables (``dyn["faces"]["edges"]``) and with tables
-  built from the models on the spot; and so do its quad tables, and the
+  the Scene's edge tables (``dyn["faces"]["edges"]``) and with the tables
+  of ``pipeline.with_face_tables``; and so do its quad tables, and the
   stage as ``pipeline.render_core`` runs it, on the vertex stage's
   stacked vertices and face positions;
 - the Scene keeps its edge tables, and the compiled program that reads
@@ -165,16 +165,17 @@ def test_batched_shadow_pass_equals_the_per_model_loop(kind, light, cull,
         assert not any(shadowing) and "edges" not in dyn["faces"]
     assert cfg.light_type == LIGHTS[light] and cfg.backface_culling == cull
     if tables == "built":
-        dyn = {k: v for k, v in dyn.items() if k != "faces"}
+        dyn = pl.with_face_tables(
+            cfg, {k: v for k, v in dyn.items() if k != "faces"})
     cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
     want = loop_prepare_quads(cfg, dyn)
     assert want is None or 0 < int(want[2]) < want[0].shape[0]
-    assert_same(sh.prepare_quads(cfg, dyn), want)
     verts = pl.stacked_vertices(dyn)
-    _, attrs = pl._build_face_batch(cfg, dyn, cam_m, None, verts)
+    _, attrs = pl._build_face_batch(cfg, dyn, cam_m, verts=verts)
     assert_same(sh.prepare_quads(cfg, dyn, verts=verts, world=attrs["world"]),
                 want)
-    assert_same(sh.quad_tables(cfg, dyn, cam_m, *cfg.resolution),
+    assert_same(sh.quad_tables(cfg, dyn, cam_m, *cfg.resolution,
+                               verts=verts, world=attrs["world"]),
                 loop_quad_tables(cfg, dyn, cam_m))
 
 
@@ -195,7 +196,10 @@ def test_edge_tables_follow_the_packing():
         np.testing.assert_array_equal(frame,
                                       pl.render_frame(cfg, dyn)[0].numpy())
         cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-        assert_same(sh.quad_tables(cfg, dyn, cam_m, *cfg.resolution),
+        verts = pl.stacked_vertices(dyn)
+        _, attrs = pl._build_face_batch(cfg, dyn, cam_m, verts=verts)
+        assert_same(sh.quad_tables(cfg, dyn, cam_m, *cfg.resolution,
+                                   verts=verts, world=attrs["world"]),
                     loop_quad_tables(cfg, dyn, cam_m))
         return frame, dyn
 
@@ -294,10 +298,15 @@ def _rank(rank, world, out_dir):
         group = dist.new_group(list(range(world)))
         shard = shard_dyn(pad_models_for_tris(dyn, world), world, rank)
         assert "faces" not in shard
-        quad, order, count = sh.prepare_quads(cfg, shard, group, rank)
+        shard = pl.with_face_tables(cfg, shard)
         cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
+        verts = pl.stacked_vertices(shard)
+        _, attrs = pl._build_face_batch(cfg, shard, cam_m, verts=verts)
+        stage = {"verts": verts, "world": attrs["world"]}
+        quad, order, count = sh.prepare_quads(cfg, shard, group, rank,
+                                              **stage)
         qdata, qi, n = sh.quad_tables(cfg, shard, cam_m, *cfg.resolution,
-                                      group=group, shard_idx=rank)
+                                      group=group, shard_idx=rank, **stage)
         np.savez(f"{out_dir}/rank{rank}", quad.numpy(), order.numpy(),
                  count.numpy(), qdata.numpy(), qi.numpy(), n.numpy())
     finally:
@@ -362,7 +371,7 @@ def test_batched_shadow_tables_equal_the_loop_on_card(light):
     h, w = cfg.resolution
     cam_m = pl._cam_matrices(cfg, dyn["camera"], "cuda")
     verts = pl.stacked_vertices(dyn)
-    faces, attrs = pl._build_face_batch(cfg, dyn, cam_m, None, verts)
+    faces, attrs = pl._build_face_batch(cfg, dyn, cam_m, verts=verts)
     assert_same(sh.prepare_quads(cfg, dyn, verts=verts, world=attrs["world"]),
                 loop_prepare_quads(cfg, dyn))
     got = sh.quad_tables(cfg, dyn, cam_m, h, w, verts=verts,

@@ -121,7 +121,8 @@ def test_prepare_quads_matches_jax(name):
     scene_t = build(name)
     cfg, dyn = scene_t._prepare()
     cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-    quad, order, n_sil = sh.prepare_quads(cfg, dyn)
+    quad, order, n_sil = sh.prepare_quads(
+        cfg, dyn, **chip_smoke.vertex_stage(cfg, dyn, cam_m)[2])
     n = int(n_sil)
     assert n == int(n_sil_j) > 0 and n < quad.shape[0]
     screen, counts = sh.clip_project(quad[order[:n].long()], cam_m)
@@ -150,7 +151,8 @@ def test_shadow_stage_equals_full_route(name):
     h, w = cfg.resolution
     cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
     qd_full, qi_full, sil = full_route(cfg, dyn, cam_m)
-    qdata, qi, n_sil = sh.quad_tables(cfg, dyn, cam_m, h, w)
+    faces, _, stage = chip_smoke.vertex_stage(cfg, dyn, cam_m)
+    qdata, qi, n_sil = sh.quad_tables(cfg, dyn, cam_m, h, w, **stage)
     n = int(n_sil)
     rows = torch.nonzero(sil)[:, 0]
     assert n == len(rows) > 0 and qi.shape[0] == sil.shape[0]
@@ -158,7 +160,6 @@ def test_shadow_stage_equals_full_route(name):
                                                    qi_full[rows]))
     assert (qdata[n:] == 0).all() and (qi[n:] == 0).all()
     assert (qi_full[~sil, 5] == 0).all()
-    faces, _ = pl._build_face_batch(cfg, dyn, cam_m)
     zb, _ = rc.visibility_plain(rc.pack_faces(faces), rc.face_flags(faces),
                                 h, w, cfg.system)
     zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])
@@ -191,7 +192,7 @@ def test_compiled_frames_follow_a_shrinking_count():
         cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
         qd_full, qi_full, sil = full_route(cfg, dyn, cam_m)
         counts.append(int(sil.sum()))
-        faces, _ = pl._build_face_batch(cfg, dyn, cam_m)
+        faces, _, _ = chip_smoke.vertex_stage(cfg, dyn, cam_m)
         zb, _ = rc.visibility_plain(rc.pack_faces(faces),
                                     rc.face_flags(faces), h, w, cfg.system)
         zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])
@@ -231,13 +232,15 @@ def _rank(rank, world, out_dir, shape):
         h, w = cfg.resolution
         lh = h // n_rows
         cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-        faces, _ = pl._build_face_batch(cfg, dyn, cam_m)
+        faces, _, _ = chip_smoke.vertex_stage(cfg, dyn, cam_m)
         zb, _ = rc.visibility_plain(rc.pack_faces(faces),
                                     rc.face_flags(faces), h, w, cfg.system)
         group = mesh.get_group("tris")
-        shard = shard_dyn(pad_models_for_tris(dyn, n_tris), n_tris, tris_idx)
-        qdata, qi, n = sh.quad_tables(cfg, shard, cam_m, h, w, group=group,
-                                      shard_idx=tris_idx)
+        shard = pl.with_face_tables(cfg, shard_dyn(
+            pad_models_for_tris(dyn, n_tris), n_tris, tris_idx))
+        qdata, qi, n = sh.quad_tables(
+            cfg, shard, cam_m, h, w, group=group, shard_idx=tris_idx,
+            **chip_smoke.vertex_stage(cfg, shard, cam_m)[2])
         zc = torch.tensor(rc.stencil_scalars(dyn["camera"]["near"],
                                              dyn["camera"]["far"]))
         row0 = row_idx * lh
@@ -284,8 +287,8 @@ def one_device():
     cfg, dyn = scene._prepare()
     h, w = cfg.resolution
     cam_m = pl._cam_matrices(cfg, dyn["camera"], "cpu")
-    qdata, qi, n = sh.quad_tables(cfg, dyn, cam_m, h, w)
-    faces, _ = pl._build_face_batch(cfg, dyn, cam_m)
+    faces, _, stage = chip_smoke.vertex_stage(cfg, dyn, cam_m)
+    qdata, qi, n = sh.quad_tables(cfg, dyn, cam_m, h, w, **stage)
     zb, _ = rc.visibility_plain(rc.pack_faces(faces), rc.face_flags(faces),
                                 h, w, cfg.system)
     zc = rc.stencil_scalars(dyn["camera"]["near"], dyn["camera"]["far"])

@@ -88,7 +88,11 @@ def stencil_ties(cfg, dyn, zbuf, rtol=1e-5):
 
     h, w = cfg.resolution
     cam_m = pl_torch._cam_matrices(cfg, dyn["camera"], "cpu")
-    qdata, qi, _ = quad_tables(cfg, dyn, cam_m, h, w)
+    dyn = pl_torch.with_face_tables(cfg, dyn)
+    verts = pl_torch.stacked_vertices(dyn)
+    _, attrs = pl_torch._build_face_batch(cfg, dyn, cam_m, verts=verts)
+    qdata, qi, _ = quad_tables(cfg, dyn, cam_m, h, w, verts=verts,
+                               world=attrs["world"])
     nf2, fpn, fmn = rc.stencil_scalars(dyn["camera"]["near"],
                                        dyn["camera"]["far"])
     rows, cols = rp._grid(h, w, "cpu", 0)

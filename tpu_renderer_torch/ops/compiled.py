@@ -11,15 +11,15 @@ The port's counterpart of ``jax.jit`` over the JAX package's frame
   ``SceneConfig``, ``ss`` or ``kind`` and the staging layout (from
   ``pipeline._jit``), the device, every input tensor's place in the
   input tree, shape and dtype, and which places hold the same tensor
-  (instances of one mesh share their texture stacks and face tables,
-  models/scene.py). What changes per frame is never in it: the
-  camera's and debug camera's parameters (staged by
-  ``pipeline.frame_inputs``), the light, vertex positions, texture and
-  cubemap texels and the background colour are inputs, copied into the
-  program's static buffers before every replay, so a camera orbit or an
-  animated model never captures again, as jit never retraces. A packing's
-  face tables (``pipeline.face_tables``), which no frame writes, are no
-  input: the body closes over them and the key holds their identity
+  (instances of one mesh share their texture stacks, models/scene.py).
+  What changes per frame is never in it: the camera's and debug camera's
+  parameters (staged by ``pipeline.frame_inputs``), the light, vertex
+  positions, texture and cubemap texels and the background colour are the
+  inputs (``pipeline._program_inputs``), copied into the program's static
+  buffers before every replay, so a camera orbit or an animated model
+  never captures again, as jit never retraces. A packing's face tables
+  (``pipeline.face_tables``), which no frame writes, are no input: the
+  body closes over them and the key holds their identity
   (``pipeline._jit``), as jit closes over a constant;
 - **tracing and compiling** — :class:`Program`'s first call: it stages the
   inputs into static buffers, one per distinct tensor (the body sees a

@@ -54,16 +54,20 @@ Every entry point is "stage, then body". :func:`frame_inputs` composes on
 the host, in float32, what each frame derives from the camera: its
 matrices, near and far, its position, K4's depth constants, the debug
 camera's MVP and the skybox's corner rays; it packs them into one staging
-buffer. The bodies (``_core``, ``_frame``, ``_ssaa``, ``_debug_frame``,
-``_stats``) read only device tensors: the staged buffer's views and the
-rest of ``dyn`` (models, light, background), never the host camera. The
-eager functions (:func:`render_core`, :func:`render_frame`,
-:func:`render_ssaa`, :func:`render_debug_frame`, :func:`face_statistics`)
-move the buffer to ``dyn``'s device and run the body. Their ``*_jit``
-counterparts, the JAX package's compiled frame (pipeline.py:953-1060
-there), run the same body as a program of ops/compiled.py: on a CUDA
-device a CUDA graph captured once per static key and replayed with each
-frame's inputs, on the CPU the body over the program's static buffers.
+buffer. :func:`with_face_tables` gives the frame its per-face tables
+(:func:`face_tables`, ``dyn["faces"]``; a Scene's dyn carries them). The
+bodies (``_core``, ``_frame``, ``_ssaa``, ``_debug_frame``, ``_stats``)
+read only device tensors: the staged buffer's views, the face tables, and
+what a frame can change (:func:`_program_inputs`: each model's vertices
+and texture maps, the light, the background), never the host camera and
+never a model's own per-face fields. The eager functions
+(:func:`render_core`, :func:`render_frame`, :func:`render_ssaa`,
+:func:`render_debug_frame`, :func:`face_statistics`) move the buffer to
+``dyn``'s device and run the body. Their ``*_jit`` counterparts, the JAX
+package's compiled frame (pipeline.py:953-1060 there), run the same body
+as a program of ops/compiled.py: on a CUDA device a CUDA graph captured
+once per static key and replayed with each frame's inputs, on the CPU the
+body over the program's static buffers.
 """
 from __future__ import annotations
 
@@ -81,9 +85,8 @@ from tpu_renderer_torch.ops import shading as sh
 from tpu_renderer_torch.ops.cubemap import fill_skybox, skybox_inputs
 from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.shadow import _cross, edge_tables, quad_tables
-from tpu_renderer_torch.ops.transforms import bound_box_batch, normalize
+from tpu_renderer_torch.ops.transforms import normalize
 from tpu_renderer_torch.ops.vertex import (_rowvec, gather_faces,
-                                           screen_normal_z,
                                            transform_vertices)
 from tpu_renderer_torch.parallel.mesh import all_reduce
 from tpu_renderer_torch.utils.profiling import span
@@ -92,7 +95,8 @@ __all__ = ["SceneConfig", "ModelConfig", "render_core", "render_frame",
            "render_ssaa", "render_debug_frame", "face_statistics",
            "render_core_jit", "render_frame_jit", "render_ssaa_jit",
            "render_debug_frame_jit", "face_statistics_jit", "frame_inputs",
-           "staged", "face_tables", "stacked_vertices", "texture_tables",
+           "staged", "face_tables", "with_face_tables", "stacked_vertices",
+           "texture_tables",
            "SHADER_GENERAL", "SHADER_FLAT", "SHADER_GOURAUD", "SHADER_PBR",
            "SHADER_WIREFRAME", "SHADER_POINTS", "SHADERS", "SLIM_SHADERS",
            "DEBUG_SHADERS"]
@@ -222,18 +226,37 @@ def _stage(cfg: SceneConfig, dyn):
     return staged(buf.to(_device(dyn)), layout)
 
 
-def _body_dyn(dyn):
-    """``dyn`` without the host camera entries, which only
-    :func:`frame_inputs` reads: the tensors a body and a program take."""
-    return {k: v for k, v in dyn.items()
-            if k not in ("camera", "debug_camera")}
-
-
 #: Per-face shading attributes of a model's packet, which the vertex stage
 #: hands on as they are.
 _FACE_ATTRS = ("uv", "kd", "ks", "ns", "pm", "pr", "ka", "kd_slot",
                "ks_slot", "norm_slot", "norm_tangent", "kd_shape",
                "ks_shape", "norm_shape")
+#: The entries of a model's packet that a frame can change: with the light
+#: and the background, a compiled program's inputs. The per-face fields
+#: stay in the packet as the source of :func:`face_tables`.
+_FRAME_ATTRS = ("verts",) + tuple(f"{kind}_{part}" for kind in rc.KINDS
+                                  for part in ("stack", "scale_off"))
+
+
+def _program_inputs(dyn):
+    """What a frame of ``dyn`` can change, and so all that a program takes
+    as inputs: each model's :data:`_FRAME_ATTRS`, the light, and the
+    background colour or the skybox."""
+    models = [{k: md[k] for k in _FRAME_ATTRS if k in md}
+              for md in dyn["models"]]
+    return {"models": models,
+            **{k: dyn[k] for k in ("light", "background_color", "skybox")
+               if k in dyn}}
+
+
+def _body_dyn(cfg, dyn):
+    """What a body reads of ``dyn``: its program inputs and its face
+    tables (:func:`with_face_tables`)."""
+    dyn = with_face_tables(cfg, dyn)
+    inputs = _program_inputs(dyn)
+    if "faces" in dyn:
+        inputs["faces"] = dyn["faces"]
+    return inputs
 
 
 def face_tables(cfg: SceneConfig, models):
@@ -246,9 +269,9 @@ def face_tables(cfg: SceneConfig, models):
     ``z_write`` and ``model_id``; and, when a model casts shadows,
     ``edges``, the shadow pass's incidence tables (shadow.edge_tables).
 
-    ``Scene._prepare`` builds them once per packing, as ``dyn["faces"]``;
-    a body builds them from ``models`` for a ``dyn`` without. Whoever
-    changes ``dyn["models"]`` drops ``dyn["faces"]`` (parallel/sharded.py)."""
+    Built in two places only: ``Scene._prepare`` once per packing (cached
+    in ``Scene._face_tables``), and :func:`with_face_tables` for a ``dyn``
+    without them, before any body runs."""
     parts, n_verts = [], 0
     for m_i, (mc, md) in enumerate(zip(cfg.models, models)):
         vid = md["vid"].long()
@@ -272,36 +295,52 @@ def face_tables(cfg: SceneConfig, models):
     return tables
 
 
+def with_face_tables(cfg: SceneConfig, dyn):
+    """``dyn`` with its per-face tables ``dyn["faces"]``: as it is where it
+    has them (a Scene's dyn always does) or has no model, else a copy with
+    :func:`face_tables` of its models. Every entry point calls it before
+    the body, and the compiled ones before the program's key is formed, so
+    no body builds tables. Whoever changes ``dyn["models"]`` drops
+    ``dyn["faces"]`` (parallel/sharded.py)."""
+    if "faces" in dyn or not cfg.models:
+        return dyn
+    return dict(dyn, faces=face_tables(cfg, dyn["models"]))
+
+
 def stacked_vertices(dyn):
     """(V, 4) float32: every model's vertices stacked in model order, the
     vertices that the ids of :func:`face_tables` index."""
     return torch.cat([md["verts"] for md in dyn["models"]]).to(torch.float32)
 
 
-def _build_face_batch(cfg: SceneConfig, dyn, cam_m, dbg_mvp=None,
-                      verts=None):
+def _vertex_pass(cfg: SceneConfig, dyn, cam_m, verts):
+    """The one vertex pass of a frame, which every vertex stage reads: the
+    stacked vertices ``verts`` (:func:`stacked_vertices`) through the
+    camera (``cam_m``: MVP, viewport, near, far), gathered per face
+    through ``dyn["faces"]["vid"]`` (vertex.gather_faces, with its masks)."""
+    height, width = cfg.resolution
+    va = transform_vertices(verts, cam_m["MVP"], cam_m["viewport"],
+                            cam_m["near"], cam_m["far"])
+    return gather_faces(va, dyn["faces"]["vid"], height, width,
+                        cfg.backface_culling)
+
+
+def _build_face_batch(cfg: SceneConfig, dyn, cam_m, dbg_mvp=None, *, verts):
     """Vertex stage + per-face gathers for every model at once
     (pipeline._build_face_batch :133 without the sampler-window fields;
     the attrs carry what every shader reads, :218-229): one transform of
-    every model's vertices, stacked in model order, one gather of every
-    face through the offset ids of :func:`face_tables` (``dyn["faces"]``),
+    every model's vertices ``verts``, stacked in model order
+    (:func:`stacked_vertices`), one gather of every face through the
+    offset ids of the face tables ``dyn["faces"]`` (:func:`_vertex_pass`),
     one face normal. Every operation is elementwise or a row gather, so
     each face's values round as a pass over its model alone would.
     ``cam_m`` holds MVP, viewport, near and far (:func:`_cam_matrices`,
     or the staged views). With the debug camera's ``dbg_mvp``, the raster
     dict also carries ``clip_dbg``, each face's vertices in its clip space
-    (:175-178). ``verts``: :func:`stacked_vertices` of ``dyn``, where the
-    caller holds them. Returns (raster dict, attrs dict) of per-face
-    tensors, the faces in model order."""
-    height, width = cfg.resolution
-    ft = dyn.get("faces")
-    if ft is None:
-        ft = face_tables(cfg, dyn["models"])
-    if verts is None:
-        verts = stacked_vertices(dyn)
-    va = transform_vertices(verts, cam_m["MVP"], cam_m["viewport"],
-                            cam_m["near"], cam_m["far"])
-    f = gather_faces(va, ft["vid"], height, width, cfg.backface_culling)
+    (:175-178). Returns (raster dict, attrs dict) of per-face tensors, the
+    faces in model order."""
+    ft = dyn["faces"]
+    f = _vertex_pass(cfg, dyn, cam_m, verts)
     world = f["world"]                                  # (G, 3, 3)
     face_normal = normalize(_cross(world[:, 1] - world[:, 0],
                                    world[:, 2] - world[:, 0]))
@@ -333,19 +372,29 @@ def texture_tables(cfg: SceneConfig, dyn, attrs):
     layer. Models that hold the same stack tensor (instances of one mesh,
     Scene._pack_model) point their faces at the same slots, as the JAX
     package's instances share one window block (scene.py:645-665 there).
+    Each face's local slot and map shape come from ``attrs``, the face
+    tables' columns as the vertex stage hands them on; model m's faces are
+    the rows its ``num_faces`` give, after the models before it. Only the
+    stacks come from ``dyn["models"]``.
     Returns (ftex (G, N_KINDS, 3) int32 per-face (global slot or -1, TH,
     TW), slots (S, 2) int32 (pool offset, row stride), pool (P,) int32), or
     None when no model carries a texture map.
     """
     dev = attrs["kd_slot"].device
+    rows = [0]
+    for mc in cfg.models:
+        rows.append(rows[-1] + mc.num_faces)
+    if rows[-1] != attrs["kd_slot"].shape[0]:
+        raise ValueError(f"the models' num_faces add up to {rows[-1]}, the "
+                         f"frame has {attrs['kd_slot'].shape[0]} faces")
     pool, slots, ftex = [], [], []
     offset = n_slots = 0
     for k, kind in enumerate(rc.KINDS):
         has = {"kd": "has_map_kd", "norm": "has_norm", "ks": "has_map_ks"}[kind]
         face_slot = []
         first_slot = {}                 # id(stack) -> its first global slot
-        for mc, md in zip(cfg.models, dyn["models"]):
-            local = md[f"{kind}_slot"].to(torch.int32)
+        for m, (mc, md) in enumerate(zip(cfg.models, dyn["models"])):
+            local = attrs[f"{kind}_slot"][rows[m]:rows[m + 1]].to(torch.int32)
             if not getattr(mc, has):
                 face_slot.append(torch.full_like(local, -1))
                 continue
@@ -428,7 +477,7 @@ def render_core(cfg: SceneConfig, dyn, ops=rc.KERNELS, *, local_height=None,
     the module docstring). Every rank of the group takes the same branches,
     so all call the same collectives in the same order.
     """
-    return _core(cfg, _body_dyn(dyn), _stage(cfg, dyn), ops,
+    return _core(cfg, _body_dyn(cfg, dyn), _stage(cfg, dyn), ops,
                  local_height=local_height, row0=row0, tris_group=tris_group,
                  tris_idx=tris_idx)
 
@@ -453,14 +502,10 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
         zbuf = torch.full(shape, float("inf") * sign, device=device)
         tid = torch.full(shape, -1, dtype=torch.int32, device=device)
         return frame, zbuf, tid, torch.zeros_like(tid)
-    if "faces" not in dyn:
-        # One build of the packing's tables, for the vertex and shadow
-        # stages both.
-        dyn = dict(dyn, faces=face_tables(cfg, dyn["models"]))
     with span("vertex"):
         verts = stacked_vertices(dyn)
         faces, attrs = _build_face_batch(cfg, dyn, st, st.get("dbg_MVP"),
-                                         verts)
+                                         verts=verts)
         fdata = rc.pack_faces(faces)
         flags = rc.face_flags(faces)
         fdbg = rc.pack_debug_planes(faces)
@@ -515,7 +560,8 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
         # the count on the device says.
         with span("shadow_quads"):
             tables = quad_tables(cfg, dyn, st, height, width, ops,
-                                 tris_group, tris_idx, verts, attrs["world"])
+                                 tris_group, tris_idx, verts=verts,
+                                 world=attrs["world"])
         if tables is not None:
             qdata, qi, n_sil = tables
             with span("stencil"):
@@ -548,7 +594,7 @@ def _quantize(frame):
 
 def render_frame(cfg: SceneConfig, dyn, ops=rc.KERNELS):
     """One frame: (frame_u8 (H, W, 3), zbuf, tid, stencil)."""
-    return _frame(cfg, _body_dyn(dyn), _stage(cfg, dyn), ops)
+    return _frame(cfg, _body_dyn(cfg, dyn), _stage(cfg, dyn), ops)
 
 
 def _frame(cfg, dyn, st, ops):
@@ -562,7 +608,7 @@ def render_ssaa(cfg: SceneConfig, dyn, ss, ops=rc.KERNELS):
     box-filtered down by ``ss`` before the flip, gamma and quantize.
     Returns (frame_u8 (H/ss, W/ss, 3), zbuf, tid, stencil), the buffers at
     the scaled size."""
-    return _ssaa(cfg, _body_dyn(dyn), _stage(cfg, dyn), ss, ops)
+    return _ssaa(cfg, _body_dyn(cfg, dyn), _stage(cfg, dyn), ss, ops)
 
 
 def _ssaa(cfg, dyn, st, ss, ops):
@@ -586,51 +632,43 @@ def face_statistics(cfg: SceneConfig, dyn, tid):
     stage runs again at ``cfg.resolution``.
     """
     buf, layout = frame_inputs(cfg, dyn)
-    return _stats(cfg, _body_dyn(dyn), staged(buf.to(tid.device), layout),
-                  tid)
+    return _stats(cfg, _body_dyn(cfg, dyn),
+                  staged(buf.to(tid.device), layout), tid)
+
+
+#: The counters of :func:`face_statistics`, in the order of its dicts.
+_STATS = ("total", "rendered", "backface_culled", "degenerate", "offscreen",
+          "occluded_or_clipped")
 
 
 def _stats(cfg, dyn, st, tid):
-    height, width = cfg.resolution
+    if not cfg.models:
+        return []
     device = tid.device
+    ft = dyn["faces"]
     # Pixels per global face id; background pixels (tid < 0) go to a spare
     # slot g_total and add 0, as JAX's clip(tid, -1) with mode="drop" does.
-    g_total = sum(md["vid"].shape[0] for md in dyn["models"])
+    g_total = ft["vid"].shape[0]
     ids = tid.reshape(-1).long()
     fg = ids >= 0
     owned = torch.zeros(g_total + 1, dtype=torch.int32, device=device)
     owned.index_add_(0, torch.where(fg, ids, g_total), fg.to(torch.int32))
 
-    stats = []
-    offset = 0
-    for md in dyn["models"]:
-        va = transform_vertices(md["verts"], st["MVP"], st["viewport"],
-                                st["near"], st["far"])
-        vid = md["vid"].long()
-        n = vid.shape[0]
-        screen = va["screen"][vid]
-        sx, sy, sz = screen[..., 0], screen[..., 1], screen[..., 2]
-        real = md["pad_valid"]
-        culled = (real & (screen_normal_z(sx, sy, sz) < 0)
-                  if cfg.backface_culling else torch.zeros_like(real))
-        v0x, v0y = sx[:, 1] - sx[:, 0], sy[:, 1] - sy[:, 0]
-        v1x, v1y = sx[:, 2] - sx[:, 0], sy[:, 2] - sy[:, 0]
-        d01 = v0x * v1x + v0y * v1y
-        denom = ((v0x * v0x + v0y * v0y) * (v1x * v1x + v1y * v1y)
-                 - d01 * d01)
-        degenerate = real & ~culled & (denom == 0)
-        _, box_valid = bound_box_batch(torch.stack([sx, sy], -1), height,
-                                       width)
-        offscreen = real & ~culled & ~degenerate & ~box_valid
-        rendered = real & (owned[offset:offset + n] > 0)
-        leftover = real & ~culled & ~degenerate & ~offscreen & ~rendered
-        stats.append({"total": real.sum(), "rendered": rendered.sum(),
-                      "backface_culled": culled.sum(),
-                      "degenerate": degenerate.sum(),
-                      "offscreen": offscreen.sum(),
-                      "occluded_or_clipped": leftover.sum()})
-        offset += n
-    return stats
+    # The vertex pass's own masks, as its ``valid`` folds them.
+    f = _vertex_pass(cfg, dyn, st, stacked_vertices(dyn))
+    real = ft["pad_valid"]
+    culled = real & f["culled"]
+    degenerate = real & ~culled & f["degenerate"]
+    offscreen = real & ~culled & ~degenerate & ~f["box_valid"]
+    rendered = real & (owned[:g_total] > 0)
+    leftover = real & ~culled & ~degenerate & ~offscreen & ~rendered
+    masks = torch.stack([real, rendered, culled, degenerate, offscreen,
+                         leftover], dim=1).long()
+    # Per-model sums: integer sums, exact in any order.
+    counts = torch.zeros((len(cfg.models), len(_STATS)), dtype=torch.int64,
+                         device=device)
+    counts.index_add_(0, ft["model_id"].long(), masks)
+    return [dict(zip(_STATS, row.unbind())) for row in counts]
 
 
 def render_debug_frame(cfg: SceneConfig, dyn, kind, ops=rc.KERNELS):
@@ -651,7 +689,8 @@ def render_debug_frame(cfg: SceneConfig, dyn, kind, ops=rc.KERNELS):
     """
     if kind not in DEBUG_SHADERS:
         raise ValueError(f"not a debug shader: {kind!r}")
-    return _debug_frame(cfg, _body_dyn(dyn), _stage(cfg, dyn), kind, ops)
+    return _debug_frame(cfg, _body_dyn(cfg, dyn), _stage(cfg, dyn), kind,
+                        ops)
 
 
 def _debug_frame(cfg, dyn, st, kind, ops):
@@ -663,7 +702,7 @@ def _debug_frame(cfg, dyn, st, kind, ops):
         return _quantize(frame), zbuf, tid, stencil
 
     with span("debug_vertex"):
-        sx, sy, sz, fn, valid = _debug_vertices(dyn, st)
+        sx, sy, sz, fn, valid = _debug_vertices(cfg, dyn, st)
     if kind == SHADER_WIREFRAME:
         with span("lines"):
             mask = ops.lines(*_wireframe_lines(sx, sy, sz, valid, zbuf,
@@ -687,13 +726,15 @@ def _rgb(r, g, b, device):
 def _jit(name, static, cfg, dyn, body, *tensors):
     """Stage on the host, then run ``body(inputs, staged views)`` as the
     program of ops/compiled.py keyed by (name, cfg, ``static``, the staging
-    layout, the identity of ``dyn["faces"]``; the device and every input's
-    shape and dtype): ``inputs`` is (dyn without the host camera,
-    ``tensors``). ``dyn["faces"]`` (:func:`face_tables`, built once per
-    packing and never written) is no input: the body reads it as it is, so
-    no frame copies it, and another packing's tables are another program."""
+    layout, the identity of the face tables; the device and every input's
+    shape and dtype): ``inputs`` is (:func:`_program_inputs` of ``dyn``
+    with the face tables, ``tensors``). The face tables
+    (:func:`with_face_tables`, built before the key is formed where ``dyn``
+    has none; a Scene builds them once per packing, and nothing writes
+    them) are no input: the body reads them as they are, so no frame
+    copies them, and another packing's tables are another program."""
     buf, layout = frame_inputs(cfg, dyn)
-    inputs = _body_dyn(dyn)
+    inputs = _body_dyn(cfg, dyn)
     faces = inputs.pop("faces", None)
 
     def run(inputs, b):
@@ -753,27 +794,17 @@ def face_statistics_jit(cfg: SceneConfig, dyn, tid):
                 tid)
 
 
-def _debug_vertices(dyn, cam_m):
-    """The vertex stage over every face of every model, without culling or
-    validity masks: per-face screen x, y and linearized z (F, 3) each, the
-    unit world face normal (F, 3), and the mask (F,) of real (not padding)
-    faces. ``cam_m`` holds MVP, viewport, near and far."""
-    sxs, sys_, szs, fns, valids = [], [], [], [], []
-    for md in dyn["models"]:
-        va = transform_vertices(md["verts"], cam_m["MVP"], cam_m["viewport"],
-                                cam_m["near"], cam_m["far"])
-        vid = md["vid"].long()
-        screen = va["screen"][vid]
-        sxs.append(screen[..., 0])
-        sys_.append(screen[..., 1])
-        szs.append(va["zlin"][vid])
-        world = va["world"][vid]
-        n = _cross(world[:, 1] - world[:, 0], world[:, 2] - world[:, 0])
-        nn = torch.linalg.vector_norm(n, dim=1, keepdim=True)
-        fns.append(n / torch.where(nn == 0, torch.ones_like(nn), nn))
-        valids.append(md["pad_valid"])
-    return (torch.cat(sxs), torch.cat(sys_), torch.cat(szs), torch.cat(fns),
-            torch.cat(valids))
+def _debug_vertices(cfg: SceneConfig, dyn, cam_m):
+    """The vertex pass (:func:`_vertex_pass`) over every face of every
+    model, without culling or validity masks: per-face screen x, y and
+    linearized z (F, 3) each, the unit world face normal (F, 3), and the
+    mask (F,) of real (not padding) faces. ``cam_m`` holds MVP, viewport,
+    near and far."""
+    f = _vertex_pass(cfg, dyn, cam_m, stacked_vertices(dyn))
+    world = f["world"]
+    fn = normalize(_cross(world[:, 1] - world[:, 0],
+                          world[:, 2] - world[:, 0]))
+    return f["sx"], f["sy"], f["szlin"], fn, dyn["faces"]["pad_valid"]
 
 
 def _wireframe_lines(sx, sy, sz, valid, zbuf, height, width):

@@ -249,8 +249,7 @@ def quad_fragments(qrow, zb_sign, rows, cols, sign, nf2, fpn, fmn):
     return torch.where(mask, contrib, 0).sum(0, dtype=torch.int32)
 
 
-def prepare_quads(cfg, dyn, group=None, shard_idx=0, verts=None,
-                  world=None):
+def prepare_quads(cfg, dyn, group=None, shard_idx=0, *, verts, world):
     """Silhouette -> extruded quads -> the silhouette-first order and count,
     in one pass over every shadowing model.
 
@@ -268,25 +267,15 @@ def prepare_quads(cfg, dyn, group=None, shard_idx=0, verts=None,
     device. The camera enters at K8 (JAX's takes ``cam_m`` here because
     its ``prepare_quads`` also clips and projects).
 
-    The pass reads the edge tables of ``dyn["faces"]`` (``edges``,
-    :func:`edge_tables`), built from the models when ``dyn`` has none.
-    ``verts`` (V, 4) float32, every model's vertices stacked in model
-    order, and ``world`` (G, 3, 3), each face's world positions, are the
-    vertex stage's (``pipeline._build_face_batch``); without them the pass
-    stacks and gathers its own.
+    The pass reads the edge tables of the face tables (``dyn["faces"]
+    ["edges"]``, :func:`edge_tables`). ``verts`` (V, 4) float32, every
+    model's vertices stacked in model order, and ``world`` (G, 3, 3), each
+    face's world positions, are the vertex stage's
+    (``pipeline._build_face_batch``).
     """
-    from tpu_renderer_torch.ops.pipeline import face_tables, stacked_vertices
-
-    ft = dyn.get("faces")
-    if ft is None:
-        ft = face_tables(cfg, dyn["models"])
-    et = ft.get("edges")
+    et = dyn["faces"].get("edges")
     if et is None:
         return None
-    if verts is None:
-        verts = stacked_vertices(dyn)
-    if world is None:
-        world = verts[ft["vid"]][..., :3]
     light = dyn["light"]
     inc_lf = (light_facing(world, light["position"])[et["inc_face"]]
               & et["inc_valid"])
@@ -338,17 +327,18 @@ def clip_project(quad, cam_m):
 
 
 def quad_tables(cfg, dyn, cam_m, height, width, ops=None, group=None,
-                shard_idx=0, verts=None, world=None):
+                shard_idx=0, *, verts, world):
     """The stencil kernel's quad tables of a frame: :func:`prepare_quads`
-    (with the vertex stage's ``verts`` and ``world`` where the caller has
-    them), then ``ops.quad_prep`` (``raster_cuda.KERNELS`` by default: K8
-    on the card, its plain version on the CPU). ``cam_m`` holds
+    (on the vertex stage's ``verts`` and ``world``), then ``ops.quad_prep``
+    (``raster_cuda.KERNELS`` by default: K8 on the card, its plain version
+    on the CPU). ``cam_m`` holds
     frustum_planes, MVP and viewport on the quads' device. Returns (qdata
     (C, 44) float32, qi (C, 8) int32, count () int32), rows past the count
     zero, or None when no model casts shadows."""
     from tpu_renderer_torch.ops import raster_cuda
 
-    prepared = prepare_quads(cfg, dyn, group, shard_idx, verts, world)
+    prepared = prepare_quads(cfg, dyn, group, shard_idx, verts=verts,
+                             world=world)
     if prepared is None:
         return None
     ops = raster_cuda.KERNELS if ops is None else ops
@@ -359,12 +349,17 @@ def quad_tables(cfg, dyn, cam_m, height, width, ops=None, group=None,
 
 def shadow_stencil(cfg, dyn, cam_m, zb_sign):
     """Full-frame signed stencil through the plain path: the quad tables
-    of :func:`quad_tables` summed with :func:`quad_fragments`.
-    ``zb_sign``: the final z-buffer in sign space."""
-    from tpu_renderer_torch.ops import raster_cuda
+    of :func:`quad_tables`, on the frame's vertex pass, summed with
+    :func:`quad_fragments`. ``dyn`` carries its face tables
+    (``pipeline.with_face_tables``); ``zb_sign``: the final z-buffer in
+    sign space."""
+    from tpu_renderer_torch.ops import pipeline, raster_cuda
 
     height, width = zb_sign.shape
-    tables = quad_tables(cfg, dyn, cam_m, height, width, raster_cuda.PLAIN)
+    verts = pipeline.stacked_vertices(dyn)
+    world = pipeline._vertex_pass(cfg, dyn, cam_m, verts)["world"]
+    tables = quad_tables(cfg, dyn, cam_m, height, width, raster_cuda.PLAIN,
+                         verts=verts, world=world)
     if tables is None:
         return torch.zeros((height, width), dtype=torch.int32,
                            device=zb_sign.device)

@@ -67,8 +67,9 @@ def gather_faces(vert_arrays, face_vid, height, width, backface_culling):
 
     vert_arrays: output of :func:`transform_vertices`; face_vid: (F, 3) int
     vertex ids. Returns dict with sx/sy/szlin/inv_w (F, 3), aff (F, 9),
-    clip (F, 3, 4), bbox (F, 4) int32, denom (F,), valid (F,) and
-    world (F, 3, 3).
+    clip (F, 3, 4), bbox (F, 4) int32, denom (F,), world (F, 3, 3), and
+    valid (F,), which folds the masks (F,) it also returns: culled (all
+    False without ``backface_culling``), degenerate and box_valid.
     """
     parts = [vert_arrays["screen"], vert_arrays["clip"],
              vert_arrays["inv_w"][:, None], vert_arrays["zlin"][:, None],
@@ -83,11 +84,12 @@ def gather_faces(vert_arrays, face_vid, height, width, backface_culling):
     sy = screen[..., 1]
     sz = screen[..., 2]
 
-    valid = torch.ones(face_vid.shape[0], dtype=torch.bool,
-                       device=face_vid.device)
     if backface_culling:
         # Cull when the normalized screen normal z < 0 (triangular.py:47-48).
-        valid &= ~(screen_normal_z(sx, sy, sz) < 0)
+        culled = screen_normal_z(sx, sy, sz) < 0
+    else:
+        culled = torch.zeros(face_vid.shape[0], dtype=torch.bool,
+                             device=face_vid.device)
 
     # Barycentric denominator (transformation.py:25-27) on screen xy.
     v0x, v0y = sx[:, 1] - sx[:, 0], sy[:, 1] - sy[:, 0]
@@ -96,14 +98,14 @@ def gather_faces(vert_arrays, face_vid, height, width, backface_culling):
     d01 = v0x * v1x + v0y * v1y
     d11 = v1x * v1x + v1y * v1y
     denom = d00 * d11 - d01 * d01
-    valid &= denom != 0                                  # Errors.EMPTY_B
+    degenerate = denom == 0                              # Errors.EMPTY_B
 
     # Screen barycentrics as per-face AFFINE functions of the pixel:
     # v = av*x + bv*y + cv, w likewise, u = 1 - v - w, z = az*x + bz*y + cz.
     # Every rasterizer and the G-buffer evaluate these coefficients with the
     # same expression (vertex.py:105-126 of the JAX package, term for term).
     ax, ay = sx[:, 0], sy[:, 0]
-    inv_denom = 1.0 / torch.where(denom == 0, torch.ones_like(denom), denom)
+    inv_denom = 1.0 / torch.where(degenerate, torch.ones_like(denom), denom)
     av = (d11 * v0x - d01 * v1x) * inv_denom
     bv = (d11 * v0y - d01 * v1y) * inv_denom
     cv = -(ax * av + ay * bv)
@@ -116,12 +118,14 @@ def gather_faces(vert_arrays, face_vid, height, width, backface_culling):
     cz = zlin[:, 0] + cv * z10 + cw * z20
     aff = torch.stack([av, bv, cv, aw, bw, cw, az, bz, cz], dim=-1)
 
+    # Errors.EMPTY_Z / WRONG_MIN_MAX
     box, box_valid = bound_box_batch(torch.stack([sx, sy], dim=-1),
                                      height, width)
-    valid &= box_valid                           # Errors.EMPTY_Z / WRONG_MIN_MAX
+    valid = ~culled & ~degenerate & box_valid
 
     return {
         "sx": sx, "sy": sy, "szlin": zlin, "inv_w": inv_w, "aff": aff,
         "clip": clip, "bbox": box, "denom": denom, "valid": valid,
-        "world": packed[..., 10:13],
+        "world": packed[..., 10:13], "culled": culled,
+        "degenerate": degenerate, "box_valid": box_valid,
     }

@@ -22,6 +22,8 @@ Every rank calls :func:`render_frame_sharded` with the whole scene's
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from tpu_renderer_torch.ops import raster_cuda as rc
@@ -31,7 +33,8 @@ from tpu_renderer_torch.ops.pipeline import (SHADER_GENERAL, SLIM_SHADERS,
 from tpu_renderer_torch.parallel.mesh import (ROWS_AXIS, TRIS_AXIS,
                                               all_gather_rows)
 
-__all__ = ["render_frame_sharded", "pad_models_for_tris", "shard_dyn"]
+__all__ = ["render_frame_sharded", "pad_models_for_tris", "shard_dyn",
+           "shard_config"]
 
 #: Per-model packet keys sharded along the face axis (the JAX package's
 #: list without its sampler-window keys).
@@ -44,8 +47,8 @@ _INC_KEYS = ("inc_edge", "inc_dir", "inc_valid")
 
 def _with_models(dyn, models):
     """``dyn`` over ``models``, without the face tables of its own models
-    (``dyn["faces"]``, pipeline.face_tables): the vertex stage builds the
-    new models' own."""
+    (``dyn["faces"]``, pipeline.face_tables): ``render_core``'s entry
+    builds the new models' own (pipeline.with_face_tables)."""
     return dict({k: v for k, v in dyn.items() if k != "faces"}, models=models)
 
 
@@ -88,6 +91,14 @@ def shard_dyn(dyn, n_tris: int, tris_idx: int):
     return _with_models(dyn, models)
 
 
+def shard_config(cfg: SceneConfig, dyn):
+    """``cfg`` with each model's ``num_faces`` its rows in ``dyn`` (a
+    shard of :func:`shard_dyn`), the rows a body slices per model."""
+    return dataclasses.replace(cfg, models=tuple(
+        dataclasses.replace(mc, num_faces=md["vid"].shape[0])
+        for mc, md in zip(cfg.models, dyn["models"])))
+
+
 def render_frame_sharded(cfg: SceneConfig, dyn, mesh, ops=rc.KERNELS):
     """Render one frame across ``mesh`` (parallel.mesh.make_render_mesh);
     every rank of it calls this with the whole scene's ``dyn``.
@@ -114,6 +125,7 @@ def render_frame_sharded(cfg: SceneConfig, dyn, mesh, ops=rc.KERNELS):
     group = None
     if n_tris > 1:
         dyn = shard_dyn(pad_models_for_tris(dyn, n_tris), n_tris, tris_idx)
+        cfg = shard_config(cfg, dyn)
         group = mesh.get_group(TRIS_AXIS)
     frame, zbuf, tid, stencil = render_core(
         cfg, dyn, ops, local_height=local_h, row0=row_idx * local_h,
