@@ -13,7 +13,7 @@ On the CPU, where a program runs its body eagerly over its static buffers:
   static buffers and of its clones; the light and background sites and the
   readback count a visit each and no transfer (on the CPU they make none);
   the counters outlive ``clear_compiled()`` and :func:`profiling.reset`
-  zeroes them;
+  zeroes them, the camera constants' builds and hits among them;
 - the timers that spans stamp while a graph is recorded (the host's clock
   on the CPU), their bound, and how replays made under a profiler are
   read.
@@ -122,10 +122,26 @@ def test_copy_counters_per_call():
     # and background arrays become tensors without a transfer.
     for site in ("readback", "light", "background"):
         assert set(copies[site]) == {"visits"}, site
+    # The first frame built the camera's constants; each later one reads them.
+    assert snap["camera_constants"] == {"builds": 0, "hits": frames}
     compiled.clear_compiled()
     assert profiling.snapshot() == snap
     profiling.reset()
     assert profiling.snapshot() == profiling._fresh()
+
+
+def test_camera_constants_are_counted_and_reset():
+    profiling.reset()
+    assert profiling.snapshot()["camera_constants"] == {"builds": 0,
+                                                        "hits": 0}
+    profiling.count_camera_constants(built=True)
+    for _ in range(3):
+        profiling.count_camera_constants(built=False)
+    assert profiling.snapshot()["camera_constants"] == {"builds": 1,
+                                                        "hits": 3}
+    profiling.reset()
+    assert profiling.snapshot()["camera_constants"] == {"builds": 0,
+                                                        "hits": 0}
 
 
 def test_spans_stamp_timers_while_a_graph_records():

@@ -116,7 +116,7 @@ class _TransformMixin:
         """The host form of :func:`camera_matrices` (numpy, ``dtype``) for
         the bound scene's resolution and systems: the properties below, the
         gizmos and the debug overlay (float64) read it; the render path
-        composes its own (ops/pipeline.py ``_cam_matrices``)."""
+        composes its own (ops/pipeline.py ``frame_inputs``)."""
         scene = self.scene
         if scene is None:
             raise RuntimeError("object is not bound to a Scene")

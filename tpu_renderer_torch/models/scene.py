@@ -370,7 +370,7 @@ class Scene:
     @staticmethod
     def _cam_dyn(cam) -> dict:
         """Camera parameters as float32 CPU tensors: the per-frame matrices
-        are composed on the host (pipeline._cam_matrices)."""
+        are composed on the host (pipeline.frame_inputs)."""
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
         return {"position": f32(cam.position), "center": f32(cam.center),
                 "up": f32(cam.up), "fovy": f32(cam.fovy),

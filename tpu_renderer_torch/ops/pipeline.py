@@ -50,38 +50,44 @@ handedness, per-model flags) and ``dyn`` the tensors. The kernels run
 where the tensors lie: on a CUDA device through the hand-written kernels,
 on the CPU through their plain versions.
 
-Every entry point is "stage, then body". :func:`frame_inputs` composes on
-the host, in float32, what each frame derives from the camera: its
+Every entry point is "stage, then body". :func:`frame_inputs` composes
+on the host, in float32, what each frame derives from the camera: its
 matrices, near and far, its position, K4's depth constants, the debug
-camera's MVP and the skybox's corner rays; it packs them into one staging
-buffer. :func:`with_face_tables` gives the frame its per-face tables
-(:func:`face_tables`, ``dyn["faces"]``; a Scene's dyn carries them). The
-bodies (``_core``, ``_frame``, ``_ssaa``, ``_debug_frame``, ``_stats``)
-read only device tensors: the staged buffer's views, the face tables, and
-what a frame can change (:func:`_program_inputs`: each model's vertices
-and texture maps, the light, the background), never the host camera and
-never a model's own per-face fields. The eager functions
-(:func:`render_core`, :func:`render_frame`, :func:`render_ssaa`,
-:func:`render_debug_frame`, :func:`face_statistics`) move the buffer to
-``dyn``'s device and run the body. Their ``*_jit`` counterparts, the JAX
-package's compiled frame (pipeline.py:953-1060 there), run the same body
-as a program of ops/compiled.py: on a CUDA device a CUDA graph captured
-once per static key and replayed with each frame's inputs, on the CPU the
-body over the program's static buffers.
+camera's MVP and the skybox's corner rays, keeping what does not move
+with the camera's position (:func:`_camera_constants`); it packs them
+into one staging buffer. :func:`with_face_tables` gives the frame its
+per-face tables (:func:`face_tables`, ``dyn["faces"]``; a Scene's dyn
+carries them). The bodies (``_core``, ``_frame``, ``_ssaa``,
+``_debug_frame``, ``_stats``) read only device tensors: the staged
+buffer's views, the face tables, and what a frame can change
+(:func:`_program_inputs`: each model's vertices and texture maps, the
+light, the background), never the host camera and never a model's own
+per-face fields. The eager functions (:func:`render_core`,
+:func:`render_frame`, :func:`render_ssaa`, :func:`render_debug_frame`,
+:func:`face_statistics`) move the buffer to ``dyn``'s device and run the
+body. Their ``*_jit`` counterparts, the JAX package's compiled frame
+(pipeline.py:953-1060 there), run the same body as a program of
+ops/compiled.py: on a CUDA device a CUDA graph captured once per static
+key and replayed with each frame's inputs, on the CPU the body over the
+program's static buffers.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from tpu_renderer_torch.constants import SYSTEM
 from tpu_renderer_torch.models.camera import camera_matrices
 from tpu_renderer_torch.ops import compiled
 from tpu_renderer_torch.ops import raster_cuda as rc
 from tpu_renderer_torch.ops import shading as sh
+from tpu_renderer_torch.ops import transforms as T
 from tpu_renderer_torch.ops.cubemap import fill_skybox, skybox_inputs
 from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.shadow import _cross, edge_tables, quad_tables
@@ -89,6 +95,7 @@ from tpu_renderer_torch.ops.transforms import normalize
 from tpu_renderer_torch.ops.vertex import (_rowvec, gather_faces,
                                            transform_vertices)
 from tpu_renderer_torch.parallel.mesh import all_reduce
+from tpu_renderer_torch.utils import profiling
 from tpu_renderer_torch.utils.profiling import span
 
 __all__ = ["SceneConfig", "ModelConfig", "render_core", "render_frame",
@@ -172,35 +179,150 @@ def _debug_mvp(cfg: SceneConfig, dyn, device):
                          cfg.dbg_projection_type)["MVP"]
 
 
+#: Camera constants kept at most (:func:`_camera_constants`).
+MAX_CAMERA_CONSTANTS = 16
+#: The entries of a frame that do not move with the camera's position,
+#: by what they depend on (:func:`_camera_constants`); the least recently
+#: used is dropped past MAX_CAMERA_CONSTANTS.
+_CAMERA_CONSTANTS = OrderedDict()
+#: Component orders of a cross product:
+#: a × b = a[_C1] * b[_C2] - a[_C2] * b[_C1].
+_C1, _C2 = np.array([1, 2, 0]), np.array([2, 0, 1])
+
+
+def _host32(x):
+    """A camera parameter (a tensor, an array or a number) as a float32
+    numpy array, rounded once to float32 as ``torch.as_tensor(x,
+    dtype=torch.float32)`` rounds it."""
+    if isinstance(x, torch.Tensor):
+        x = x.tolist()
+    return np.asarray(x, np.float32)
+
+
+def _camera_constants(cfg: SceneConfig, projection_type, fovy, near, far):
+    """The entries of a frame that depend on the scene's resolution and
+    systems, the projection type and the camera's ``fovy``, ``near`` and
+    ``far`` (0-d float32 arrays), and not on where the camera stands:
+    {projection, viewport} (4, 4) float32 CPU tensors and ``host``, the
+    buffer's {viewport, near, far, zc} as float32 arrays. Made by the
+    functions that :func:`_cam_matrices` and the stencil's constants call
+    (so in their bits), then kept by those values' float32 bits: a zoom,
+    another near or far or another resolution is another entry."""
+    key = (cfg.resolution, cfg.system, cfg.subsystem, projection_type,
+           fovy.tobytes(), near.tobytes(), far.tobytes())
+    entry = _CAMERA_CONSTANTS.get(key)
+    profiling.count_camera_constants(built=entry is None)
+    if entry is not None:
+        _CAMERA_CONSTANTS.move_to_end(key)
+        return entry
+    fovy_t, near_t, far_t = (torch.from_numpy(v) for v in (fovy, near, far))
+    height, width = cfg.resolution
+    projection = T.perspectives[cfg.subsystem][projection_type][cfg.system](
+        fovy_t, width / height, near_t, far_t)
+    viewport = T.ViewPort(cfg.resolution, far_t, near_t)
+    zc = np.asarray(rc.stencil_scalars(near_t, far_t), np.float32)
+    entry = {"projection": projection, "viewport": viewport,
+             "host": {"viewport": viewport.numpy(), "near": near.copy(),
+                      "far": far.copy(), "zc": zc}}
+    _CAMERA_CONSTANTS[key] = entry
+    while len(_CAMERA_CONSTANTS) > MAX_CAMERA_CONSTANTS:
+        _CAMERA_CONSTANTS.popitem(last=False)
+    return entry
+
+
+def _unit(v):
+    """v / |v| of a float32 (3,) array, as ops/transforms.normalize: the
+    norm from torch's own kernel (its CPU kernel fuses the sum of
+    squares), a zero norm taken as 1."""
+    n = torch.linalg.vector_norm(torch.from_numpy(v), ord=2, dim=-1,
+                                 keepdim=True).item()
+    return v / np.float32(n if n != 0 else 1)
+
+
+def _cross3(a, b):
+    """a × b of float32 (3,) arrays, each component a product less a
+    product, as ops/transforms._cross3."""
+    return a[_C1] * b[_C2] - a[_C2] * b[_C1]
+
+
+def _compose(cfg: SceneConfig, cam, projection_type):
+    """A camera's matrices for a frame, in the float32 operations of
+    models/camera.camera_matrices (so in its bits), with the projection
+    and viewport of :func:`_camera_constants`: {lookat, projection,
+    viewport} float32 CPU tensors (``skybox_inputs`` reads them), the
+    ``MVP`` and the camera's ``position`` as float32 arrays, and the
+    constants' ``host`` arrays. The look-at rotation is built with
+    (center, position, up), as there; the products are torch's own,
+    written into numpy arrays."""
+    fovy, near, far = (_host32(cam[k]).reshape(()) for k in
+                       ("fovy", "near", "far"))
+    constants = _camera_constants(cfg, projection_type, fovy, near, far)
+    position = _host32(cam["position"])
+    eye = position.reshape(3)
+    forward = _unit(eye - _host32(cam["center"]).reshape(3))
+    right = _unit(_cross3(_host32(cam["up"]), forward))
+    rotate = np.eye(4, dtype=np.float32)
+    rotate[:3, 0] = right
+    rotate[:3, 1] = _cross3(forward, right)
+    rotate[:3, 2] = np.float32(-1 if cfg.system == SYSTEM.LH else 1) * forward
+    translate = np.eye(4, dtype=np.float32)
+    translate[3, :3] = -eye
+    lookat = torch.from_numpy(np.empty((4, 4), np.float32))
+    mvp = np.empty((4, 4), np.float32)
+    torch.mm(torch.from_numpy(translate), torch.from_numpy(rotate),
+             out=lookat)
+    torch.mm(lookat, constants["projection"], out=torch.from_numpy(mvp))
+    return {"lookat": lookat, "projection": constants["projection"],
+            "viewport": constants["viewport"], "MVP": mvp,
+            "position": position, "host": constants["host"]}
+
+
+def _frustum_planes(mvp):
+    """ops/frustum.extract_frustum_planes of a (4, 4) float32 MVP as a
+    numpy array: the same sums of its columns, normed by torch's own
+    kernel."""
+    col = mvp.T
+    planes = np.empty((6, 4), np.float32)
+    planes[0::2] = col[3] + col[:3]           # left, bottom, near
+    planes[1::2] = col[3] - col[:3]           # right, top, far
+    t = torch.from_numpy(planes)
+    t.div_(torch.linalg.vector_norm(t, dim=-1, keepdim=True))
+    return planes
+
+
 def frame_inputs(cfg: SceneConfig, dyn):
     """The host stage of a frame: everything it derives from the camera,
-    composed on the CPU in float32 as before (so the bits do not change),
-    packed into one staging buffer.
+    composed on the CPU in float32, packed into one staging buffer.
 
-    Entries: the camera's MVP, viewport, frustum_planes, near and far
-    (:func:`_cam_matrices`), its ``position``, K4's depth constants ``zc``
-    (raster_cuda.stencil_scalars), with a debug camera its ``dbg_MVP``, and
-    over a cubemap the corner rays ``sky_rays`` and triangle scalars
-    ``sky_tri`` (cubemap.skybox_inputs). Returns (buffer (N,) float32 CPU
-    tensor, layout: a tuple of (name, shape), the same for every frame of
-    a scene, which :func:`staged` reads the buffer with).
+    Entries: the camera's MVP, viewport, frustum_planes, near and far, its
+    ``position``, K4's depth constants ``zc`` (raster_cuda.stencil_scalars),
+    with a debug camera its ``dbg_MVP``, and over a cubemap the corner
+    rays ``sky_rays`` and triangle scalars ``sky_tri``
+    (cubemap.skybox_inputs). Each frame composes the look-at matrix, the
+    MVPs and the planes in a few numpy operations and torch's matrix
+    product and norm (:func:`_compose`); the entries that do not move with
+    the camera's position are kept (:func:`_camera_constants`). The bits
+    are those of :func:`_cam_matrices`, :func:`_debug_mvp` and
+    raster_cuda.stencil_scalars. Returns (buffer (N,) float32 CPU tensor,
+    layout: a tuple of (name, shape), the same for every frame of a scene,
+    which :func:`staged` reads the buffer with).
     """
     with span("frame_inputs"):
-        cam = _cam_matrices(cfg, dyn["camera"], "cpu")
-        parts = [(k, cam[k]) for k in ("MVP", "viewport", "frustum_planes",
-                                       "near", "far")]
-        parts.append(("position", torch.as_tensor(dyn["camera"]["position"],
-                                                  dtype=torch.float32)))
-        parts.append(("zc", torch.tensor(rc.stencil_scalars(cam["near"],
-                                                            cam["far"]))))
+        cam = _compose(cfg, dyn["camera"], cfg.cam_projection_type)
+        host = cam["host"]
+        parts = [("MVP", cam["MVP"]), ("viewport", host["viewport"]),
+                 ("frustum_planes", _frustum_planes(cam["MVP"])),
+                 ("near", host["near"]), ("far", host["far"]),
+                 ("position", cam["position"]), ("zc", host["zc"])]
         if cfg.has_debug_camera:
-            parts.append(("dbg_MVP", _debug_mvp(cfg, dyn, "cpu")))
+            dbg = _compose(cfg, dyn["debug_camera"], cfg.dbg_projection_type)
+            parts.append(("dbg_MVP", dbg["MVP"]))
         if cfg.background == "cubemap":
             rays, tri = skybox_inputs(cam)
-            parts += [("sky_rays", rays), ("sky_tri", tri)]
-        layout = tuple((name, tuple(t.shape)) for name, t in parts)
-        buf = torch.cat([t.reshape(-1).to(torch.float32) for _, t in parts])
-        return buf, layout
+            parts += [("sky_rays", rays.numpy()), ("sky_tri", tri.numpy())]
+        layout = tuple((name, a.shape) for name, a in parts)
+        buf = np.concatenate([a for _, a in parts], axis=None)
+        return torch.from_numpy(buf), layout
 
 
 def staged(buf, layout):

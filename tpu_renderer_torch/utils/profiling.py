@@ -22,7 +22,9 @@ Counterpart of ``tpu_renderer/utils/profiling.py``, without its
   and bytes per direction (``h2d``, ``d2d``, ``d2h``; ``h2h`` on the CPU)
   and one visit (:func:`tally`, :func:`count_copies`); the ``fill`` site's
   visits are the compiled calls. The first capture's two parts,
-  ``warmup_ms`` and ``record_ms``, are kept (:func:`note_capture`). These
+  ``warmup_ms`` and ``record_ms``, are kept (:func:`note_capture`), and
+  the builds and hits of the frame's camera constants are counted
+  (:func:`count_camera_constants`). These
   counters and the replay totals are the process's: they live in this
   module, outlive ``compiled.clear_compiled()``, and :func:`snapshot`
   returns them (:func:`reset` zeroes them);
@@ -49,8 +51,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 __all__ = ["span", "Timers", "recording", "replayed", "read_replay_timers",
-           "tally", "count_copies", "note_capture", "snapshot", "reset",
-           "trace", "nan_debug", "summarize_device_trace"]
+           "tally", "count_copies", "count_camera_constants", "note_capture",
+           "snapshot", "reset", "trace", "nan_debug",
+           "summarize_device_trace"]
 
 #: The file :func:`trace` writes into its directory.
 TRACE_FILE = "trace.json"
@@ -69,7 +72,7 @@ MAX_TIMERS = 32
 
 def _fresh():
     return {"copies": {}, "replays": 0, "replay_ms": {}, "warmup_ms": None,
-            "record_ms": None}
+            "record_ms": None, "camera_constants": {"builds": 0, "hits": 0}}
 
 
 _STATE = _fresh()
@@ -207,6 +210,12 @@ def count_copies(site, copies):
         c[1] += b
 
 
+def count_camera_constants(built):
+    """One look-up of a frame's camera constants (pipeline.frame_inputs):
+    a build where ``built``, else a hit."""
+    _STATE["camera_constants"]["builds" if built else "hits"] += 1
+
+
 def note_capture(warmup_ms, record_ms):
     """The two parts of a program's capture; the process keeps its
     first."""
@@ -218,7 +227,9 @@ def snapshot():
     """The process's counters, after reading any noted replay: ``copies``
     ({site: {"visits": n, direction: [copies, bytes]}}), ``replays``
     (replays timed), ``replay_ms`` ({span: device ms summed over them}),
-    ``warmup_ms`` and ``record_ms`` (the first capture's)."""
+    ``warmup_ms`` and ``record_ms`` (the first capture's) and
+    ``camera_constants`` ({"builds": n, "hits": m}, the look-ups of
+    :func:`count_camera_constants`)."""
     read_replay_timers()
     return copy.deepcopy(_STATE)
 
