@@ -12,6 +12,7 @@
   the same pass, against frozen copies of their per-model loops;
 - the Scene keeps its face tables, and the compiled program that reads
   them, across a texture change, and builds new ones for a material change;
+  a texture changed every frame leaves one shared part per mesh in use;
 - a Scene program's inputs are each model's vertices and texture maps, the
   light and the background, and nothing else: no per-face table is a
   static buffer; no Scene frame, eager or compiled, builds face tables,
@@ -327,6 +328,37 @@ def test_face_tables_follow_the_packing():
     assert torch.equal(dyn["faces"]["ks"][0], torch.tensor([8.0, 8.0, 8.0]))
     assert compiled.CACHE.builds == builds + 1
     assert (painted != recoloured).any()
+
+
+def test_texture_changed_every_frame_keeps_one_part():
+    """A diffuse map changed before every frame, as a user paints, leaves
+    the Scene one shared part per mesh (not one per frame), each frame as
+    the eager path renders it; a model taken out of the scene and put back
+    renders from the packet it left."""
+    compiled.clear_compiled()
+    scene = crowd(3)
+    scene.render()
+    builds = compiled.CACHE.builds
+    parts = len(scene._shared)
+    material = scene.models[0].materials["default"]
+    rng = np.random.default_rng(5)
+    for _ in range(6):
+        material.map_Kd = rng.random(material.map_Kd.shape).astype(np.float32)
+        for m in scene.models[:3]:
+            m.bump_version()
+        frame = scene.render()
+        assert len(scene._shared) == parts
+        cfg, dyn = scene._prepare()
+        np.testing.assert_array_equal(frame,
+                                      pl.render_frame(cfg, dyn)[0].numpy())
+    assert compiled.CACHE.builds == builds
+    floor = scene.models.pop()
+    scene.render()
+    scene.models.append(floor)
+    frame = scene.render()
+    assert len(scene._shared) == parts
+    cfg, dyn = scene._prepare()
+    np.testing.assert_array_equal(frame, pl.render_frame(cfg, dyn)[0].numpy())
 
 
 def program_leaves(dyn):

@@ -73,8 +73,9 @@ def _material_table(model: Model, attr: str, width: int) -> np.ndarray:
     return np.stack(out)
 
 
-def _texture_stack(model: Model, attr: str):
-    """Stack all materials' ``attr`` maps, RGB-packed into one int32 texel.
+def _texture_stack(model: Model, attr: str, device="cpu"):
+    """Stack all materials' ``attr`` maps, RGB-packed into one int32 texel,
+    on ``device``.
 
     Textures originate from 8-bit images (core.py:100-105), so quantizing
     back to 8 bits per channel under a per-stack (scale, offset) affine —
@@ -82,8 +83,15 @@ def _texture_stack(model: Model, attr: str):
     maps — reconstructs the original float values exactly. A texel uses 24
     bits, so int32 holds it with the same bits as the JAX package's uint32.
 
-    Returns (stack (N, TH, TW) int32, slot (G,), shape (G, 2), tangent (G,),
-    scale_offset (2,) float32) or None when no material carries the map.
+    The float maps go to ``device`` as they are and are quantized there,
+    one elementwise operation at a time in float32, so each texel gets the
+    bits of the numpy arithmetic ``round(clip((tex - offset) / scale, 0,
+    1) * 255)``: a map changed every frame costs its upload and a few
+    launches, not host passes over every texel.
+
+    Returns (stack (N, TH, TW) int32 tensor, slot (G,), shape (G, 2),
+    tangent (G,), scale_offset (2,) float32 tensor), the tensors on
+    ``device``, or None when no material carries the map.
     """
     groups = model.material_group
     entries = []
@@ -92,28 +100,30 @@ def _texture_stack(model: Model, attr: str):
         tex = mat.__dict__.get(attr)
         if tex is not None:
             tangent = bool((tex.dtype.metadata or {}).get("tangent", False))
-            entries.append((gi, np.asarray(tex, np.float32), tangent))
+            entries.append((gi, torch.as_tensor(
+                np.asarray(tex, np.float32), device=device), tangent))
     if not entries:
         return None
     th = max(t.shape[0] for _, t, _ in entries)
     tw = max(t.shape[1] for _, t, _ in entries)
-    lo = min(float(t.min()) for _, t, _ in entries)
-    scale, offset = (2.0, -1.0) if lo < 0 else (1.0, 0.0)
+    lo = torch.stack([t.min() for _, t, _ in entries]).min()
+    offset = torch.where(lo < 0, lo.new_full((), -1.0), 0.0)
+    scale = 1.0 - offset
 
-    stack = np.zeros((len(entries), th, tw), np.int32)
+    stack = torch.zeros((len(entries), th, tw), dtype=torch.int32,
+                        device=device)
     slot = np.full(len(groups), -1, np.int32)
     shape = np.ones((len(groups), 2), np.float32)
     tangent_flags = np.zeros(len(groups), bool)
     for si, (gi, tex, tangent) in enumerate(entries):
-        q = np.round(np.clip((tex[..., :3] - offset) / scale, 0, 1) * 255)
-        q = q.astype(np.int32)
+        q = (tex[..., :3] - offset) / scale
+        q = q.clamp_(0, 1).mul_(255).round_().to(torch.int32)
         stack[si, :tex.shape[0], :tex.shape[1]] = (
             q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16))
         slot[gi] = si
         shape[gi] = tex.shape[:2]
         tangent_flags[gi] = tangent
-    return (stack, slot, shape, tangent_flags,
-            np.array([scale, offset], np.float32))
+    return (stack, slot, shape, tangent_flags, torch.stack([scale, offset]))
 
 
 def _count_copies(site, way, tensors):
@@ -249,6 +259,10 @@ class Scene:
         skey = tuple(id(s) for s in srcs) + (F, Fp, model._version)
         hit = self._shared.get(skey)
         if hit is None:
+            if cached is not None:
+                # The part this model packed from before: a texture
+                # changed every frame keeps one part, not one per frame.
+                self._shared.pop(cached["_shared_key"], None)
             # The sources are pinned beside the part, so no key can alias
             # the id() of a freed object.
             hit = self._shared[skey] = (
@@ -257,6 +271,7 @@ class Scene:
         packet = {
             "_verts_src": model.vertices,
             "_version": model._version,
+            "_shared_key": skey,
             "verts": torch.as_tensor(model.vertices, dtype=torch.float32,
                                      device=self.device),
             **fields,
@@ -272,8 +287,6 @@ class Scene:
         with ``_faces`` the dict of its per-face tables, ModelConfig's flags
         of it)."""
         faces = model.face_array
-        t = lambda a: torch.as_tensor(a, device=self.device)
-
         vid = _pad_rows(faces[:, :, 0].astype(np.int64), Fp)
         pad_valid = np.zeros(Fp, bool)
         pad_valid[:F] = True
@@ -312,17 +325,17 @@ class Scene:
 
         flags = {}
         for kind, attr in (("kd", "map_Kd"), ("ks", "map_Ks"), ("norm", "norm")):
-            st = _texture_stack(model, attr)
+            st = _texture_stack(model, attr, self.device)
             flags[kind] = st is not None
             if st is None:
                 packet[f"{kind}_slot"] = np.full(Fp, -1, np.int32)
                 packet[f"{kind}_shape"] = np.ones((Fp, 2), np.float32)
                 continue
             stack, slot, shape, tangent, scale_off = st
-            packet[f"{kind}_stack"] = t(stack)
+            packet[f"{kind}_stack"] = stack
             packet[f"{kind}_slot"] = _pad_rows(slot[mtl], Fp)
             packet[f"{kind}_shape"] = _pad_rows(shape[mtl], Fp)
-            packet[f"{kind}_scale_off"] = t(scale_off)
+            packet[f"{kind}_scale_off"] = scale_off
             if kind == "norm":
                 packet["norm_tangent"] = _pad_rows(tangent[mtl], Fp)
         if "norm_tangent" not in packet:
