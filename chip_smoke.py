@@ -11,13 +11,14 @@ exits non-zero without the final line):
    K8's ptxas report (registers, stack, spills: the kernel fails the
    phase if it uses any local memory) and its persistent grid; K3's, for
    both its instances (16-byte and 4-byte accesses), and K9's, for its 24
-   (access width, light type, shadows, background kind), under the same
-   rule;
-3. per kernel: K1-K9 (K5 in its flat, gouraud and pbr layouts; K8 on the
+   (access width, light type, shadows, background kind), and K10's, for
+   its 16 (layout, culling, debug camera), under the same rule;
+3. per kernel: K1-K10 (K5 in its flat, gouraud and pbr layouts; K8 on the
    flagship's silhouette rows, its tables compared over all their rows,
    NaN where NaN, and, as K3 and K9, also timed as a captured graph of
    calls; K4 on K8's tables with their count; K9 on the frame's G-buffer,
-   samples and stencil) against
+   samples and stencil; K10 on the flagship's face tables, and with the
+   debug camera) against
    their plain PyTorch versions on the card, at the flagship frame's
    shapes, each timed with CUDA events (median of a few runs after a
    warm-up) and alone in a profile, beside its bound: the larger of the
@@ -41,13 +42,15 @@ exits non-zero without the final line):
    its plain version; then K9 on its adversarial inputs
    (``k9_adversarial_inputs``: each light type, shadows on and off, a
    colour and a skybox plane, H*W not a multiple of 4, model ids that
-   name no row, a frame without maps), equal to its plain version;
+   name no row, a frame without maps), equal to its plain version; then
+   K10 on its adversarial tables (``k10_adversarial_inputs``) in each of
+   its 16 instances, equal to its plain version;
 4. end to end, general shader: the flagship frame — a seeded procedural
    shadow-casting mesh of 4,992 faces with 1024² diffuse and tangent-space
    normal maps over a textured floor, point light, shadow volumes,
    1024×1024, LH/OpenGL — through ``Scene.render()``, whose first frame
    captures the compiled program (ops/compiled.py) and whose second
-   replays it; K1-K4's, K8's and K9's launch counts must rise in the replay,
+   replays it; K1-K4's and K8-K10's launch counts must rise in the replay,
    and tid, stencil and frame must match the same render through the plain
    versions; then a camera orbit of ``Scene.render()`` frames is timed,
    and a few frames through the eager entry points (``render_eager``) are
@@ -97,8 +100,8 @@ exits non-zero without the final line):
    SSAA_ORBIT-frame orbit pairs and profiled (``tr.ssaa`` and the kernels
    alone); gouraud at ss = 2 through K5; ss = 4 (4096²) once, against its
    plain path, with the coarse-list scratch and the device's peak memory;
-   K1-K5, K8 and K9 timed at 2048² and 4096² beside their bounds
-   (``needed_bytes``), K3, K8 and K9 equal to their plain versions there,
+   K1-K5 and K8-K10 timed at 2048² and 4096² beside their bounds
+   (``needed_bytes``), K3 and K8-K10 equal to their plain versions there,
    each as its wrapper (CUDA events) and as the device time per call of a
    captured graph of 20 wrapper calls (``_graph_ms``: no profile, whose
    events went missing there); then the flagship mesh written with
@@ -135,8 +138,8 @@ exits non-zero without the final line):
    shadowing models' edges E, the silhouette rows n_sil that K8 prepares
    and K4 bins, the active shadow quads, texel-pool bytes, distinct
    texture stacks and an eager profile, with the ``shadow_quads`` and
-   ``stencil`` stages' busy ms; K1-K4, K8 and K9 at the crowd's shapes
-   timed with ``_graph_ms`` beside their bounds (K3, K8 and K9 equal to
+   ``stencil`` stages' busy ms; K1-K4 and K8-K10 at the crowd's shapes
+   timed with ``_graph_ms`` beside their bounds (K3 and K8-K10 equal to
    their plain versions there, K8 also timed with a count of 0: its zero
    rows alone),
    with K1's and K4's coarse lists against their plain version; the two
@@ -145,7 +148,7 @@ exits non-zero without the final line):
 
 Before the last line it prints the card's ``name, power.limit`` line and
 one JSON object with the per-kernel records (each with its launches in
-the render of its path: K1-K4, K8 and K9 from phase 4, each K5 layout from its
+the render of its path: K1-K4 and K8-K10 from phase 4, each K5 layout from its
 shader's render, K6 from the wireframe render, the sharded modes from
 the 1x2 renders' rank whose inputs phase 3 took, the debug modes from
 phase 7 and the debug 1x2 render); the last line is
@@ -199,10 +202,11 @@ def _stencil_constants(dyn, device):
 
 
 def vertex_stage(cfg, dyn, cam_m, dbg_mvp=None):
-    """``pipeline.render_core``'s vertex stage over ``dyn``, which carries
-    its face tables (``pipeline.with_face_tables``): (faces, attrs, the
-    keywords ``verts`` and ``world`` of the shadow pass,
-    ``shadow.quad_tables``)."""
+    """The face batch of ``pipeline.render_core``'s vertex stage over
+    ``dyn``, which carries its face tables (``pipeline.with_face_tables``):
+    the composition that K10's plain version packs (raster_cuda.face_batch),
+    as (faces, attrs, the keywords ``verts`` and ``world`` of the shadow
+    pass, ``shadow.quad_tables``)."""
     from tpu_renderer_torch.ops import pipeline as pl
 
     verts = pl.stacked_vertices(dyn)
@@ -247,12 +251,24 @@ def kernel_inputs(scene):
     inputs["lines"] = pl._wireframe_lines(sx, sy, sz, valid,
                                           zb_sign * cfg.system, h, w)
     inputs["quad_prep"] = prep_args
+    inputs["vertex"] = vertex_args(cfg, dyn, cam_m)
     inputs = {case: (args, {}) for case, args in inputs.items()}
     inputs["stencil"] = (inputs["stencil"][0], {"n_rows": prep_args[2]})
     inputs["shade"] = shade_inputs(cfg, dyn)
     inputs.update(shard_inputs(cfg, dyn, zb_sign))
     inputs.update(debug_inputs(cfg, dyn))
     return inputs, zb_sign
+
+
+def vertex_args(cfg, dyn, cam_m, dbg_mvp=None):
+    """K10's arguments for the frame, as render_core calls it: the stacked
+    vertices, the face tables, the camera, the frame size, the culling
+    flag, the shader's layout and the debug camera's MVP."""
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    slim = cfg.shader in pl.SLIM_SHADERS
+    return (pl.stacked_vertices(dyn), dyn["faces"], cam_m, *cfg.resolution,
+            cfg.backface_culling, cfg.shader if slim else "general", dbg_mvp)
 
 
 def quad_prep_args(cfg, dyn, cam_m):
@@ -267,10 +283,11 @@ def quad_prep_args(cfg, dyn, cam_m):
 
 
 def debug_inputs(cfg, dyn):
-    """K1's and K7's debug-mode inputs: the scene with
+    """K1's, K7's and K10's debug-mode inputs: the scene with
     ``flagship_debug_camera``, its face table and debug planes for K1
-    (``visibility_dbg``), and the SHARD_RANK rank's shard inputs for K1 z
-    only and K7 (``visibility_z_dbg``, ``tidpass_dbg``), all with fdbg."""
+    (``visibility_dbg``), the SHARD_RANK rank's shard inputs for K1 z
+    only and K7 (``visibility_z_dbg``, ``tidpass_dbg``), all with fdbg,
+    and K10's arguments with the debug camera's MVP (``vertex_dbg``)."""
     import tpu_renderer_torch as tr
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
@@ -282,8 +299,8 @@ def debug_inputs(cfg, dyn):
     device = dyn["light"]["position"].device
     h, w = cfg.resolution
     cam_m = pl._cam_matrices(cfg, dyn["camera"], device)
-    faces, _, _ = vertex_stage(cfg, dyn, cam_m,
-                               pl._debug_mvp(cfg, dyn, device))
+    dbg_mvp = pl._debug_mvp(cfg, dyn, device)
+    faces, _, _ = vertex_stage(cfg, dyn, cam_m, dbg_mvp)
     fdata, flags = rc.pack_faces(faces), rc.face_flags(faces)
     fdbg = rc.pack_debug_planes(faces)
     zb_sign, _ = rc.visibility_plain(fdata, flags, h, w, cfg.system,
@@ -291,6 +308,7 @@ def debug_inputs(cfg, dyn):
     shard = shard_inputs(cfg, dyn, zb_sign)
     return {"visibility_dbg": ((fdata, flags, h, w, cfg.system),
                                {"fdbg": fdbg}),
+            "vertex_dbg": (vertex_args(cfg, dyn, cam_m, dbg_mvp), {}),
             "visibility_z_dbg": shard["visibility_z"],
             "tidpass_dbg": shard["tidpass"]}
 
@@ -558,9 +576,117 @@ def k9_adversarial_inputs(case, seed=0, device="cpu"):
     return (*args, light, to(camera), to(background)), {}
 
 
+#: K10's adversarial tables (``k10_adversarial_inputs``): frame (H, W),
+#: vertices, faces, and the padding rows at the end of the faces.
+K10_ADV_RES = (61, 97)
+K10_ADV_VERTS, K10_ADV_FACES, K10_ADV_PAD = 300, 512, 32
+#: Its first faces: name -> (vertex ids, valid without culling: True,
+#: False, or None where the kind of face does not say).
+K10_ADV_ROWS = {"one vertex": ((12, 12, 12), False),
+                "collinear": ((7, 8, 9), None),
+                "zero area": ((12, 12, 13), False),
+                "w = 0": ((0, 11, 12), None),
+                "behind": ((1, 11, 12), None),
+                "nan": ((2, 11, 12), None),
+                "inf": ((3, 11, 12), None),
+                "1e30": ((4, 11, 12), None),
+                "off the frame": ((5, 6, 14), False),
+                "front": ((11, 12, 13), True),
+                "back": ((11, 13, 12), True),
+                "near": ((10, 11, 12), None),
+                "eye, behind, near": ((0, 1, 10), None),
+                "behind, two": ((1, 12, 13), None)}
+
+
+def k10_adversarial_inputs(layout="general", culling=False, debug=False,
+                           seed=0, device="cpu"):
+    """K10's seeded adversarial inputs, as (args, kwargs) of
+    ``raster_cuda.vertex_faces``: K10_ADV_VERTS vertices about the origin
+    seen by a camera at (0.5, 0.8, 3) (fovy 60, near 0.1, far 20, LH,
+    OpenGL, K10_ADV_RES), among them the camera's own position (clip w =
+    0), points behind it and just in front of it, a NaN, an inf and a 1e30
+    coordinate, points far off the frame and three collinear ones;
+    K10_ADV_FACES faces of seeded ids, among them a face of one vertex
+    three times, a collinear one, a zero-area one (two ids equal), faces
+    through each special vertex (straddling w = 0, behind the camera, not
+    finite, off the frame) and one face in both windings (K10_ADV_ROWS), a
+    tenth of the rest with a special vertex, and K10_ADV_PAD padding rows at
+    the end;
+    per face seeded constants (uv with NaN planted, slots from -1, map
+    shapes, Ka, Pm, Pr), vertex normals on about half the faces, clip and
+    z-write each on about half. With ``debug`` the debug camera's MVP (at
+    (-1, 2, 1.5), near 1, far 4, which cut the vertices)."""
+    import torch
+    import tpu_renderer_torch as tr
+    from tpu_renderer_torch.constants import SUBSYSTEM, SYSTEM
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import raster_cuda as rc
+    from tpu_renderer_torch.ops.lightning import Lightning
+
+    rng = np.random.default_rng(seed)
+    h, w = K10_ADV_RES
+    cam = tr.Camera((0.5, 0.8, 3.0), center=(0, 0, 0), fovy=60, near=0.1,
+                    far=20)
+    dbg = tr.Camera((-1.0, 2.0, 1.5), center=(0, 0, 0), fovy=70, near=1.0,
+                    far=4.0)
+    cfg = pl.SceneConfig(resolution=(h, w), system=SYSTEM.LH,
+                         subsystem=SUBSYSTEM.OPENGL, shadows=False,
+                         cam_projection_type=cam.projection_type,
+                         backface_culling=culling,
+                         light_type=Lightning.POINT_LIGHTNING, models=())
+    cam_m = pl._cam_matrices(cfg, tr.Scene._cam_dyn(cam), device)
+    dbg_mvp = (pl._cam_matrices(cfg, tr.Scene._cam_dyn(dbg), device,
+                                dbg.projection_type)["MVP"]
+               if debug else None)
+    eye = np.array([0.5, 0.8, 3.0])
+    v = np.ones((K10_ADV_VERTS, 4))
+    v[:, :3] = rng.uniform(-2.0, 2.0, (K10_ADV_VERTS, 3))
+    v[0, :3] = eye                                  # clip w = 0
+    v[1, :3] = eye * 1.5                            # behind the camera
+    v[2, :3] = (np.nan, 0.0, 0.0)
+    v[3, :3] = (np.inf, 0.0, 0.0)
+    v[4, :3] = (1e30, 1e30, 0.0)
+    v[5, :3] = (40.0, 0.0, 0.0)                     # off the frame
+    v[6, :3] = (40.0, 1.0, 0.0)
+    v[7:10, :3] = ((0.0, 0.0, 0.0), (0.5, 0.5, 0.5), (1.0, 1.0, 1.0))
+    v[10, :3] = eye * 0.97                          # just in front
+    v[11:14, :3] = ((0.0, 0.0, 0.0), (0.5, 0.0, 0.0), (0.0, 0.5, 0.0))
+    v[14, :3] = (40.0, 0.0, 1.0)
+    g = K10_ADV_FACES
+    vid = rng.integers(15, K10_ADV_VERTS, (g, 3))
+    special = rng.random(g) < 0.1
+    vid[special, rng.integers(0, 3, int(special.sum()))] = rng.integers(
+        0, 11, int(special.sum()))
+    vid[:len(K10_ADV_ROWS)] = [ids for ids, _ in K10_ADV_ROWS.values()]
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=device)
+    flag = lambda p: torch.tensor(rng.random(g) < p, device=device)
+    uv = rng.random((g, 3, 2))
+    uv[rng.random((g, 3, 2)) < 0.02] = np.nan
+    has_vn = flag(0.5)
+    vn = f32(rng.normal(size=(g, 3, 3))) * has_vn[:, None, None]
+    ft = {"vid": torch.tensor(vid, device=device), "uv": f32(uv),
+          "kd": f32(rng.random((g, 3))), "ks": f32(rng.random((g, 3))),
+          "ns": f32(rng.random(g) * 100), "pm": f32(rng.random(g)),
+          "pr": f32(rng.random(g)), "ka": f32(rng.random((g, 3))),
+          **{f"{k}_slot": i32(rng.integers(-1, 6, g))
+             for k in ("kd", "ks", "norm")},
+          **{f"{k}_shape": f32(rng.integers(1, 65, (g, 2)))
+             for k in ("kd", "ks", "norm")},
+          "norm_tangent": flag(0.5), "vn": vn, "has_vn": has_vn,
+          "clip_en": flag(0.5), "z_write": flag(0.5),
+          "pad_valid": torch.arange(g, device=device) < g - K10_ADV_PAD,
+          "model_id": i32(rng.integers(0, 6, g))}
+    ft["attr_consts"] = rc.attr_consts(ft)
+    ft["face_bits"] = rc.face_bits(ft)
+    return (f32(v), ft, cam_m, h, w, culling, layout, dbg_mvp), {}
+
+
 def wrapper_of(case):
     """raster_cuda wrapper name of a kernel case."""
     case = case.removesuffix("_dbg").removesuffix("_fill")
+    if case == "vertex":
+        return "vertex_faces"
     if case.startswith("gbuffer_slim"):
         return "gbuffer_slim"
     if case == "visibility_z":
@@ -597,10 +723,12 @@ def _tile_sums(mask):
 #: edge reaches for K6 (one candidate test: kk, the minor coordinate, six
 #: compares, the depth and its test), per row K8 prepares (the projection
 #: of its 12 slots alone: two 4x4 row-vector products and four divides
-#: each; the clip and pack not counted), and per computed pixel of the
-#: per-pixel kernels (K3: per kind).
+#: each; the clip and pack not counted), per face K10 transforms (its three
+#: vertices through two 4x4 row-vector products, 1/w and the depth, 70
+#: each; the coefficients, box and planes not counted), and per computed
+#: pixel of the per-pixel kernels (K3: per kind).
 OPS_PER_VISIT = {"visibility": 20, "tidpass": 20, "stencil": 5, "lines": 16,
-                 "quad_prep": 720}
+                 "quad_prep": 720, "vertex_faces": 210}
 OPS_PER_PIXEL = {"gbuffer": 100, "sample_textures": 45,
                  "gbuffer_slim_flat": 0, "gbuffer_slim_gouraud": 25,
                  "gbuffer_slim_pbr": 40, "shade": 100}
@@ -642,10 +770,12 @@ def needed_bytes(case, args, kw, out):
     from tpu_renderer_torch.ops import raster_cuda as rc
     from tpu_renderer_torch.ops import raster_plain as rp
 
+    kind = wrapper_of(case)
+    if kind == "vertex_faces":
+        return vertex_bytes(args, out)
     outs = [t for t in (out if isinstance(out, tuple) else (out,))
             if t is not None]
     n = sum(t.numel() * t.element_size() for t in outs)
-    kind = wrapper_of(case)
     if kind == "quad_prep":
         # The silhouette flags and the order over every edge, per
         # silhouette row its quad and order entry read (68 B), and both
@@ -695,6 +825,34 @@ def needed_bytes(case, args, kw, out):
     return (n + tid.numel() * 4 + int(hit.any(0).sum()) * 8
             + faces.numel() * ftex.shape[1] * 3 * 4 + used.numel() * 8
             + torch.unique(idx[hit]).numel() * 4)
+
+
+#: Packing-constant columns K10 reads per face and layout
+#: (raster_cuda.attr_consts), besides vn: the general row's uv and its 18
+#: columns from kd, and the pbr row's pm, pr and ka.
+VERTEX_CONST_COLS = {"general": 6 + 18, "flat": 0, "gouraud": 0, "pbr": 5}
+
+
+def vertex_bytes(args, out):
+    """Bytes K10 must move for its frame: every output written once (fdata,
+    flags, the debug planes, the shading row, and the slim layouts' world
+    table; the general layout's world is a view of its row); per face its
+    three ids, its bits word and the constant columns of its layout, vn
+    where the face has vertex normals and the layout reads vn; each
+    vertex some face names, once; the camera (34 floats, 16 more with a
+    debug camera)."""
+    import torch
+
+    verts, ft, _, _, _, _, layout, dbg_mvp = args
+    fdata, flags, fdbg, rows, world = out
+    outs = [fdata, flags, fdbg, rows] + ([] if layout == "general"
+                                         else [world])
+    n = sum(t.numel() * t.element_size() for t in outs if t is not None)
+    g = ft["vid"].shape[0]
+    vn = 0 if layout == "flat" else int(ft["has_vn"].sum()) * 9 * 4
+    return (n + g * (3 * 8 + 4 + VERTEX_CONST_COLS[layout] * 4) + vn
+            + torch.unique(ft["vid"]).numel() * verts.shape[1] * 4
+            + (34 + (0 if dbg_mvp is None else 16)) * 4)
 
 
 def shade_bytes(args):
@@ -789,6 +947,8 @@ def bound(case, args, kw, out, zb_sign):
         ops = _lines_reach(args)
     elif kind == "quad_prep":
         ops = _prep_rows(args)
+    elif kind == "vertex_faces":
+        ops = args[1]["vid"].shape[0]
     else:
         ops = _computed(case, args, kw)[0].double().sum()
     per = OPS_PER_VISIT.get(kind, OPS_PER_PIXEL.get(
@@ -845,7 +1005,7 @@ def _time_ms(fn, runs=5):
 #: The port's kernels as the profiler names them (csrc/*.cu).
 _OUR_KERNEL = re.compile(r"::(visibility|tidpass|gbuffer|gbuffer_slim|sample|"
                          r"stencil|lines|lines_clear|coarse_bins|quad_prep|"
-                         r"shade)_kernel[<(]")
+                         r"shade|vertex)_kernel[<(]")
 #: The kernels (``_OUR_KERNEL``'s names) each wrapper launches once per call
 #: where they are not just the wrapper's name: K1, K4 and K7 bin first with
 #: csrc/bins.cu, K6 clears its mask first.
@@ -853,7 +1013,8 @@ _WRAPPER_KERNELS = {"visibility": ("coarse_bins", "visibility"),
                     "stencil": ("coarse_bins", "stencil"),
                     "tidpass": ("coarse_bins", "tidpass"),
                     "lines": ("lines_clear", "lines"),
-                    "sample_textures": ("sample",)}
+                    "sample_textures": ("sample",),
+                    "vertex_faces": ("vertex",)}
 
 
 def _alone_ms(fn, wrapper, runs=3, tries=3):
@@ -959,7 +1120,7 @@ def _compare(name, got, ref):
     on disagreement."""
     import torch
 
-    if wrapper_of(name) == "shade":
+    if wrapper_of(name) in ("shade", "vertex_faces"):
         if not _same(got, ref):
             raise AssertionError(f"{name}: differs from its plain version: "
                                  f"{ulps_apart(got, ref)}")
@@ -1165,6 +1326,10 @@ SOURCES = {
     # :388, then shading.shade_general).
     "shade": ("tpu_renderer_torch/csrc/shade.cu",
               "tpu_renderer/ops/pipeline.py:388"),
+    # Not a pallas_call: the XLA vertex stage (vertex.py, then
+    # pipeline._build_face_batch :133 and raster_pallas.pack_faces :261).
+    "vertex_faces": ("tpu_renderer_torch/csrc/vertex.cu",
+                     "tpu_renderer/ops/pipeline.py:133"),
 }
 #: The TPU kernel a sharded mode replaces, where its wrapper's differs.
 REPLACES = {
@@ -1179,21 +1344,21 @@ REPLACES = {
 #: The kernels each render path launches (flagship frame, shadows on: K8
 #: then K4).
 PATH_KERNELS = {
-    "general": ("visibility", "gbuffer", "sample_textures", "quad_prep",
-                "stencil", "shade"),
-    "slim": ("visibility", "gbuffer_slim", "quad_prep", "stencil"),
-    "wireframe": ("visibility", "gbuffer_slim", "quad_prep", "stencil",
-                  "lines"),
-    "sharded": ("visibility_z", "tidpass", "gbuffer", "sample_textures",
+    "general": ("vertex", "visibility", "gbuffer", "sample_textures",
                 "quad_prep", "stencil", "shade"),
-    "sharded_slim": ("visibility_z", "tidpass", "gbuffer_slim", "quad_prep",
-                     "stencil"),
-    "overlay": ("visibility_dbg", "gbuffer", "sample_textures", "quad_prep",
-                "stencil", "shade"),
-    "wireframe_dbg": ("visibility_dbg", "gbuffer_slim", "quad_prep",
-                      "stencil", "lines"),
-    "sharded_slim_dbg": ("visibility_z_dbg", "tidpass_dbg", "gbuffer_slim",
-                         "quad_prep", "stencil"),
+    "slim": ("vertex", "visibility", "gbuffer_slim", "quad_prep", "stencil"),
+    "wireframe": ("vertex", "visibility", "gbuffer_slim", "quad_prep",
+                  "stencil", "lines"),
+    "sharded": ("vertex", "visibility_z", "tidpass", "gbuffer",
+                "sample_textures", "quad_prep", "stencil", "shade"),
+    "sharded_slim": ("vertex", "visibility_z", "tidpass", "gbuffer_slim",
+                     "quad_prep", "stencil"),
+    "overlay": ("vertex_dbg", "visibility_dbg", "gbuffer", "sample_textures",
+                "quad_prep", "stencil", "shade"),
+    "wireframe_dbg": ("vertex_dbg", "visibility_dbg", "gbuffer_slim",
+                      "quad_prep", "stencil", "lines"),
+    "sharded_slim_dbg": ("vertex_dbg", "visibility_z_dbg", "tidpass_dbg",
+                         "gbuffer_slim", "quad_prep", "stencil"),
 }
 
 
@@ -1531,7 +1696,8 @@ DEBUG_ORBIT = 10
 def _debug_phase(tr, scene, start, records):
     """Phase 7 (module docstring): the flagship with the debug camera and
     both gizmos; ``scene`` is the flagship without them, which it is timed
-    against. Puts its K1 launches into the ``visibility_dbg`` record."""
+    against. Puts its K1 and K10 launches into the ``visibility_dbg`` and
+    ``vertex_dbg`` records."""
     import torch
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
@@ -1546,7 +1712,8 @@ def _debug_phase(tr, scene, start, records):
     if min(launched.values()) < 1:
         raise AssertionError(f"debug-camera path skipped a kernel: "
                              f"{launched}")
-    records["visibility_dbg"]["launches"] = launched["visibility_dbg"]
+    for key in ("visibility_dbg", "vertex_dbg"):
+        records[key]["launches"] = launched[key]
     tid_match, frame_match, fg = _check_render(dbg, frame, debug=False)
     red = int(((frame[..., 0] == 255) & (frame[..., 1] == 0)
                & (frame[..., 2] == 0)).sum())
@@ -1616,18 +1783,18 @@ SSAA_PAIRS = 3
 SSAA_ORBIT = 10
 #: K1-K5 and K8 as phase 8 times them at the supersampled sizes.
 SSAA_CASES = ("visibility", "gbuffer", "sample_textures", "stencil",
-              "gbuffer_slim_gouraud", "quad_prep", "shade")
+              "gbuffer_slim_gouraud", "quad_prep", "shade", "vertex")
 
 
 def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=(), detail=False):
-    """``cases`` of K1-K5, K8 and K9 (K5 in the gouraud layout; K8 also as
+    """``cases`` of K1-K5 and K8-K10 (K5 in the gouraud layout; K8 also as
     ``quad_prep_fill``, its count set to 0: the zero rows alone) at the
     scene's ss-scaled size, on inputs built through the kernels (K4 on
     K8's tables and count, K9 on the frame's): {case: (wrapper ms, graph
     ms, bound ms, bound by, MB)}, for K8 also "<case> bound without zero
     rows" (ms), with ``detail`` for each case "<case> alone, plain" (its
     kernels alone in a profile and its plain version, ms), and K1's
-    and K4's coarse-list scratch bytes; K3, K8 and K9 must equal their
+    and K4's coarse-list scratch bytes; K3 and K8-K10 must equal their
     plain versions;
     for each case of ``lists`` (K1, K4), its coarse lists
     checked against their plain version, as (scratch bytes, longest list,
@@ -1666,6 +1833,7 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=(), detail=False):
     }
     if "shade" in cases:
         inputs["shade"] = shade_inputs(cfg, dyn, rc.KERNELS)[0]
+    inputs["vertex"] = vertex_args(cfg, dyn, cam_m)
     kws = {"stencil": {"n_rows": prep_args[2]}}
     del gb
     out = {}
@@ -1674,7 +1842,8 @@ def _kernel_times(scene, ss=1, cases=SSAA_CASES, lists=(), detail=False):
         kern = getattr(rc, wrapper_of(case))
         got = kern(*args, **kw)
         torch.cuda.synchronize()
-        if wrapper_of(case) in ("quad_prep", "sample_textures", "shade"):
+        if wrapper_of(case) in ("quad_prep", "sample_textures", "shade",
+                                "vertex_faces"):
             _compare(wrapper_of(case), got, getattr(
                 rc, f"{wrapper_of(case)}_plain")(*args, **kw))
         ms = _time_ms(lambda: kern(*args, **kw))
@@ -2019,13 +2188,13 @@ def _compiled_phase(tr, scene, start, sky):
 #: Phase 10's paths: bench_torch's configurations, each with the kernels
 #: its replay must launch (cfg4's models carry no texture map, so no K3).
 CONFIG_KERNELS = {
-    "cfg1": ("visibility", "gbuffer_slim"),
-    "cfg2-persp": ("visibility", "gbuffer", "sample_textures"),
-    "cfg2-ortho": ("visibility", "gbuffer", "sample_textures"),
-    "cfg3": ("visibility", "gbuffer", "sample_textures"),
-    "cfg3-rh-shadows": ("visibility", "gbuffer", "sample_textures",
+    "cfg1": ("vertex", "visibility", "gbuffer_slim"),
+    "cfg2-persp": ("vertex", "visibility", "gbuffer", "sample_textures"),
+    "cfg2-ortho": ("vertex", "visibility", "gbuffer", "sample_textures"),
+    "cfg3": ("vertex", "visibility", "gbuffer", "sample_textures"),
+    "cfg3-rh-shadows": ("vertex", "visibility", "gbuffer", "sample_textures",
                         "quad_prep", "stencil"),
-    "cfg4": ("visibility", "gbuffer"),
+    "cfg4": ("vertex", "visibility", "gbuffer"),
     "cfg5-merged": PATH_KERNELS["general"],
     "cfg5-instances": PATH_KERNELS["general"],
     "cfg6": PATH_KERNELS["general"],
@@ -2036,7 +2205,7 @@ CROWD_ORBIT = 5
 #: K1-K4 and K8 as phase 10 times them at the crowd's shapes; K8 also with a
 #: count of 0 (``quad_prep_fill``: its zero rows alone).
 CROWD_CASES = ("visibility", "gbuffer", "sample_textures", "quad_prep",
-               "quad_prep_fill", "stencil", "shade")
+               "quad_prep_fill", "stencil", "shade", "vertex")
 
 
 def config_position(position, center, t):
@@ -2273,6 +2442,20 @@ def main():
           f"registers {regs}; point light, shadows, colour: vector "
           f"{k9[(1, 1, 1, 0)]}, scalar {k9[(0, 1, 1, 0)]}", flush=True)
 
+    # K10's 16 instances (layout, culling, debug camera) keep each face in
+    # registers.
+    k10 = {(layout, cull, dbg): ptxas_report(
+        _build.last_build["log"],
+        f"vertex_kernelILi{layout}ELb{cull}ELb{dbg}E")
+        for layout in range(4) for cull in (1, 0) for dbg in (1, 0)}
+    if any(r["stack"] or r["spill_stores"] or r["spill_loads"]
+           for r in k10.values()):
+        raise AssertionError(f"vertex_kernel uses local memory: {k10}")
+    print(f"[2 K10] vertex_kernel ptxas: 16 instances, no stack or spills, "
+          f"registers {sorted({r['registers'] for r in k10.values()})}; "
+          f"general, no culling, no debug camera {k10[(0, 0, 0)]}",
+          flush=True)
+
     # 3. per kernel, at the flagship frame's shapes
     scene = build_flagship("cuda")
     start = scene.camera.position.copy()
@@ -2298,7 +2481,8 @@ def main():
                      f"bbox list {fine}")
         ms = _time_ms(lambda: kern(*args, **kw))
         alone = _alone_ms(lambda: kern(*args, **kw), wrapper_of(name))
-        if wrapper_of(name) in ("quad_prep", "sample_textures", "shade"):
+        if wrapper_of(name) in ("quad_prep", "sample_textures", "shade",
+                                "vertex_faces"):
             bins += (f"; graph {_graph_ms(lambda: kern(*args, **kw)):.4f} ms"
                      f" (device ms per call of a captured graph of 20 calls)")
         plain_ms = _time_ms(lambda: plain(*args, **kw), runs=3)
@@ -2344,6 +2528,20 @@ def main():
         _compare("shade", got, rc.shade_plain(*args, **kw))
         print(f"[3 adversarial] {case} {K9_ADV[case]}: exact; foreground px "
               f"{int((args[0] >= 0).sum())} of {args[0].numel()}", flush=True)
+    for layout in rc.VERTEX_LAYOUTS:
+        for culling in (False, True):
+            for debug in (False, True):
+                args, kw = k10_adversarial_inputs(layout, culling, debug,
+                                                  device="cuda")
+                got = rc.vertex_faces(*args, **kw)
+                torch.cuda.synchronize()
+                _compare("vertex", got, rc.vertex_faces_plain(*args, **kw))
+                valid = int((got[1] & 1).sum())
+                print(f"[3 adversarial] vertex-adv {layout}, culling "
+                      f"{culling}, debug camera {debug}: exact; valid faces "
+                      f"{valid} of {got[1].numel()}, non-finite fdata "
+                      f"values {int((~torch.isfinite(got[0])).sum())}",
+                      flush=True)
     from tpu_renderer_torch.ops import raster_plain as rp
     ppc = {case: int(((inputs[case][0][1] & rp.FLAG_PPC) > 0).sum())
            for case in ("visibility", "visibility_dbg")}

@@ -7,10 +7,11 @@ of a captured graph of 20 calls (``chip_smoke._graph_ms``), in
     python3 kernel_times.py lines tidpass [--root DIR] [--rounds 3]
     python3 kernel_times.py sample_textures --at flagship ss2 ss4 cfg5-merged
     python3 kernel_times.py shade --at flagship ss2 ss4 cfg5-instances --detail
+    python3 kernel_times.py vertex --at flagship ss2 cfg5-instances --detail
     python3 kernel_times.py --shadow cfg5-merged [--root DIR] [--rounds 3]
 
 Cases are the keys of ``chip_smoke.kernel_inputs`` (``visibility``,
-``lines``, ``tidpass``, ...). ``--at SHAPE ...`` times them instead
+``lines``, ``tidpass``, ``vertex`` (K10), ...). ``--at SHAPE ...`` times them instead
 through ``chip_smoke._kernel_times`` (phases 8 and 10: inputs built
 through the kernels; wrapper ms, graph ms, bound ms and MB) at each
 SHAPE: ``flagship``, ``ss2`` and ``ss4`` (the flagship at 2048² and

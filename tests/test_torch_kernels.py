@@ -48,7 +48,12 @@ This file imports no JAX, so it also runs on the card's host:
   active rows lie past it; a captured K8 replays with a shrinking, then
   growing count, up to a capacity past its persistent grid's group count,
   and a captured Scene.render() with a shrinking silhouette count, and
-  each replay equals the plain version and the eager frame.
+  each replay equals the plain version and the eager frame;
+- K10 (``vertex_faces``) on the card equals its plain version on the
+  scene's face tables, with its debug camera, and on the adversarial
+  tables of ``chip_smoke.k10_adversarial_inputs`` (tests/
+  test_torch_vertex_kernel.py holds it in every instance and at the
+  flagship's and the crowd's sizes).
 
 ``build_scene`` is the shared procedural test scene: test_torch_slice.py
 and test_torch_modules.py build the same scene in the JAX package.
@@ -568,7 +573,10 @@ CASES = {"visibility": ("visibility", "visibility"),
          "shade": ("shade", "shade"),
          "shade-row0-sky": ("shade", "shade"),
          "shade-instances": ("shade", "shade"),
-         **{name: ("shade", "shade") for name in chip_smoke.K9_ADV}}
+         **{name: ("shade", "shade") for name in chip_smoke.K9_ADV},
+         "vertex": ("vertex_faces", "vertex"),
+         "vertex-dbg": ("vertex_faces", "vertex_dbg"),
+         "vertex-adv-pbr-cull-dbg": ("vertex_faces", "vertex_dbg")}
 
 #: K3's adversarial cases (chip_smoke.k3_adversarial_inputs): case id ->
 #: ``vector`` (its scalar instance, then its vector one with a tail).
@@ -629,6 +637,7 @@ def stage_inputs():
             torch.cat([md["pad_valid"] for md in dyn["models"]]),
             zb * cfg.system, h, w),
         "quad_prep": prep_args,
+        "vertex": chip_smoke.vertex_args(cfg, dyn, cam_m),
     }
     for layout in rc.SLIM_CHANNELS:
         inputs[f"gbuffer_slim-{layout}"] = (
@@ -664,6 +673,10 @@ def stage_inputs():
     fdbg = rc.pack_debug_planes(faces)
     inputs["visibility-dbg"] = ((fdata, flags, h, w, cfg.system),
                                 {"fdbg": fdbg})
+    inputs["vertex-dbg"] = (chip_smoke.vertex_args(
+        cfg, dyn, cam_m, pl._debug_mvp(cfg, dyn, "cpu")), {})
+    inputs["vertex-adv-pbr-cull-dbg"] = chip_smoke.k10_adversarial_inputs(
+        "pbr", culling=True, debug=True)
     zb, _ = rc.visibility_plain(fdata, flags, h, w, cfg.system, fdbg=fdbg)
     shard = shard_inputs(cfg, dyn, zb, mesh=(2, 2), at=(1, 0))
     inputs["visibility_z-dbg-shard"] = shard["visibility_z"]

@@ -43,6 +43,17 @@ constexpr int GB_CHANNELS = 32;
 constexpr int Q_COLS = 44;   // quad table (pack_quads)
 constexpr int QI_COLS = 8;
 
+// One row vector times a row-major 4x4 matrix, summed left to right
+// (vertex._rowvec).
+__device__ __forceinline__ float4 rowvec(float4 v, const float* m) {
+    float out[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+        out[c] = ((v.x * m[c] + v.y * m[4 + c]) + v.z * m[8 + c]) +
+                 v.w * m[12 + c];
+    return make_float4(out[0], out[1], out[2], out[3]);
+}
+
 // The six linearized plane conditions of one clip space at barycentrics
 // (u, v, w): q_j = u*e[j] + v*e[6 + j] + w*e[12 + j] for the pre-scaled
 // planes e, each (q_j > 0) == s_pos. A NaN q fails q > 0, as in

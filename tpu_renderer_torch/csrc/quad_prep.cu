@@ -85,17 +85,6 @@ __device__ __forceinline__ float dot4(float4 a, const float* p) {
     return ((a.x * p[0] + a.y * p[1]) + a.z * p[2]) + a.w * p[3];
 }
 
-// One row vector times a row-major 4x4 matrix, summed left to right
-// (vertex._rowvec).
-__device__ __forceinline__ float4 rowvec(float4 v, const float* m) {
-    float out[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-        out[c] = ((v.x * m[c] + v.y * m[4 + c]) + v.z * m[8 + c]) +
-                 v.w * m[12 + c];
-    return make_float4(out[0], out[1], out[2], out[3]);
-}
-
 __device__ __forceinline__ float4 shfl4(float4 v, int src) {
     return make_float4(__shfl_sync(FULL, v.x, src, GROUP),
                        __shfl_sync(FULL, v.y, src, GROUP),

@@ -74,6 +74,11 @@ _SIGNATURES = {
                  _P, _P],
     # stamps (int64 slots the card can write), slot, stream
     "tr_stamp": [_P, _I, _P],
+    # verts, vid, attr_consts, face_bits, mvp, viewport, near, far, dbg_mvp
+    # (null: no debug camera), n_faces, H, W, culling, layout, fdata, flags,
+    # fdbg (null without dbg_mvp), rows, world (null: general layout),
+    # stream
+    "tr_vertex": [_P] * 9 + [_I] * 5 + [_P] * 5 + [_P],
 }
 
 _lib = None

@@ -1,8 +1,8 @@
 """The whole-frame render path, in PyTorch: the single-device kernel
 branches of ``tpu_renderer/ops/pipeline.py``.
 
-    vertex stage over every model at once           ops/vertex.py,
-       (packing-only tables: face_tables)           _build_face_batch
+    K10 vertex stage over every model at once       raster_cuda.vertex_faces
+       (packing-only tables: face_tables)
     -> K1 visibility: z-buffer + winning face id    raster_cuda.visibility
     general shader:
     -> K2 G-buffer: 32 interpolated channels        raster_cuda.gbuffer
@@ -92,8 +92,6 @@ from tpu_renderer_torch.ops.cubemap import fill_skybox, skybox_inputs
 from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.shadow import _cross, edge_tables, quad_tables
 from tpu_renderer_torch.ops.transforms import normalize
-from tpu_renderer_torch.ops.vertex import (_rowvec, gather_faces,
-                                           transform_vertices)
 from tpu_renderer_torch.parallel.mesh import all_reduce
 from tpu_renderer_torch.utils import profiling
 from tpu_renderer_torch.utils.profiling import span
@@ -348,11 +346,6 @@ def _stage(cfg: SceneConfig, dyn):
     return staged(buf.to(_device(dyn)), layout)
 
 
-#: Per-face shading attributes of a model's packet, which the vertex stage
-#: hands on as they are.
-_FACE_ATTRS = ("uv", "kd", "ks", "ns", "pm", "pr", "ka", "kd_slot",
-               "ks_slot", "norm_slot", "norm_tangent", "kd_shape",
-               "ks_shape", "norm_shape")
 #: The entries of a model's packet that a frame can change: with the light
 #: and the background, a compiled program's inputs. The per-face fields
 #: stay in the packet as the source of :func:`face_tables`.
@@ -388,8 +381,11 @@ def face_tables(cfg: SceneConfig, models):
     vertices of the models before (ids into every model's vertices stacked
     in order); ``vn`` and ``has_vn``, the vertex normals (zeros for a model
     without them) and where they hold; the constants ``clip_en``,
-    ``z_write`` and ``model_id``; and, when a model casts shadows,
-    ``edges``, the shadow pass's incidence tables (shadow.edge_tables).
+    ``z_write`` and ``model_id``; K10's packing constants ``attr_consts``
+    and ``face_bits`` (raster_cuda.attr_consts, face_bits: those columns
+    prepacked as the vertex stage's rows hold them); and, when a model
+    casts shadows, ``edges``, the shadow pass's incidence tables
+    (shadow.edge_tables).
 
     Built in two places only: ``Scene._prepare`` once per packing (cached
     in ``Scene._face_tables``), and :func:`with_face_tables` for a ``dyn``
@@ -399,7 +395,7 @@ def face_tables(cfg: SceneConfig, models):
         vid = md["vid"].long()
         F, dev = vid.shape[0], vid.device
         parts.append({
-            **{k: md[k] for k in _FACE_ATTRS},
+            **{k: md[k] for k in rc.FACE_ATTRS},
             "pad_valid": md["pad_valid"],
             "vid": vid + n_verts,
             "vn": (md["vn"] if mc.has_vn else
@@ -411,6 +407,8 @@ def face_tables(cfg: SceneConfig, models):
         })
         n_verts += md["verts"].shape[0]
     tables = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    tables["attr_consts"] = rc.attr_consts(tables)
+    tables["face_bits"] = rc.face_bits(tables)
     edges = edge_tables(cfg, models)
     if edges is not None:
         tables["edges"] = edges
@@ -436,54 +434,23 @@ def stacked_vertices(dyn):
 
 
 def _vertex_pass(cfg: SceneConfig, dyn, cam_m, verts):
-    """The one vertex pass of a frame, which every vertex stage reads: the
-    stacked vertices ``verts`` (:func:`stacked_vertices`) through the
-    camera (``cam_m``: MVP, viewport, near, far), gathered per face
-    through ``dyn["faces"]["vid"]`` (vertex.gather_faces, with its masks)."""
+    """The one vertex pass of a frame (raster_cuda.vertex_pass) of the
+    stacked vertices ``verts`` through the camera ``cam_m`` (MVP, viewport,
+    near, far) and ``dyn["faces"]["vid"]``, with its masks: what
+    ``stats()``, the debug shaders' vertices and the plain shadow stencil
+    read."""
     height, width = cfg.resolution
-    va = transform_vertices(verts, cam_m["MVP"], cam_m["viewport"],
-                            cam_m["near"], cam_m["far"])
-    return gather_faces(va, dyn["faces"]["vid"], height, width,
-                        cfg.backface_culling)
+    return rc.vertex_pass(verts, dyn["faces"]["vid"], cam_m, height, width,
+                          cfg.backface_culling)
 
 
 def _build_face_batch(cfg: SceneConfig, dyn, cam_m, dbg_mvp=None, *, verts):
-    """Vertex stage + per-face gathers for every model at once
-    (pipeline._build_face_batch :133 without the sampler-window fields;
-    the attrs carry what every shader reads, :218-229): one transform of
-    every model's vertices ``verts``, stacked in model order
-    (:func:`stacked_vertices`), one gather of every face through the
-    offset ids of the face tables ``dyn["faces"]`` (:func:`_vertex_pass`),
-    one face normal. Every operation is elementwise or a row gather, so
-    each face's values round as a pass over its model alone would.
-    ``cam_m`` holds MVP, viewport, near and far (:func:`_cam_matrices`,
-    or the staged views). With the debug camera's ``dbg_mvp``, the raster
-    dict also carries ``clip_dbg``, each face's vertices in its clip space
-    (:175-178). Returns (raster dict, attrs dict) of per-face tensors, the
-    faces in model order."""
-    ft = dyn["faces"]
-    f = _vertex_pass(cfg, dyn, cam_m, verts)
-    world = f["world"]                                  # (G, 3, 3)
-    face_normal = normalize(_cross(world[:, 1] - world[:, 0],
-                                   world[:, 2] - world[:, 0]))
-    # Faces without vertex normals shade with the face normal
-    # (reference Face.get_normals fallback, core.py:186-187).
-    vn = torch.where(ft["has_vn"][:, None, None], ft["vn"],
-                     face_normal[:, None, :])
-    faces = {
-        "sx": f["sx"], "sy": f["sy"], "inv_w": f["inv_w"], "aff": f["aff"],
-        "clip": f["clip"], "bbox": f["bbox"],
-        "valid": f["valid"] & ft["pad_valid"],
-        "clip_en": ft["clip_en"], "z_write": ft["z_write"],
-    }
-    if dbg_mvp is not None:
-        # Elementwise in float32, as transform_vertices' clip space.
-        faces["clip_dbg"] = _rowvec(verts, dbg_mvp)[ft["vid"]]
-    attrs = {"sx": f["sx"], "sy": f["sy"], "szlin": f["szlin"],
-             "world": world, "vn": vn, "face_normal": face_normal,
-             **{k: ft[k] for k in _FACE_ATTRS},
-             "model_id": ft["model_id"]}
-    return faces, attrs
+    """raster_cuda.face_batch of the frame (the composition K10 replaces:
+    its plain version packs what this returns): (raster dict, attrs dict)
+    of per-face tensors over ``dyn["faces"]``."""
+    height, width = cfg.resolution
+    return rc.face_batch(verts, dyn["faces"], cam_m, height, width,
+                         cfg.backface_culling, dbg_mvp)
 
 
 def texture_tables(cfg: SceneConfig, dyn, attrs):
@@ -495,9 +462,9 @@ def texture_tables(cfg: SceneConfig, dyn, attrs):
     Scene._pack_model) point their faces at the same slots, as the JAX
     package's instances share one window block (scene.py:645-665 there).
     Each face's local slot and map shape come from ``attrs``, the face
-    tables' columns as the vertex stage hands them on; model m's faces are
-    the rows its ``num_faces`` give, after the models before it. Only the
-    stacks come from ``dyn["models"]``.
+    tables (``dyn["faces"]``, or the vertex stage's attrs, which hand their
+    columns on); model m's faces are the rows its ``num_faces`` give, after
+    the models before it. Only the stacks come from ``dyn["models"]``.
     Returns (ftex (G, N_KINDS, 3) int32 per-face (global slot or -1, TH,
     TW), slots (S, 2) int32 (pool offset, row stride), pool (P,) int32), or
     None when no model carries a texture map.
@@ -626,18 +593,12 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
         return frame, zbuf, tid, torch.zeros_like(tid)
     with span("vertex"):
         verts = stacked_vertices(dyn)
-        faces, attrs = _build_face_batch(cfg, dyn, st, st.get("dbg_MVP"),
-                                         verts=verts)
-        fdata = rc.pack_faces(faces)
-        flags = rc.face_flags(faces)
-        fdbg = rc.pack_debug_planes(faces)
+        fdata, flags, fdbg, rows, world = ops.vertex_faces(
+            verts, dyn["faces"], st, height, width, cfg.backface_culling,
+            cfg.shader if slim else SHADER_GENERAL, st.get("dbg_MVP"))
         # Global face ids are shard-major: gid0 + the local index
         # (pipeline.py:236-237 of the JAX package).
         gid0 = tris_idx * fdata.shape[0]
-        if slim:
-            sdata = rc.pack_slim_attrs(attrs, cfg.shader)
-        else:
-            adata = rc.pack_face_attrs(attrs)
     if tris_group is None:
         with span("visibility"):
             zb_sign, tid = ops.visibility(fdata, flags, *shape, sign,
@@ -656,15 +617,15 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
         tid = all_reduce(tid, "max", tris_group, "tid")
     with span("gbuffer"):
         if slim:
-            gb = ops.gbuffer_slim(fdata, sdata, tid, cfg.shader, row0=row0,
+            gb = ops.gbuffer_slim(fdata, rows, tid, cfg.shader, row0=row0,
                                   gid0=gid0)
         else:
-            gb = ops.gbuffer(fdata, adata, tid, row0=row0, gid0=gid0)
+            gb = ops.gbuffer(fdata, rows, tid, row0=row0, gid0=gid0)
     gb = all_reduce(gb, "sum", tris_group, "gbuffer")
     samp = samp_mask = None
     if not slim:
         with span("sample_textures"):
-            tables = texture_tables(cfg, dyn, attrs)
+            tables = texture_tables(cfg, dyn, dyn["faces"])
             if tables is not None:
                 samp, samp_mask = ops.sample_textures(
                     tid, gb[rc.GB_IU], gb[rc.GB_IV], *tables, gid0=gid0)
@@ -683,7 +644,7 @@ def _core(cfg: SceneConfig, dyn, st, ops, *, local_height=None, row0=0,
         with span("shadow_quads"):
             tables = quad_tables(cfg, dyn, st, height, width, ops,
                                  tris_group, tris_idx, verts=verts,
-                                 world=attrs["world"])
+                                 world=world)
         if tables is not None:
             qdata, qi, n_sil = tables
             with span("stencil"):

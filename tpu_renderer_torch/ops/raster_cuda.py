@@ -23,6 +23,10 @@ Counterpart of ``tpu_renderer/ops/raster_pallas.py``:
 | ``shade``           | csrc/shade.cu          | no pallas_call: the XLA deferred shade  |
 |                     |                        | (pipeline._shade_gbuffer :388 and       |
 |                     |                        | shading.shade_general there)            |
+| ``vertex_faces``    | csrc/vertex.cu         | no pallas_call: the XLA vertex stage    |
+|                     |                        | (vertex.py, pipeline._build_face_batch) |
+|                     |                        | and pack_faces, face_flags,             |
+|                     |                        | pack_face_attrs, pack_slim_attrs        |
 
 Sharded rendering (parallel/sharded.py) gives the raster kernels a block of
 frame rows from ``row0`` (pixel math stays in global coordinates) and a
@@ -62,6 +66,14 @@ follows the count, and neither wrapper reads it on the host.
 K9 (``shade``) shades the whole frame in one launch whatever the number of
 models: each pixel finds its model's texture (scale, offset) in a table by
 its G-buffer model id (:func:`shade_scale_off`), so no pass runs per model.
+
+K10 (``vertex_faces``) is the frame's vertex stage in one launch: from the
+stacked vertices, the camera (read through its pointers) and the face
+tables to the tables above (fdata, flags, the debug planes and the
+shading row of the frame's layout). The columns that depend only on the
+packing come prepacked with the face tables (:func:`attr_consts`,
+:func:`face_bits`); its plain version is the composition it replaces,
+:func:`face_batch` and the packers.
 """
 from __future__ import annotations
 
@@ -76,6 +88,8 @@ from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.transforms import normalize
 from tpu_renderer_torch.ops.shadow import QUAD_PMAX, quad_edge_coeffs, \
     quad_fragments, _cross, _dot3
+from tpu_renderer_torch.ops.vertex import (_rowvec, gather_faces,
+                                           transform_vertices)
 
 __all__ = [
     "face_flags", "pack_faces", "pack_debug_planes", "pack_face_attrs",
@@ -86,7 +100,8 @@ __all__ = [
     "lines", "tidpass", "visibility_plain", "gbuffer_plain",
     "sample_textures_plain", "stencil_plain", "gbuffer_slim_plain",
     "lines_plain", "tidpass_plain", "texel_indices", "shade", "shade_plain",
-    "shade_scale_off",
+    "shade_scale_off", "vertex_pass", "face_batch", "attr_consts",
+    "face_bits", "vertex_faces", "vertex_faces_plain", "VERTEX_LAYOUTS",
     "LAUNCHES", "reset_launches", "counting_into", "KERNELS", "PLAIN",
     "GB_CHANNELS", "SLIM_CHANNELS",
     "N_KINDS", "KINDS", "TILE",
@@ -94,11 +109,13 @@ __all__ = [
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`; K1's
 #: z-only launches count as ``visibility_z``, and K1's and K7's launches
-#: with a debug camera's planes under the same keys with ``_dbg``.
+#: with a debug camera's planes under the same keys with ``_dbg``, as K10's
+#: with a debug camera's MVP.
 LAUNCHES = {"visibility": 0, "visibility_z": 0, "visibility_dbg": 0,
             "visibility_z_dbg": 0, "gbuffer": 0, "sample_textures": 0,
             "stencil": 0, "gbuffer_slim": 0, "lines": 0, "tidpass": 0,
-            "tidpass_dbg": 0, "quad_prep": 0, "shade": 0}
+            "tidpass_dbg": 0, "quad_prep": 0, "shade": 0, "vertex": 0,
+            "vertex_dbg": 0}
 
 
 def reset_launches():
@@ -168,6 +185,17 @@ SLIM_CHANNELS = {"flat": 3, "gouraud": 3, "pbr": 11}
 #: layout's number in the kernel's C interface.
 SLIM_COLS = {"flat": 3, "gouraud": 9, "pbr": 23}
 SLIM_LAYOUT_ID = {"flat": 0, "gouraud": 1, "pbr": 2}
+
+#: The shading rows K10 writes: its layouts in the order of their numbers
+#: in the kernel's C interface, and each row's columns.
+VERTEX_LAYOUTS = ("general",) + tuple(SLIM_LAYOUT_ID)
+ROW_COLS = {"general": A_COLS, **SLIM_COLS}
+#: Packing constants per face (:func:`attr_consts`): the general row's 42
+#: columns with world zero and vn zero where the model has none, then pm,
+#: pr, ka and a zero column (rows of whole 16-byte words).
+C_COLS = A_COLS + 6
+#: Bits of the per-face constant word (:func:`face_bits`).
+FB_HAS_VN, FB_CLIP, FB_ZWRITE, FB_REAL = 1, 2, 4, 8
 
 #: Edge table of the wireframe kernel (pack_lines): [0] x0, [1] y0, [2] z0,
 #: [3] sx, [4] sy, [5] sz per step, [6] step count, [7] major-x flag.
@@ -347,6 +375,99 @@ def pack_slim_attrs(attrs, layout):
     else:
         raise ValueError(f"unknown slim layout {layout!r}")
     return torch.cat([c.to(torch.float32) for c in cols], dim=1).contiguous()
+
+
+#: Per-face shading attributes of a model's packet, which the vertex stage
+#: hands on as they are.
+FACE_ATTRS = ("uv", "kd", "ks", "ns", "pm", "pr", "ka", "kd_slot",
+              "ks_slot", "norm_slot", "norm_tangent", "kd_shape", "ks_shape",
+              "norm_shape")
+
+
+def vertex_pass(verts, vid, cam, height, width, culling):
+    """The one vertex pass of a frame, which every vertex stage reads: the
+    stacked vertices ``verts`` (V, 4) through the camera ``cam`` (MVP,
+    viewport, near, far), gathered per face through the ids ``vid`` (G, 3)
+    (vertex.gather_faces, with its masks)."""
+    va = transform_vertices(verts, cam["MVP"], cam["viewport"], cam["near"],
+                            cam["far"])
+    return gather_faces(va, vid, height, width, culling)
+
+
+def face_batch(verts, ft, cam, height, width, culling, dbg_mvp=None):
+    """Vertex stage + per-face gathers for every model at once
+    (pipeline._build_face_batch :133 of the JAX package without the
+    sampler-window fields; the attrs carry what every shader reads,
+    :218-229): one transform of every model's vertices ``verts``, stacked
+    in model order, one gather of every face through the offset ids of the
+    face tables ``ft`` (:func:`vertex_pass`), one face normal. Every
+    operation is elementwise or a row gather, so each face's values round
+    as a pass over its model alone would. ``cam`` holds MVP, viewport, near
+    and far. With the debug camera's ``dbg_mvp``, the raster dict also
+    carries ``clip_dbg``, each face's vertices in its clip space
+    (:175-178). Returns (raster dict, attrs dict) of per-face tensors, the
+    faces in model order."""
+    f = vertex_pass(verts, ft["vid"], cam, height, width, culling)
+    world = f["world"]                                  # (G, 3, 3)
+    face_normal = normalize(_cross(world[:, 1] - world[:, 0],
+                                   world[:, 2] - world[:, 0]))
+    # Faces without vertex normals shade with the face normal
+    # (reference Face.get_normals fallback, core.py:186-187).
+    vn = torch.where(ft["has_vn"][:, None, None], ft["vn"],
+                     face_normal[:, None, :])
+    faces = {
+        "sx": f["sx"], "sy": f["sy"], "inv_w": f["inv_w"], "aff": f["aff"],
+        "clip": f["clip"], "bbox": f["bbox"],
+        "valid": f["valid"] & ft["pad_valid"],
+        "clip_en": ft["clip_en"], "z_write": ft["z_write"],
+    }
+    if dbg_mvp is not None:
+        # Elementwise in float32, as transform_vertices' clip space.
+        faces["clip_dbg"] = _rowvec(verts, dbg_mvp)[ft["vid"]]
+    attrs = {"sx": f["sx"], "sy": f["sy"], "szlin": f["szlin"],
+             "world": world, "vn": vn, "face_normal": face_normal,
+             **{k: ft[k] for k in FACE_ATTRS},
+             "model_id": ft["model_id"]}
+    return faces, attrs
+
+
+def attr_consts(ft):
+    """The packing constants K10 reads per face, from the face tables
+    ``ft`` (pipeline.face_tables builds them with the tables): (G, C_COLS)
+    float32, the general row of :func:`pack_face_attrs` with the world
+    columns zero and vn as the tables hold it (zero for a model without
+    vertex normals), then pm, pr and ka of :func:`pack_slim_attrs`' pbr
+    row, each column cast as those packers cast it, and a zero column."""
+    g = ft["vid"].shape[0]
+    zero = torch.zeros((g, 3, 3), dtype=torch.float32, device=ft["vid"].device)
+    general = pack_face_attrs({**ft, "world": zero})
+    pbr = [ft["pm"][:, None], ft["pr"][:, None], ft["ka"], zero[:, 0, :1]]
+    return torch.cat([general] + [c.to(torch.float32) for c in pbr],
+                     dim=1).contiguous()
+
+
+def face_bits(ft):
+    """The per-face constant word K10 reads, (G,) int32 from the face
+    tables ``ft``: FB_HAS_VN | FB_CLIP (clip_en) | FB_ZWRITE (z_write) |
+    FB_REAL (pad_valid)."""
+    i32 = lambda b: b.to(torch.int32)
+    return (i32(ft["has_vn"]) * FB_HAS_VN | i32(ft["clip_en"]) * FB_CLIP
+            | i32(ft["z_write"]) * FB_ZWRITE | i32(ft["pad_valid"]) * FB_REAL)
+
+
+def vertex_faces_plain(verts, ft, cam, height, width, culling, layout,
+                       dbg_mvp=None):
+    """K10's plain version: :func:`face_batch`, then :func:`pack_faces`,
+    :func:`face_flags`, :func:`pack_debug_planes` and the shading row of
+    ``layout`` (:func:`pack_face_attrs` for "general", else
+    :func:`pack_slim_attrs`). Returns (fdata (G, 34), flags (G,) int32,
+    fdbg (G, 18) or None, rows (G, ROW_COLS[layout]), world (G, 3, 3))."""
+    faces, attrs = face_batch(verts, ft, cam, height, width, culling,
+                              dbg_mvp)
+    rows = (pack_face_attrs(attrs) if layout == "general"
+            else pack_slim_attrs(attrs, layout))
+    return (pack_faces(faces), face_flags(faces), pack_debug_planes(faces),
+            rows, attrs["world"])
 
 
 def pack_lines(p0, p1, height, width):
@@ -1159,12 +1280,59 @@ def shade(tid, stencil, gb, samp, samp_mask, scale_off, light, position,
     return out
 
 
+def vertex_faces(verts, ft, cam, height, width, culling, layout,
+                 dbg_mvp=None):
+    """K10: the frame's vertex stage in one launch, one thread per face
+    (see vertex_faces_plain for the arguments and outputs). The kernel
+    reads the face tables' ``vid``, ``attr_consts`` and ``face_bits``, and
+    the camera's MVP, viewport, near and far (and ``dbg_mvp``) through
+    their pointers, so a captured frame replays with each frame's camera.
+    Counted as ``vertex``, with a debug camera as ``vertex_dbg``. The
+    general row holds the world positions in its first 9 columns, and
+    ``world`` is a view of them; a slim layout's come in a (G, 3, 3)
+    table of their own."""
+    cam_t = (cam["MVP"], cam["viewport"], cam["near"], cam["far"])
+    tensors = (verts, ft["vid"], ft["attr_consts"], ft["face_bits"],
+               *cam_t) + (() if dbg_mvp is None else (dbg_mvp,))
+    if _on_cpu(*tensors):
+        return vertex_faces_plain(verts, ft, cam, height, width, culling,
+                                  layout, dbg_mvp)
+    vid, consts, bits = ft["vid"], ft["attr_consts"], ft["face_bits"]
+    g = vid.shape[0]
+    _require(verts, "verts", torch.float32, (None, 4))
+    _require_aligned(verts, "verts", 16)
+    _require(vid, "vid", torch.int64, (g, 3))
+    _require(consts, "attr_consts", torch.float32, (g, C_COLS))
+    _require_aligned(consts, "attr_consts", 16)
+    _require(bits, "face_bits", torch.int32, (g,))
+    for name, t, shape in zip(("MVP", "viewport", "near", "far"), cam_t,
+                              ((4, 4), (4, 4), (), ())):
+        _require(t, name, torch.float32, shape)
+    if dbg_mvp is not None:
+        _require(dbg_mvp, "dbg_mvp", torch.float32, (4, 4))
+    dev = verts.device
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    fdata = empty(g, rp.F_COLS)
+    flags = torch.empty((g,), dtype=torch.int32, device=dev)
+    fdbg = None if dbg_mvp is None else empty(g, rp.DBG_COLS)
+    rows = empty(g, ROW_COLS[layout])
+    general = layout == "general"
+    world = rows[:, :9].view(g, 3, 3) if general else empty(g, 3, 3)
+    _launch("vertex", verts.data_ptr(), vid.data_ptr(), consts.data_ptr(),
+            bits.data_ptr(), *(t.data_ptr() for t in cam_t), _ptr(dbg_mvp),
+            g, height, width, int(culling), VERTEX_LAYOUTS.index(layout),
+            fdata.data_ptr(), flags.data_ptr(), _ptr(fdbg), rows.data_ptr(),
+            None if general else world.data_ptr(),
+            counter="vertex" + ("" if dbg_mvp is None else "_dbg"))
+    return fdata, flags, fdbg, rows, world
+
+
 class _Ops:
     """The per-frame raster operations render_core and render_debug_frame
     call."""
 
     def __init__(self, visibility, gbuffer, sample_textures, stencil,
-                 gbuffer_slim, lines, tidpass, quad_prep, shade):
+                 gbuffer_slim, lines, tidpass, quad_prep, shade, vertex_faces):
         self.visibility = visibility
         self.gbuffer = gbuffer
         self.sample_textures = sample_textures
@@ -1174,12 +1342,13 @@ class _Ops:
         self.tidpass = tidpass
         self.quad_prep = quad_prep
         self.shade = shade
+        self.vertex_faces = vertex_faces
 
 
 #: The main path: kernels on CUDA tensors, plain versions on CPU tensors.
 KERNELS = _Ops(visibility, gbuffer, sample_textures, stencil, gbuffer_slim,
-               lines, tidpass, quad_prep, shade)
+               lines, tidpass, quad_prep, shade, vertex_faces)
 #: The plain versions on any device: the oracle a kernel run is held to.
 PLAIN = _Ops(visibility_plain, gbuffer_plain, sample_textures_plain,
              stencil_plain, gbuffer_slim_plain, lines_plain, tidpass_plain,
-             quad_prep_plain, shade_plain)
+             quad_prep_plain, shade_plain, vertex_faces_plain)

@@ -271,7 +271,7 @@ def prepare_quads(cfg, dyn, group=None, shard_idx=0, *, verts, world):
     ["edges"]``, :func:`edge_tables`). ``verts`` (V, 4) float32, every
     model's vertices stacked in model order, and ``world`` (G, 3, 3), each
     face's world positions, are the vertex stage's
-    (``pipeline._build_face_batch``).
+    (``raster_cuda.vertex_faces``, K10).
     """
     et = dyn["faces"].get("edges")
     if et is None:
