@@ -14,6 +14,10 @@ On the CPU, where a program runs its body eagerly over its static buffers:
   readback count a visit each and no transfer (on the CPU they make none);
   the counters outlive ``clear_compiled()`` and :func:`profiling.reset`
   zeroes them, the camera constants' builds and hits among them;
+- the debug camera's host overlay: ``tr.readback``, ``tr.overlay_cast``,
+  ``tr.overlay_draw`` and ``tr.overlay_quantize`` inside ``tr.overlay``
+  once per frame; the overlay counter's frames, segments and line pixels;
+  the frame bit-identical with and without a profiler;
 - the timers that spans stamp while a graph is recorded (the host's clock
   on the CPU), their bound, and how replays made under a profiler are
   read.
@@ -190,6 +194,61 @@ def test_first_capture_parts_are_kept():
     profiling.note_capture(10.0, 5.0)
     snap = profiling.snapshot()
     assert (snap["warmup_ms"], snap["record_ms"]) == (900.0, 40.0)
+    profiling.reset()
+
+
+#: The debug camera's host overlay inside ``tr.overlay``.
+OVERLAY_SPANS = ("readback", "overlay_cast", "overlay_draw",
+                 "overlay_quantize")
+
+
+def test_overlay_spans_nest_inside_the_overlay():
+    """The debug camera's frame: under a profiler the copy to the host,
+    the casts, the drawing and the quantization each open once per frame
+    inside ``tr.overlay``, in that order."""
+    scene = scene_for("debug_core")
+    scene.render()
+    frames = 2
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(frames):
+            scene.render()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name[3:])
+                   for e in prof.events() if e.name.startswith("tr."))
+    overlays = [(s, t) for s, t, name in spans if name == "overlay"]
+    assert len(overlays) == frames
+    for s0, t0 in overlays:
+        inside = [name for s, t, name in spans
+                  if s0 <= s and t <= t0 and name in OVERLAY_SPANS]
+        assert inside == list(OVERLAY_SPANS)
+
+
+def test_overlay_counters_and_the_frame_with_and_without_a_profiler():
+    """``profiling.snapshot()["overlay"]`` counts each overlaid frame, its
+    segments and line pixels; the same frames rendered under a profiler
+    are bit-identical, and count the same."""
+    scene = scene_for("debug_core")
+    scene.render()
+    profiling.reset()
+    plain = [scene.render() for _ in range(2)]
+    zbuf = scene.last_zbuf.clone()
+    counted = profiling.snapshot()["overlay"]
+    assert counted["frames"] == 2
+    assert counted["segments"] > 0 and counted["pixels"] > 50
+    profiling.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        traced = [scene.render() for _ in range(2)]
+    for a, b in zip(plain, traced):
+        assert a.dtype == b.dtype and (a == b).all()
+    assert torch.equal(zbuf, scene.last_zbuf)
+    assert profiling.snapshot()["overlay"] == counted
+    # A frame without the overlay counts nothing.
+    scene.debug_overlay = False
+    profiling.reset()
+    scene.render()
+    assert profiling.snapshot()["overlay"] == {"frames": 0, "segments": 0,
+                                               "pixels": 0}
     profiling.reset()
 
 

@@ -519,17 +519,29 @@ class Scene:
         ``ops``, the eager ``render_core`` through them: the plain path a
         test holds the frame to), then the debug camera's frustum on the
         host. Returns (frame_u8 (H, W, 3) numpy, zbuf float64 CPU tensor as
-        the overlay left it, tid, stencil)."""
+        the overlay left it, tid, stencil).
+
+        Under ``tr.overlay`` the copy to the host (``tr.readback``), the
+        float64 casts (``tr.overlay_cast``), the drawing
+        (``tr.overlay_draw``; its segments and line pixels counted by
+        ``profiling.count_overlay``) and the flip, gamma and uint8
+        (``tr.overlay_quantize``) each have a span."""
         frame, zbuf, tid, stencil = (render_core_jit(cfg, dyn) if ops is None
                                      else render_core(cfg, dyn, ops))
         with span("overlay"):
-            frame, zb = (a.astype(np.float64) for a in _readback(frame, zbuf))
-            draw_view_frustum(frame, self.camera._matrices(torch.float64),
-                              self.debug_camera._matrices(torch.float64),
-                              self.camera.position, self.camera.near,
-                              self.camera.far, self.resolution, zb,
-                              self.system)
-            out = (np.clip(frame[::-1] ** 0.8, 0, 1) * 255).astype(np.uint8)
+            frame, zb = _readback(frame, zbuf)
+            with span("overlay_cast"):
+                frame, zb = frame.astype(np.float64), zb.astype(np.float64)
+            with span("overlay_draw"):
+                drawn = draw_view_frustum(
+                    frame, self.camera._matrices(torch.float64),
+                    self.debug_camera._matrices(torch.float64),
+                    self.camera.position, self.camera.near, self.camera.far,
+                    self.resolution, zb, self.system)
+            profiling.count_overlay(*drawn)
+            with span("overlay_quantize"):
+                out = (np.clip(frame[::-1] ** 0.8, 0, 1) * 255).astype(
+                    np.uint8)
         return out, torch.from_numpy(zb), tid, stencil
 
     def _render_debug_shader(self, cfg, dyn) -> np.ndarray:

@@ -72,6 +72,11 @@ def draw_view_frustum(frame, camera_m, debug_m, camera_position, near, far,
     both numpy, modified in place. camera_m / debug_m: the host matrix
     dicts of camera_matrices(host=True, dtype=torch.float64) (MVP,
     viewport, frustum_planes).
+
+    Returns (segments, pixels): the edges drawn with at least one pixel
+    left after dashing, and the line pixels that passed the depth test
+    and were written (each with its four half-blended neighbours, which
+    are not counted).
     """
     dbg_mvp = np.asarray(debug_m["MVP"], np.float64)
     world = Frustum.vertices @ np.linalg.inv(dbg_mvp)
@@ -87,6 +92,7 @@ def draw_view_frustum(frame, camera_m, debug_m, camera_position, near, far,
     mvp = np.asarray(camera_m["MVP"], np.float64)
     viewport = np.asarray(camera_m["viewport"], np.float64)
     h, w_res = resolution
+    segments = pixels = 0
 
     for face in world[Frustum.faces]:
         face = clipping(face, planes)
@@ -110,11 +116,13 @@ def draw_view_frustum(frame, camera_m, debug_m, camera_position, near, far,
                 pxls = pxls[mask]
             if not len(pxls):
                 continue
+            segments += 1
             y, x, z, _ = pxls.T
             x = x.astype(np.int32) - 1
             y = y.astype(np.int32) - 1
             keep = ((z_buffer[x, y] - z) * sign >= 0)
             x, y, z = x[keep], y[keep], z[keep]
+            pixels += len(x)
             z_buffer[x, y] = z
             frame[x, y] = color
             clip_x, clip_y = h - 1, w_res - 1
@@ -125,6 +133,7 @@ def draw_view_frustum(frame, camera_m, debug_m, camera_position, near, far,
                 z_buffer[x, ys] = z
                 frame[xs, y] = frame[xs, y] * 0.5 + color / 2
                 frame[x, ys] = frame[x, ys] * 0.5 + color / 2
+    return segments, pixels
 
 
 def draw_axis(frame, camera_m, z_buffer, sign, font_path=None):

@@ -51,7 +51,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 __all__ = ["span", "Timers", "recording", "replayed", "read_replay_timers",
-           "tally", "count_copies", "count_camera_constants", "note_capture",
+           "tally", "count_copies", "count_camera_constants", "count_overlay",
+           "note_capture",
            "snapshot", "reset", "trace", "nan_debug",
            "summarize_device_trace"]
 
@@ -72,7 +73,8 @@ MAX_TIMERS = 32
 
 def _fresh():
     return {"copies": {}, "replays": 0, "replay_ms": {}, "warmup_ms": None,
-            "record_ms": None, "camera_constants": {"builds": 0, "hits": 0}}
+            "record_ms": None, "camera_constants": {"builds": 0, "hits": 0},
+            "overlay": {"frames": 0, "segments": 0, "pixels": 0}}
 
 
 _STATE = _fresh()
@@ -216,6 +218,16 @@ def count_camera_constants(built):
     _STATE["camera_constants"]["builds" if built else "hits"] += 1
 
 
+def count_overlay(segments, pixels):
+    """One frame of the debug camera's host overlay (``Scene.render``):
+    the ``segments`` it drew and the line ``pixels`` it wrote
+    (ops/overlay.draw_view_frustum)."""
+    c = _STATE["overlay"]
+    c["frames"] += 1
+    c["segments"] += segments
+    c["pixels"] += pixels
+
+
 def note_capture(warmup_ms, record_ms):
     """The two parts of a program's capture; the process keeps its
     first."""
@@ -229,7 +241,8 @@ def snapshot():
     (replays timed), ``replay_ms`` ({span: device ms summed over them}),
     ``warmup_ms`` and ``record_ms`` (the first capture's) and
     ``camera_constants`` ({"builds": n, "hits": m}, the look-ups of
-    :func:`count_camera_constants`)."""
+    :func:`count_camera_constants`) and ``overlay`` ({"frames": n,
+    "segments": s, "pixels": p}, :func:`count_overlay`)."""
     read_replay_timers()
     return copy.deepcopy(_STATE)
 
