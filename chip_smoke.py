@@ -44,7 +44,14 @@ exits non-zero without the final line):
    colour and a skybox plane, H*W not a multiple of 4, model ids that
    name no row, a frame without maps), equal to its plain version; then
    K10 on its adversarial tables (``k10_adversarial_inputs``) in each of
-   its 16 instances, equal to its plain version;
+   its 16 instances, equal to its plain version; then K11 and K12 at the
+   ``reference-main`` frame's shapes (``overlay_inputs``: 1500², main.py's
+   camera2 as the debug camera, the segment table of
+   ``ops/overlay.frustum_segments``, render_core's frame and z-buffer cast
+   to float64), each equal to its plain version in every bit of every
+   output (K11 the frame, the z-buffer and the pixel counter, K12 the
+   uint8 frame: max_abs_err 0), without a host sync, timed as above
+   beside K12's byte bound (K11 is bound by latency);
 4. end to end, general shader: the flagship frame — a seeded procedural
    shadow-casting mesh of 4,992 faces with 1024² diffuse and tangent-space
    normal maps over a textured floor, point light, shadow volumes,
@@ -82,10 +89,13 @@ exits non-zero without the final line):
    memory: these are not multi-card numbers.
 7. the debug-camera frame: the flagship with the debug camera and both
    gizmos (``Light(show=True)``, a shown debug camera) through
-   ``Scene.render()``, which draws the debug camera's frustum on the host;
-   K1's debug mode, K2, K3 and K4 must launch; tid, stencil and frame must
-   match the same render through the plain versions; the overlay must draw
-   red pixels, and the debug camera must change tid on more than 1% of the
+   ``Scene.render()``, which draws the debug camera's frustum over it;
+   K1's debug mode, K2, K3 and K4 must launch, K11 and K12 once each after
+   the replay (``OVERLAY_KERNELS``); tid, stencil and frame must
+   match the same render through the plain versions; the uint8 frame,
+   ``last_zbuf`` and the overlay's line pixels must equal, bit for bit,
+   the numpy overlay drawn on the same float frame and z-buffer
+   (``_check_overlay``); the overlay must draw red pixels, and the debug camera must change tid on more than 1% of the
    mesh's pixels. It is timed against the flagship without them in
    interleaved orbit pairs and profiled (``tr.overlay``'s host range); then
    a wireframe render with the debug camera must match its plain path.
@@ -150,8 +160,8 @@ Before the last line it prints the card's ``name, power.limit`` line and
 one JSON object with the per-kernel records (each with its launches in
 the render of its path: K1-K4 and K8-K10 from phase 4, each K5 layout from its
 shader's render, K6 from the wireframe render, the sharded modes from
-the 1x2 renders' rank whose inputs phase 3 took, the debug modes from
-phase 7 and the debug 1x2 render); the last line is
+the 1x2 renders' rank whose inputs phase 3 took, the debug modes, K11
+and K12 from phase 7 and the debug 1x2 render); the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX: the card's
 host runs the port alone.
 """
@@ -311,6 +321,57 @@ def debug_inputs(cfg, dyn):
             "vertex_dbg": (vertex_args(cfg, dyn, cam_m, dbg_mvp), {}),
             "visibility_z_dbg": shard["visibility_z"],
             "tidpass_dbg": shard["tidpass"]}
+
+
+#: The frame of the ``reference-main`` configuration (the reference's
+#: obj/main.py, benchmark/configs/reference-main.json): 1500².
+MAIN_RES = (1500, 1500)
+
+
+def main_frame_scene(tr, device="cuda", resolution=MAIN_RES):
+    """reference-main's frame with the flagship's stand-ins: the mesh and
+    floor at ``resolution``, bench.py's camera at (0.5, 3, 5), a
+    directional light from (5, 5, 0) towards (0, 0.5, 0.5), shadows, and
+    main.py's camera2 (main.py:84-92: from (0, 3, 0.01) down to the
+    origin, fovy 80, near 1, far 3) as the debug camera."""
+    scene = build_flagship(device, resolution=resolution)
+    scene.light = tr.Light((5, 5, 0),
+                           light_type=tr.Lightning.DIRECTIONAL_LIGHTNING,
+                           center=(0, 0.5, 0.5), ambient_strength=0.1,
+                           specular_strength=0.1, linear=1e-9,
+                           quadratic=1e-10)
+    scene.debug_camera = tr.Camera((0, 3, 0.01), center=(0, 0, 0), fovy=80,
+                                   near=1, far=3, backface_culling=True)
+    return scene
+
+
+def overlay_inputs(tr, device="cuda", resolution=MAIN_RES):
+    """K11's and K12's inputs at reference-main's shapes
+    (``main_frame_scene``), as Scene._render_overlay makes them: the
+    frame and the z-buffer of ``pipeline.render_core`` through the kernels,
+    cast to float64 on their device, the segment table of
+    ``ops/overlay.frustum_segments`` for both cameras (on the host), the
+    scene's depth sign and a zeroed pixel counter for K11; for K12 that
+    frame with the frustum drawn on it (through K11's plain version).
+    Returns {case: args}."""
+    import torch
+    from tpu_renderer_torch.ops import overlay as ov
+    from tpu_renderer_torch.ops import pipeline as pl
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    scene = main_frame_scene(tr, device, resolution)
+    cfg, dyn = scene._prepare()
+    frame, zbuf = pl.render_core(cfg, dyn)[:2]
+    frame, zbuf = frame.to(torch.float64), zbuf.to(torch.float64)
+    table = torch.from_numpy(ov.frustum_segments(
+        scene.camera._matrices(torch.float64),
+        scene.debug_camera._matrices(torch.float64), scene.camera.position,
+        scene.camera.near, scene.camera.far, scene.resolution))
+    counter = torch.zeros(1, dtype=torch.int64, device=frame.device)
+    drawn = rc.overlay_plain(table, frame.clone(), zbuf.clone(), cfg.system,
+                             counter.clone())[0]
+    return {"overlay": (table, frame, zbuf, cfg.system, counter),
+            "overlay_quantize": (drawn,)}
 
 
 #: The rank of a phase-6 mesh on whose inputs phase 3 holds the sharded
@@ -1005,7 +1066,7 @@ def _time_ms(fn, runs=5):
 #: The port's kernels as the profiler names them (csrc/*.cu).
 _OUR_KERNEL = re.compile(r"::(visibility|tidpass|gbuffer|gbuffer_slim|sample|"
                          r"stencil|lines|lines_clear|coarse_bins|quad_prep|"
-                         r"shade|vertex)_kernel[<(]")
+                         r"shade|vertex|overlay_quantize|overlay)_kernel[<(]")
 #: The kernels (``_OUR_KERNEL``'s names) each wrapper launches once per call
 #: where they are not just the wrapper's name: K1, K4 and K7 bin first with
 #: csrc/bins.cu, K6 clears its mask first.
@@ -1293,7 +1354,8 @@ def _profile(scene, n_frames=5):
                       if f"::{n}_kernel(" in k or f"::{n}_kernel<" in k)
                for n in ("visibility", "gbuffer", "sample", "stencil",
                          "gbuffer_slim", "lines", "lines_clear", "tidpass",
-                         "coarse_bins", "quad_prep", "shade")}
+                         "coarse_bins", "quad_prep", "shade", "overlay",
+                         "overlay_quantize")}
     kernels = {k: v for k, v in kernels.items() if v > 0}
     r = lambda d: {k[:60]: round(v, 4) for k, v in d}
     return {"wall": wall_ms, "busy": busy, "busy_share": busy / wall_ms,
@@ -1330,6 +1392,12 @@ SOURCES = {
     # pipeline._build_face_batch :133 and raster_pallas.pack_faces :261).
     "vertex_faces": ("tpu_renderer_torch/csrc/vertex.cu",
                      "tpu_renderer/ops/pipeline.py:133"),
+    # Not a pallas_call: the host overlay and the host flip, gamma and
+    # uint8 after it (the JAX package's Scene.render).
+    "overlay": ("tpu_renderer_torch/csrc/overlay.cu",
+                "tpu_renderer/models/scene.py:824"),
+    "overlay_quantize": ("tpu_renderer_torch/csrc/overlay.cu",
+                         "tpu_renderer/models/scene.py:848"),
 }
 #: The TPU kernel a sharded mode replaces, where its wrapper's differs.
 REPLACES = {
@@ -1402,6 +1470,118 @@ def _check_render(scene, frame, debug):
         raise AssertionError(f"{scene.shader}: degenerate frame, no "
                              "foreground")
     return tid_match, frame_match, fg
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit: dtype, shape and every byte (NaN payloads and the
+    sign of zero included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.contiguous(), b.contiguous()
+    if a.is_floating_point():
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return torch.equal(a, b)
+
+
+def _overlay_kernels(tr, records):
+    """Phase 3's K11 and K12 (module docstring) on ``overlay_inputs``: each
+    call on fresh copies of the inputs it writes, against its plain version
+    on others: every output equal bit for bit (K11 the frame, the z-buffer
+    and the pixel counter, K12 the uint8 frame), so max_abs_err 0; no
+    host sync; timed as its wrapper and alone (K12 also as a captured
+    graph) beside its bound: K12's bytes, K11 latency (its rows' points
+    walked twice, in one block). Puts their records into ``records``."""
+    import torch
+    from tpu_renderer_torch.ops import raster_cuda as rc
+
+    inputs = overlay_inputs(tr)
+    for name, args in inputs.items():
+        kern, plain = getattr(rc, name), getattr(rc, f"{name}_plain")
+        fresh = lambda args=args: tuple(
+            a.clone() if isinstance(a, torch.Tensor) and a.is_cuda else a
+            for a in args)
+        got, ref = kern(*fresh()), plain(*fresh())
+        torch.cuda.synchronize()
+        got, ref = ((got, ref) if isinstance(got, tuple)
+                    else ((got,), (ref,)))
+        err = max((g.double() - r.double()).abs().nan_to_num(0.0).max()
+                  .item() for g, r in zip(got, ref))
+        if err != 0.0 or not all(map(_bits_equal, got, ref)):
+            raise AssertionError(f"{name}: differs from its plain version at "
+                                 f"reference-main's shapes (max_abs_err "
+                                 f"{err})")
+        _assert_no_sync(lambda: kern(*fresh()))
+        timed = fresh()
+        ms = _time_ms(lambda: kern(*timed))
+        alone = _alone_ms(lambda: kern(*timed), name)
+        plain_ms = _time_ms(lambda: plain(*timed), runs=3)
+        h, w = MAIN_RES
+        if name == "overlay":
+            table = args[0]
+            points = int(table[:, 6].sum())
+            shown = (f"{table.shape[0]} rows of {points} points, "
+                     f"{int(table[:, 7].sum())} dashed; line px "
+                     f"{int(got[2])}")
+            bound_ms, bound_by, extra = None, "latency", (
+                f"bound: latency (one block walks {points} points twice, "
+                f"a barrier after each pass of each row)")
+        else:
+            nbytes = h * w * 3 * (8 + 1)
+            bound_ms, bound_by = nbytes / PEAK_BYTES * 1e3, "bytes"
+            shown = f"{h}x{w}x3 float64 to uint8"
+            graph = _graph_ms(lambda: kern(*timed))
+            extra = (f"bound {bound_ms:.4f} ms by bytes ({nbytes / 1e6:.2f} "
+                     f"MB: float64 read, uint8 written); graph {graph:.4f} "
+                     f"ms (device ms per call of a captured graph of 20 "
+                     f"calls)")
+        source, replaces = SOURCES[name]
+        records[name] = {"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": None,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None}
+        print(f"[3 kernel] {name} (reference-main, {h}x{w}, camera2) "
+              f"{shown}: exact in every bit; max_abs_err {err:.3g}; no host "
+              f"sync; kernel {ms:.4f} ms (its wrapper), alone {alone:.4f} "
+              f"ms, plain {plain_ms:.2f} ms (numpy on copies to the host); "
+              f"{extra}", flush=True)
+
+
+def _check_overlay(scene, frame, pixels):
+    """Hold the overlay of the scene's last render (K11 and K12 after the
+    replay) to its numpy path on the same float frame and z-buffer: the
+    eager ``pipeline.render_core`` through the kernels (which a replay
+    equals: phase 9), then ``ops/overlay.draw_view_frustum`` and numpy's
+    flip, gamma 0.8 and uint8 on the host. The uint8 frame, ``last_zbuf``
+    and the overlay's line pixels (``pixels``, from
+    ``profiling.snapshot()``) must be equal bit for bit; raises otherwise.
+    Returns the line pixels."""
+    import torch
+    from tpu_renderer_torch.ops import overlay as ov
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    cfg, dyn = scene._prepare()
+    f, z = pl.render_core(cfg, dyn)[:2]
+    f = f.cpu().numpy().astype(np.float64)
+    z = z.cpu().numpy().astype(np.float64)
+    _, px = ov.draw_view_frustum(
+        f, scene.camera._matrices(torch.float64),
+        scene.debug_camera._matrices(torch.float64), scene.camera.position,
+        scene.camera.near, scene.camera.far, scene.resolution, z,
+        scene.system)
+    want = (np.clip(f[::-1] ** 0.8, 0, 1) * 255).astype(np.uint8)
+    zb = scene.last_zbuf
+    same = (_bits_equal(torch.from_numpy(np.ascontiguousarray(frame)),
+                        torch.from_numpy(want))
+            and zb.dtype == torch.float64
+            and _bits_equal(zb.cpu(), torch.from_numpy(z)))
+    if not same or pixels != px:
+        raise AssertionError(f"debug camera: the overlay differs from its "
+                             f"numpy path: frame and z-buffer equal {same}, "
+                             f"line px {pixels} against {px}")
+    return px
 
 
 #: Interleaved orbit pairs (general, variant) per phase-5 variant, and
@@ -1687,6 +1867,10 @@ def _sharded_phase(scene, start, records):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: The kernels a frame with the debug camera's overlay launches once,
+#: eagerly after its replay (K11, K12).
+OVERLAY_KERNELS = ("overlay", "overlay_quantize")
+
 #: Interleaved orbit pairs (flagship, debug-camera frame) of phase 7, and
 #: frames per orbit.
 DEBUG_PAIRS = 3
@@ -1696,24 +1880,32 @@ DEBUG_ORBIT = 10
 def _debug_phase(tr, scene, start, records):
     """Phase 7 (module docstring): the flagship with the debug camera and
     both gizmos; ``scene`` is the flagship without them, which it is timed
-    against. Puts its K1 and K10 launches into the ``visibility_dbg`` and
-    ``vertex_dbg`` records."""
+    against. Puts its K1, K10, K11 and K12 launches into the
+    ``visibility_dbg``, ``vertex_dbg``, ``overlay`` and
+    ``overlay_quantize`` records."""
     import torch
     from tpu_renderer_torch.ops import pipeline as pl
     from tpu_renderer_torch.ops import raster_cuda as rc
+    from tpu_renderer_torch.utils import profiling
 
     dbg = build_flagship("cuda")
     dbg.light = flagship_light(show=True)
     dbg.debug_camera = flagship_debug_camera(tr, show=True)
+    profiling.reset()
     rc.reset_launches()
     frame = dbg.render()
     torch.cuda.synchronize()
-    launched = {k: rc.LAUNCHES[k] for k in PATH_KERNELS["overlay"]}
-    if min(launched.values()) < 1:
+    launched = {k: rc.LAUNCHES[k] for k in PATH_KERNELS["overlay"]
+                + OVERLAY_KERNELS}
+    if min(launched.values()) < 1 or any(launched[k] != 1
+                                         for k in OVERLAY_KERNELS):
         raise AssertionError(f"debug-camera path skipped a kernel: "
                              f"{launched}")
-    for key in ("visibility_dbg", "vertex_dbg"):
+    for key in ("visibility_dbg", "vertex_dbg") + OVERLAY_KERNELS:
         records[key]["launches"] = launched[key]
+    line_px = _check_overlay(dbg, frame,
+                             profiling.snapshot()["overlay"]["pixels"])
+    profiling.reset()
     tid_match, frame_match, fg = _check_render(dbg, frame, debug=False)
     red = int(((frame[..., 0] == 255) & (frame[..., 1] == 0)
                & (frame[..., 2] == 0)).sum())
@@ -1751,7 +1943,9 @@ def _debug_phase(tr, scene, start, records):
     lead = sorted(prof["host"].items(), key=lambda kv: -kv[1])[:3]
     print(f"[7 debug camera] launches {launched}; vs plain path tid "
           f"{tid_match:.6f}, frame {frame_match:.6f}, stencil equal; "
-          f"foreground {fg:.3f}; overlay red px {red}; the debug camera "
+          f"foreground {fg:.3f}; the overlay equals its numpy path on "
+          f"the same float buffers in every bit (uint8 frame, last_zbuf, "
+          f"{line_px} line px); overlay red px {red}; the debug camera "
           f"moves {moved} of {int(mesh.sum())} mesh px ({share:.4f}); gizmo "
           f"px (light, camera) {gizmo_px}; Scene.render ms/frame "
           f"(compiled, host clock, {DEBUG_PAIRS} interleaved "
@@ -2542,6 +2736,7 @@ def main():
                       f"{valid} of {got[1].numel()}, non-finite fdata "
                       f"values {int((~torch.isfinite(got[0])).sum())}",
                       flush=True)
+    _overlay_kernels(tr, records)
     from tpu_renderer_torch.ops import raster_plain as rp
     ppc = {case: int(((inputs[case][0][1] & rp.FLAG_PPC) > 0).sum())
            for case in ("visibility", "visibility_dbg")}

@@ -53,7 +53,12 @@ This file imports no JAX, so it also runs on the card's host:
   scene's face tables, with its debug camera, and on the adversarial
   tables of ``chip_smoke.k10_adversarial_inputs`` (tests/
   test_torch_vertex_kernel.py holds it in every instance and at the
-  flagship's and the crowd's sizes).
+  flagship's and the crowd's sizes);
+- K11 (``overlay``, in place: each call gets fresh copies of the case's
+  tensors, ``IN_PLACE``) and K12 (``overlay_quantize``) on the card equal
+  their plain versions on the debug-camera scene's frame (tests/
+  test_torch_overlay_kernel.py holds them at 1500² and on crafted
+  tables).
 
 ``build_scene`` is the shared procedural test scene: test_torch_slice.py
 and test_torch_modules.py build the same scene in the JAX package.
@@ -576,7 +581,13 @@ CASES = {"visibility": ("visibility", "visibility"),
          **{name: ("shade", "shade") for name in chip_smoke.K9_ADV},
          "vertex": ("vertex_faces", "vertex"),
          "vertex-dbg": ("vertex_faces", "vertex_dbg"),
-         "vertex-adv-pbr-cull-dbg": ("vertex_faces", "vertex_dbg")}
+         "vertex-adv-pbr-cull-dbg": ("vertex_faces", "vertex_dbg"),
+         "overlay": ("overlay", "overlay"),
+         "overlay_quantize": ("overlay_quantize", "overlay_quantize")}
+
+#: Cases whose wrapper writes into its arguments: each call of the case
+#: takes fresh copies of its tensors.
+IN_PLACE = {"overlay"}
 
 #: K3's adversarial cases (chip_smoke.k3_adversarial_inputs): case id ->
 #: ``vector`` (its scalar instance, then its vector one with a tail).
@@ -709,7 +720,37 @@ def stage_inputs():
     inputs["shade-instances"] = chip_smoke.shade_inputs(cfg, dyn)
     for name in chip_smoke.K9_ADV:
         inputs[name] = chip_smoke.k9_adversarial_inputs(name)
+    inputs.update(overlay_inputs())
     return inputs
+
+
+def overlay_inputs():
+    """K11's and K12's cases on the debug-camera scene: its float frame and
+    z-buffer in float64, its frustum's segment table (on the host, where
+    the wrapper takes it), a pixel counter."""
+    from tpu_renderer_torch.ops import overlay as ov
+    from tpu_renderer_torch.ops import pipeline as pl
+
+    scene = build_scene(tt, gz_torch, device="cpu",
+                        debug_camera=tt.Camera(**DEBUG_CAM))
+    cfg, dyn = scene._prepare()
+    frame, zbuf = (t.double() for t in pl.render_core(cfg, dyn)[:2])
+    table = torch.from_numpy(ov.frustum_segments(
+        scene.camera._matrices(torch.float64),
+        scene.debug_camera._matrices(torch.float64), scene.camera.position,
+        scene.camera.near, scene.camera.far, scene.resolution))
+    counter = torch.zeros(1, dtype=torch.int64)
+    return {"overlay": ((table, frame, zbuf, cfg.system, counter), {}),
+            "overlay_quantize": ((frame,), {})}
+
+
+def _fresh(name, args, kw):
+    """The case's arguments for one call: copies of its tensors where the
+    wrapper writes into them (IN_PLACE)."""
+    if name not in IN_PLACE:
+        return args, kw
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args), kw
 
 
 def _moved(args, kw, device):
@@ -735,9 +776,10 @@ def test_cases_cover_every_wrapper():
 @pytest.mark.parametrize("name", list(CASES))
 def test_wrapper_on_cpu_runs_plain_version(stage_inputs, name):
     rc.reset_launches()
-    args, kw = stage_inputs[name]
     fn, key = CASES[name]
-    got = getattr(rc, fn)(*args, **kw)
+    got = getattr(rc, fn)(*_fresh(name, *stage_inputs[name])[0],
+                          **stage_inputs[name][1])
+    args, kw = _fresh(name, *stage_inputs[name])
     want = getattr(rc, f"{fn}_plain")(*args, **kw)
     assert _equal(got, want)
     assert rc.LAUNCHES[key] == 0
@@ -753,14 +795,17 @@ def test_wrapper_refuses_other_devices(stage_inputs, name):
 
 
 def test_stage_inputs_are_not_degenerate(stage_inputs):
-    """The slim G-buffers carry foreground, and the wireframe lights pixels
+    """The slim G-buffers carry foreground, the wireframe lights pixels
     of the scene (edges of faces behind the visible surface pass the LH
-    z test)."""
+    z test), and the overlay's case draws line pixels."""
     for layout in rc.SLIM_CHANNELS:
         gb = rc.gbuffer_slim(*stage_inputs[f"gbuffer_slim-{layout}"][0])
         assert gb.shape == (rc.SLIM_CHANNELS[layout], *RES)
         assert (gb != 0).any()
     assert rc.lines(*stage_inputs["lines"][0]).sum() > 0
+    # The debug camera's frustum crosses the frame: K11's case draws.
+    args, _ = _fresh("overlay", *stage_inputs["overlay"])
+    assert len(args[0]) > 10 and int(rc.overlay(*args)[2]) > 100
 
 
 def test_shard_inputs_are_not_degenerate(stage_inputs):
@@ -1083,6 +1128,9 @@ def cuda_inputs(stage_inputs):
     for name, vector in K3_ADV.items():
         moved[name] = chip_smoke.k3_adversarial_inputs(vector=vector,
                                                        device="cuda")
+    # K11 takes its segment table on the host.
+    (table, *rest), kw = moved["overlay"]
+    moved["overlay"] = ((table.cpu(), *rest), kw)
     return moved
 
 
@@ -1092,11 +1140,12 @@ def test_kernel_matches_plain_on_card(cuda_inputs, name):
     """The hand-written kernel against its plain version on the same CUDA
     tensors: bit-identical (both round op by op)."""
     rc.reset_launches()
-    args, kw = cuda_inputs[name]
     fn, key = CASES[name]
+    args, kw = _fresh(name, *cuda_inputs[name])
     got = getattr(rc, fn)(*args, **kw)
     torch.cuda.synchronize()
     assert rc.LAUNCHES[key] == 1
+    args, kw = _fresh(name, *cuda_inputs[name])
     want = getattr(rc, f"{fn}_plain")(*args, **kw)
     assert _equal(got, want)
 

@@ -14,10 +14,10 @@ On the CPU, where a program runs its body eagerly over its static buffers:
   readback count a visit each and no transfer (on the CPU they make none);
   the counters outlive ``clear_compiled()`` and :func:`profiling.reset`
   zeroes them, the camera constants' builds and hits among them;
-- the debug camera's host overlay: ``tr.readback``, ``tr.overlay_cast``,
-  ``tr.overlay_draw`` and ``tr.overlay_quantize`` inside ``tr.overlay``
-  once per frame; the overlay counter's frames, segments and line pixels;
-  the frame bit-identical with and without a profiler;
+- the debug camera's overlay: ``tr.overlay_cast``, ``tr.overlay_draw``,
+  ``tr.overlay_quantize`` and ``tr.readback`` inside ``tr.overlay`` once
+  per frame; the overlay counter's frames, segments and line pixels; the
+  frame bit-identical with and without a profiler;
 - the timers that spans stamp while a graph is recorded (the host's clock
   on the CPU), their bound, and how replays made under a profiler are
   read.
@@ -197,15 +197,15 @@ def test_first_capture_parts_are_kept():
     profiling.reset()
 
 
-#: The debug camera's host overlay inside ``tr.overlay``.
-OVERLAY_SPANS = ("readback", "overlay_cast", "overlay_draw",
-                 "overlay_quantize")
+#: The debug camera's overlay inside ``tr.overlay``.
+OVERLAY_SPANS = ("overlay_cast", "overlay_draw", "overlay_quantize",
+                 "readback")
 
 
 def test_overlay_spans_nest_inside_the_overlay():
-    """The debug camera's frame: under a profiler the copy to the host,
-    the casts, the drawing and the quantization each open once per frame
-    inside ``tr.overlay``, in that order."""
+    """The debug camera's frame: under a profiler the casts, the drawing,
+    the quantization and the copy of the uint8 frame to the host each open
+    once per frame inside ``tr.overlay``, in that order."""
     scene = scene_for("debug_core")
     scene.render()
     frames = 2

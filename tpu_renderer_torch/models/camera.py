@@ -116,16 +116,34 @@ class _TransformMixin:
         """The host form of :func:`camera_matrices` (numpy, ``dtype``) for
         the bound scene's resolution and systems: the properties below, the
         gizmos and the debug overlay (float64) read it; the render path
-        composes its own (ops/pipeline.py ``frame_inputs``)."""
+        composes its own (ops/pipeline.py ``frame_inputs``).
+
+        The float64 form, which the overlay asks for every frame, is kept
+        with the state it was built from and built again only when that
+        state changes (a debug camera usually stands still); its arrays
+        are read-only."""
         scene = self.scene
         if scene is None:
             raise RuntimeError("object is not bound to a Scene")
-        return camera_matrices(
+        state = (dtype, np.asarray(self.position).tolist(),
+                 np.asarray(self.center).tolist(),
+                 np.asarray(self.up).tolist(), self.fovy, self.near, self.far,
+                 self.projection_type, self.x_offset, self.y_offset,
+                 scene.system, scene.subsystem, tuple(scene.resolution))
+        kept = getattr(self, "_host64", None)
+        if kept is not None and kept[0] == state:
+            return kept[1]
+        m = camera_matrices(
             self.position, self.center, self.up, self.fovy, self.near, self.far,
             projection_type=self.projection_type, system=scene.system,
             subsystem=scene.subsystem, resolution=scene.resolution,
             x_offset=self.x_offset, y_offset=self.y_offset, host=True,
             dtype=dtype)
+        if dtype == torch.float64:
+            for v in m.values():
+                v.flags.writeable = False
+            self._host64 = (state, m)
+        return m
 
     @property
     def projection(self):

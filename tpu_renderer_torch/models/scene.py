@@ -4,7 +4,7 @@ Counterpart of ``tpu_renderer/models/scene.py`` (reference core.py:558-640)
 on one device: the six shaders (general, flat, gouraud, pbr, wireframe,
 points), optional shadow volumes, a color or cubemap-skybox background, a
 debug camera (its clip space in the rasterizer, and its frustum drawn over
-the frame on the host), the camera and light gizmos (``show=True``),
+the frame after it), the camera and light gizmos (``show=True``),
 supersampling (``supersample``) and per-model statistics (``stats()``).
 Fixed reference quirks kept from the JAX package: ``shadows=`` is honored
 and ``Model.shadowing`` gates which models cast shadows; camera/light
@@ -40,10 +40,11 @@ from tpu_renderer_torch.models.camera import Camera, Light
 from tpu_renderer_torch.models.model import Model
 from tpu_renderer_torch.ops import transforms as T
 from tpu_renderer_torch.ops import pipeline as pl
+from tpu_renderer_torch.ops import raster_cuda as rc
 from tpu_renderer_torch.ops.cubemap import CubeMap
 from tpu_renderer_torch.ops.errors import Errors
 from tpu_renderer_torch.ops.overlay import (draw_points, draw_view_frustum,
-                                            draw_wireframe)
+                                            draw_wireframe, frustum_segments)
 from tpu_renderer_torch.ops.pipeline import (
     DEBUG_SHADERS, ModelConfig, SceneConfig, SHADER_GENERAL, SHADER_GOURAUD,
     SHADERS, face_statistics_jit, render_core, render_core_jit,
@@ -457,13 +458,16 @@ class Scene:
         ``last_zbuf``, ``last_tid`` and ``last_stencil``.
 
         With a debug camera (and ``debug_overlay``), the general, flat,
-        gouraud and pbr frames get its frustum drawn on the host
-        (scene.py:824-848 of the JAX package): the pre-flip frame and the
-        z-buffer come to the host as float64, ``draw_view_frustum`` draws
-        with both cameras' float64 host matrices, then flip, gamma 0.8 and
-        uint8 run in numpy. ``last_zbuf`` is then the z-buffer as the
-        overlay left it, a float64 CPU tensor. Wireframe and points draw no
-        overlay, as in the JAX package.
+        gouraud and pbr frames get its frustum drawn over them
+        (scene.py:824-848 of the JAX package, which draws on the host): the
+        pre-flip frame and the z-buffer are cast to float64 on the scene's
+        device, the host computes the frustum's segments with both
+        cameras' float64 host matrices, K11 draws them and K12 flips,
+        applies gamma 0.8 and casts to uint8, both in float64 on the card
+        (on the CPU, their numpy plain versions); only the uint8 frame
+        comes to the host. ``last_zbuf`` is then the z-buffer as the
+        overlay left it, a float64 tensor on the scene's device. Wireframe
+        and points draw no overlay, as in the JAX package.
 
         With ``supersample`` = ss > 1 (scene.py:797-819 of the JAX package)
         the frame renders at ss times the resolution and is box-filtered
@@ -517,32 +521,47 @@ class Scene:
     def _render_overlay(self, cfg, dyn, ops=None):
         """The pre-flip frame through ``render_core_jit`` (or, given
         ``ops``, the eager ``render_core`` through them: the plain path a
-        test holds the frame to), then the debug camera's frustum on the
-        host. Returns (frame_u8 (H, W, 3) numpy, zbuf float64 CPU tensor as
-        the overlay left it, tid, stencil).
+        test holds the frame to), then the debug camera's frustum over it.
+        Returns (frame_u8 (H, W, 3) numpy, zbuf float64 as the overlay left
+        it, tid, stencil), the buffers on the scene's device.
 
-        Under ``tr.overlay`` the copy to the host (``tr.readback``), the
-        float64 casts (``tr.overlay_cast``), the drawing
-        (``tr.overlay_draw``; its segments and line pixels counted by
-        ``profiling.count_overlay``) and the flip, gamma and uint8
-        (``tr.overlay_quantize``) each have a span."""
+        Under ``tr.overlay``: the float64 casts of the frame and the
+        z-buffer on their device (``tr.overlay_cast``); the drawing
+        (``tr.overlay_draw``; its segments counted by
+        ``profiling.count_overlay``, its line pixels on the device,
+        ``profiling.overlay_counter``); the flip, gamma and uint8
+        (``tr.overlay_quantize``); the copy of the uint8 frame to the host
+        (``tr.readback``). On the card the host computes the segment table
+        (ops/overlay.frustum_segments), and K11 draws it and K12 quantizes
+        (``ops``, default ``raster_cuda.KERNELS``), eagerly after the
+        replay. On the CPU ``draw_view_frustum`` draws on the buffers'
+        memory in numpy, and K12's plain version quantizes."""
         frame, zbuf, tid, stencil = (render_core_jit(cfg, dyn) if ops is None
                                      else render_core(cfg, dyn, ops))
+        ops = ops or rc.KERNELS
         with span("overlay"):
-            frame, zb = _readback(frame, zbuf)
             with span("overlay_cast"):
-                frame, zb = frame.astype(np.float64), zb.astype(np.float64)
+                frame, zb = frame.to(torch.float64), zbuf.to(torch.float64)
             with span("overlay_draw"):
-                drawn = draw_view_frustum(
-                    frame, self.camera._matrices(torch.float64),
-                    self.debug_camera._matrices(torch.float64),
-                    self.camera.position, self.camera.near, self.camera.far,
-                    self.resolution, zb, self.system)
-            profiling.count_overlay(*drawn)
+                cams = (self.camera._matrices(torch.float64),
+                        self.debug_camera._matrices(torch.float64),
+                        self.camera.position, self.camera.near,
+                        self.camera.far, self.resolution)
+                counter = profiling.overlay_counter(zb.device)
+                if zb.is_cuda:
+                    table = frustum_segments(*cams)
+                    ops.overlay(torch.from_numpy(table), frame, zb,
+                                self.system, counter)
+                    segments = len(table)
+                else:
+                    segments, pixels = draw_view_frustum(
+                        frame.numpy(), *cams, zb.numpy(), self.system)
+                    counter += pixels
+            profiling.count_overlay(segments)
             with span("overlay_quantize"):
-                out = (np.clip(frame[::-1] ** 0.8, 0, 1) * 255).astype(
-                    np.uint8)
-        return out, torch.from_numpy(zb), tid, stencil
+                out = ops.overlay_quantize(frame)
+            out = _readback(out)[0]
+        return out, zb, tid, stencil
 
     def _render_debug_shader(self, cfg, dyn) -> np.ndarray:
         """Wireframe / points shaders (reference triangular.py:269-283):

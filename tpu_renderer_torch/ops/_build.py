@@ -79,6 +79,10 @@ _SIGNATURES = {
     # fdbg (null without dbg_mvp), rows, world (null: general layout),
     # stream
     "tr_vertex": [_P] * 9 + [_I] * 5 + [_P] * 5 + [_P],
+    # table, rows, frame, zbuf, H, W, sign, scratch, counter, stream
+    "tr_overlay": [_P, _I, _P, _P, _I, _I, ctypes.c_double, _P, _P, _P],
+    # frame, out, H, W, stream
+    "tr_overlay_quantize": [_P, _P, _I, _I, _P],
 }
 
 _lib = None

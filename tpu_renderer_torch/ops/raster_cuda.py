@@ -27,6 +27,9 @@ Counterpart of ``tpu_renderer/ops/raster_pallas.py``:
 |                     |                        | (vertex.py, pipeline._build_face_batch) |
 |                     |                        | and pack_faces, face_flags,             |
 |                     |                        | pack_face_attrs, pack_slim_attrs        |
+| ``overlay``,        | csrc/overlay.cu        | no pallas_call: the host overlay of the |
+| ``overlay_quantize``|                        | debug camera's frustum (scene.py:824-848|
+|                     |                        | there) and its flip, gamma and uint8    |
 
 Sharded rendering (parallel/sharded.py) gives the raster kernels a block of
 frame rows from ``row0`` (pixel math stays in global coordinates) and a
@@ -74,14 +77,23 @@ shading row of the frame's layout). The columns that depend only on the
 packing come prepacked with the face tables (:func:`attr_consts`,
 :func:`face_bits`); its plain version is the composition it replaces,
 :func:`face_batch` and the packers.
+
+K11 (``overlay``) draws the debug camera's frustum over a float64 frame and
+z-buffer from a segment table the host computes
+(ops/overlay.frustum_segments), with numpy's semantics, in one block; K12
+(``overlay_quantize``) flips, applies gamma 0.8 in float64 and truncates
+to uint8. Their plain versions are the numpy of ops/overlay.py; the
+scene launches them eagerly after the frame's replay.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 
+import numpy as np
 import torch
 
+from tpu_renderer_torch.ops import overlay as ov
 from tpu_renderer_torch.ops import raster_plain as rp
 from tpu_renderer_torch.ops import shading as sh
 from tpu_renderer_torch.ops.lightning import Lightning
@@ -90,6 +102,7 @@ from tpu_renderer_torch.ops.shadow import QUAD_PMAX, quad_edge_coeffs, \
     quad_fragments, _cross, _dot3
 from tpu_renderer_torch.ops.vertex import (_rowvec, gather_faces,
                                            transform_vertices)
+from tpu_renderer_torch.utils import profiling
 
 __all__ = [
     "face_flags", "pack_faces", "pack_debug_planes", "pack_face_attrs",
@@ -102,6 +115,8 @@ __all__ = [
     "lines_plain", "tidpass_plain", "texel_indices", "shade", "shade_plain",
     "shade_scale_off", "vertex_pass", "face_batch", "attr_consts",
     "face_bits", "vertex_faces", "vertex_faces_plain", "VERTEX_LAYOUTS",
+    "overlay", "overlay_plain", "overlay_quantize", "overlay_quantize_plain",
+    "MAX_SEGMENT_POINTS",
     "LAUNCHES", "reset_launches", "counting_into", "KERNELS", "PLAIN",
     "GB_CHANNELS", "SLIM_CHANNELS",
     "N_KINDS", "KINDS", "TILE",
@@ -115,7 +130,7 @@ LAUNCHES = {"visibility": 0, "visibility_z": 0, "visibility_dbg": 0,
             "visibility_z_dbg": 0, "gbuffer": 0, "sample_textures": 0,
             "stencil": 0, "gbuffer_slim": 0, "lines": 0, "tidpass": 0,
             "tidpass_dbg": 0, "quad_prep": 0, "shade": 0, "vertex": 0,
-            "vertex_dbg": 0}
+            "vertex_dbg": 0, "overlay": 0, "overlay_quantize": 0}
 
 
 def reset_launches():
@@ -1327,12 +1342,95 @@ def vertex_faces(verts, ft, cam, height, width, culling, layout,
     return fdata, flags, fdbg, rows, world
 
 
+def overlay_plain(table, frame, zbuf, sign, counter):
+    """K11's plain version: ops/overlay.draw_segments of the segment table
+    ``table`` (S, SEG_COLS) float64 on the host, over ``frame`` (H, W, 3)
+    and ``zbuf`` (H, W) float64, in place (on a CUDA device through a copy
+    on the host); the line pixels are added to ``counter``, a (1,) int64
+    tensor on their device. Returns (frame, zbuf, counter)."""
+    host = frame.device.type == "cpu"
+    f, z = (frame.numpy(), zbuf.numpy()) if host else (
+        frame.cpu().numpy(), zbuf.cpu().numpy())
+    pixels = ov.draw_segments(table.numpy(), f, z, sign)
+    if not host:
+        frame.copy_(torch.from_numpy(f))
+        zbuf.copy_(torch.from_numpy(z))
+    counter += pixels
+    return frame, zbuf, counter
+
+
+#: Points K11 takes in one segment row: 64 a thread of its one block.
+MAX_SEGMENT_POINTS = 64 * 1024
+
+
+def overlay(table, frame, zbuf, sign, counter):
+    """K11: the debug camera's frustum drawn over ``frame`` (H, W, 3) and
+    ``zbuf`` (H, W) float64, in place, from the segment table ``table``
+    (S, SEG_COLS) float64 on the host (ops/overlay.frustum_segments), with
+    numpy's semantics (see overlay_plain); the line pixels that pass the
+    depth test are added to ``counter``, a (1,) int64 tensor on the frame's
+    device, which the host does not read. Returns (frame, zbuf, counter).
+    On the card the table goes up in one copy from pinned memory (the
+    ``overlay`` copy site), and the kernel draws in one block."""
+    if _on_cpu(frame, zbuf, counter):
+        return overlay_plain(table, frame, zbuf, sign, counter)
+    height, width = zbuf.shape
+    rows = table.shape[0]
+    _require(table, "table", torch.float64, (rows, ov.SEG_COLS))
+    if table.device.type != "cpu":
+        raise ValueError("overlay: the segment table lies on the host")
+    _require(frame, "frame", torch.float64, (height, width, 3))
+    _require(zbuf, "zbuf", torch.float64, (height, width))
+    _require(counter, "counter", torch.int64, (1,))
+    if rows > ov.MAX_SEGMENTS or (
+            rows and table[:, 6].max() > MAX_SEGMENT_POINTS):
+        raise ValueError(f"overlay: at most {ov.MAX_SEGMENTS} rows of "
+                         f"{MAX_SEGMENT_POINTS} points")
+    dev = frame.device
+    # The upload is the ``overlay`` copy site (utils/profiling.py).
+    profiling.count_copies("overlay", profiling.tally([(table, "cpu", dev)]))
+    table = table.pin_memory().to(dev, non_blocking=True)
+    scratch = torch.zeros(2 * height * width, dtype=torch.int32, device=dev)
+    _launch("overlay", table.data_ptr(), rows, frame.data_ptr(),
+            zbuf.data_ptr(), height, width, float(sign), scratch.data_ptr(),
+            counter.data_ptr())
+    return frame, zbuf, counter
+
+
+def overlay_quantize_plain(frame):
+    """K12's plain version: ``(clip(frame[::-1] ** 0.8, 0, 1) * 255)`` cast
+    to uint8 in numpy, from ``frame`` (H, W, 3) float64; returns the (H, W,
+    3) uint8 tensor on the frame's device."""
+    f = frame.cpu().numpy()
+    out = (np.clip(f[::-1] ** 0.8, 0, 1) * 255).astype(np.uint8)
+    return torch.from_numpy(out).to(frame.device)
+
+
+def overlay_quantize(frame):
+    """K12: the flip, gamma 0.8, clip to [0, 1], x255 and truncation to
+    uint8 of ``frame`` (H, W, 3) float64, all in float64 (see
+    overlay_quantize_plain). Returns (H, W, 3) uint8."""
+    if _on_cpu(frame):
+        return overlay_quantize_plain(frame)
+    height, width = frame.shape[:2]
+    _require(frame, "frame", torch.float64, (height, width, 3))
+    if height > 65535:
+        raise ValueError("overlay_quantize: at most 65,535 rows")
+    out = torch.empty((height, width, 3), dtype=torch.uint8,
+                      device=frame.device)
+    _launch("overlay_quantize", frame.data_ptr(), out.data_ptr(), height,
+            width)
+    return out
+
+
 class _Ops:
     """The per-frame raster operations render_core and render_debug_frame
-    call."""
+    call, and the debug camera's overlay that Scene.render draws after
+    render_core."""
 
     def __init__(self, visibility, gbuffer, sample_textures, stencil,
-                 gbuffer_slim, lines, tidpass, quad_prep, shade, vertex_faces):
+                 gbuffer_slim, lines, tidpass, quad_prep, shade, vertex_faces,
+                 overlay, overlay_quantize):
         self.visibility = visibility
         self.gbuffer = gbuffer
         self.sample_textures = sample_textures
@@ -1343,12 +1441,16 @@ class _Ops:
         self.quad_prep = quad_prep
         self.shade = shade
         self.vertex_faces = vertex_faces
+        self.overlay = overlay
+        self.overlay_quantize = overlay_quantize
 
 
 #: The main path: kernels on CUDA tensors, plain versions on CPU tensors.
 KERNELS = _Ops(visibility, gbuffer, sample_textures, stencil, gbuffer_slim,
-               lines, tidpass, quad_prep, shade, vertex_faces)
+               lines, tidpass, quad_prep, shade, vertex_faces, overlay,
+               overlay_quantize)
 #: The plain versions on any device: the oracle a kernel run is held to.
 PLAIN = _Ops(visibility_plain, gbuffer_plain, sample_textures_plain,
              stencil_plain, gbuffer_slim_plain, lines_plain, tidpass_plain,
-             quad_prep_plain, shade_plain, vertex_faces_plain)
+             quad_prep_plain, shade_plain, vertex_faces_plain, overlay_plain,
+             overlay_quantize_plain)

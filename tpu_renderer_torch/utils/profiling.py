@@ -24,7 +24,9 @@ Counterpart of ``tpu_renderer/utils/profiling.py``, without its
   visits are the compiled calls. The first capture's two parts,
   ``warmup_ms`` and ``record_ms``, are kept (:func:`note_capture`), and
   the builds and hits of the frame's camera constants are counted
-  (:func:`count_camera_constants`). These
+  (:func:`count_camera_constants`), and the debug camera's overlaid
+  frames, their segments (:func:`count_overlay`) and their line pixels,
+  which K11 adds up on the frame's device (:func:`overlay_counter`). These
   counters and the replay totals are the process's: they live in this
   module, outlive ``compiled.clear_compiled()``, and :func:`snapshot`
   returns them (:func:`reset` zeroes them);
@@ -52,7 +54,7 @@ from torch.utils._pytree import tree_leaves
 
 __all__ = ["span", "Timers", "recording", "replayed", "read_replay_timers",
            "tally", "count_copies", "count_camera_constants", "count_overlay",
-           "note_capture",
+           "overlay_counter", "note_capture",
            "snapshot", "reset", "trace", "nan_debug",
            "summarize_device_trace"]
 
@@ -78,6 +80,9 @@ def _fresh():
 
 
 _STATE = _fresh()
+#: The overlay's line pixel counters, one (1,) int64 tensor per device
+#: (:func:`overlay_counter`), read by :func:`snapshot`.
+_OVERLAY_PIXELS = {}
 
 
 class Timers:
@@ -218,14 +223,25 @@ def count_camera_constants(built):
     _STATE["camera_constants"]["builds" if built else "hits"] += 1
 
 
-def count_overlay(segments, pixels):
-    """One frame of the debug camera's host overlay (``Scene.render``):
-    the ``segments`` it drew and the line ``pixels`` it wrote
-    (ops/overlay.draw_view_frustum)."""
+def count_overlay(segments):
+    """One frame of the debug camera's overlay (``Scene.render``): the
+    ``segments`` it drew (rows of ops/overlay.frustum_segments' table). Its
+    line pixels are counted on the frame's device (:func:`overlay_counter`).
+    """
     c = _STATE["overlay"]
     c["frames"] += 1
     c["segments"] += segments
-    c["pixels"] += pixels
+
+
+def overlay_counter(device):
+    """The (1,) int64 tensor on ``device`` to which the overlay (K11 or
+    its plain version, ``raster_cuda.overlay``) adds the line pixels it
+    writes; :func:`snapshot` reads it, so a frame waits for nothing."""
+    device = torch.device(device)
+    if device not in _OVERLAY_PIXELS:
+        _OVERLAY_PIXELS[device] = torch.zeros(1, dtype=torch.int64,
+                                              device=device)
+    return _OVERLAY_PIXELS[device]
 
 
 def note_capture(warmup_ms, record_ms):
@@ -242,9 +258,14 @@ def snapshot():
     ``warmup_ms`` and ``record_ms`` (the first capture's) and
     ``camera_constants`` ({"builds": n, "hits": m}, the look-ups of
     :func:`count_camera_constants`) and ``overlay`` ({"frames": n,
-    "segments": s, "pixels": p}, :func:`count_overlay`)."""
+    "segments": s, "pixels": p}, :func:`count_overlay`; ``pixels`` read
+    from :func:`overlay_counter`'s tensors, which waits for a device's
+    work)."""
     read_replay_timers()
-    return copy.deepcopy(_STATE)
+    snap = copy.deepcopy(_STATE)
+    snap["overlay"]["pixels"] += sum(int(c.item())
+                                     for c in _OVERLAY_PIXELS.values())
+    return snap
 
 
 def reset():
@@ -252,6 +273,7 @@ def reset():
     _pending.clear()
     _STATE.clear()
     _STATE.update(_fresh())
+    _OVERLAY_PIXELS.clear()
 
 
 @contextlib.contextmanager
