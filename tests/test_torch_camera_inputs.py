@@ -33,7 +33,6 @@ from tpu_renderer_torch.ops import raster_cuda as rc
 from tpu_renderer_torch.ops import transforms as T
 from tpu_renderer_torch.ops.cubemap import skybox_inputs
 from tpu_renderer_torch.ops.lightning import Lightning
-from tpu_renderer_torch.utils import profiling
 
 from test_torch_kernels import one_torch_thread  # noqa: F401
 
@@ -198,16 +197,37 @@ def test_torch_kernels_round_numpy_views_as_their_own_tensors(op):
 
 # ---------------------------------------------------------------- the cache
 
+class Lookups:
+    """The look-ups of ``pipeline._camera_constants``, told apart by the
+    cache itself: one that returns an entry the cache already held is a
+    hit, any other a build."""
+
+    def __init__(self, monkeypatch):
+        self.reset()
+        look = pl._camera_constants
+
+        def counted(*args):
+            held = {id(e) for e in pl._CAMERA_CONSTANTS.values()}
+            entry = look(*args)
+            if id(entry) in held:
+                self.hits += 1
+            else:
+                self.builds += 1
+            return entry
+
+        monkeypatch.setattr(pl, "_camera_constants", counted)
+
+    def reset(self):
+        self.builds = self.hits = 0
+
+    def counts(self):
+        return {"builds": self.builds, "hits": self.hits}
+
+
 @pytest.fixture
-def empty_cache():
+def empty_cache(monkeypatch):
     pl._CAMERA_CONSTANTS.clear()
-    profiling.reset()
-    yield
-    profiling.reset()
-
-
-def counts():
-    return profiling.snapshot()["camera_constants"]
+    return Lookups(monkeypatch)
 
 
 def orbit_scene(debug_camera=None):
@@ -220,6 +240,7 @@ def orbit_scene(debug_camera=None):
 
 @pytest.mark.parametrize("debug", [False, True], ids=["camera", "debug"])
 def test_an_orbit_builds_once_per_camera(empty_cache, debug):
+    counts = empty_cache.counts
     frames = 50
     scene = orbit_scene(tt.Camera((1.0, 3.0, 1.5), center=(0, 0, 0), fovy=50,
                                   near=2.4, far=3.8) if debug else None)
@@ -237,6 +258,7 @@ def test_an_orbit_builds_once_per_camera(empty_cache, debug):
 
 
 def test_a_changed_camera_or_scene_builds_again(empty_cache):
+    counts = empty_cache.counts
     gl, lh, persp = 2, SYSTEM.LH, PROJECTION_TYPE.PERSPECTIVE
     base = dict(position=(0.5, 3.0, 5.0), center=(0, 0, 0), up=(0, 1, 0),
                 fovy=90.0, near=1e-4, far=400.0)
@@ -263,13 +285,14 @@ def test_a_changed_camera_or_scene_builds_again(empty_cache):
         assert not torch.equal(seen[i]["zc"], seen[i - 1]["zc"])
         assert not torch.equal(seen[i]["viewport"], seen[i - 1]["viewport"])
     # Back to the first camera: kept, so a hit, and still the oracle's.
-    profiling.reset()
+    empty_cache.reset()
     assert_same_bits(config(gl, persp, lh, (1024, 1024)),
                      {"camera": as_scene_stages(base)})
     assert counts() == {"builds": 0, "hits": 1}
 
 
 def test_the_cache_is_bounded(empty_cache):
+    counts = empty_cache.counts
     cfg = config(2, PROJECTION_TYPE.PERSPECTIVE, SYSTEM.RH, (97, 131))
     cap = pl.MAX_CAMERA_CONSTANTS
 
@@ -282,7 +305,7 @@ def test_the_cache_is_bounded(empty_cache):
         assert_same_bits(cfg, dyn(k))
         assert len(pl._CAMERA_CONSTANTS) <= cap
     assert len(pl._CAMERA_CONSTANTS) == cap
-    profiling.reset()
+    empty_cache.reset()
     pl.frame_inputs(cfg, dyn(cap + 4))       # the newest is kept
     assert counts() == {"builds": 0, "hits": 1}
     pl.frame_inputs(cfg, dyn(0))             # the oldest was dropped

@@ -6,39 +6,47 @@ On the CPU, where a program runs its body eagerly over its static buffers:
 - with no profiler running, :func:`profiling.span` never enters
   ``record_function`` (it is made to raise);
 - under ``torch.profiler``, a compiled ``Scene.render()`` opens each host
-  span (``tr.render``, ``prepare``, ``frame_inputs``, ``fill``, ``launch``,
-  ``outputs``, ``readback``) once per frame, each inside ``tr.render``, and
-  none inside a ``tr.<stage>`` range, on several paths;
+  span (``tr.render``, ``prepare``, ``frame_inputs``, ``program_inputs``,
+  ``program_key``, ``fill``, ``launch``, ``outputs``, ``readback``) once
+  per frame, each inside ``tr.render``, and none inside a ``tr.<stage>``
+  range, on several paths;
 - per call, the copy counters hold the bytes of the program's staging and
   static buffers and of its clones; the light and background sites and the
   readback count a visit each and no transfer (on the CPU they make none);
   the counters outlive ``clear_compiled()`` and :func:`profiling.reset`
-  zeroes them, the camera constants' builds and hits among them;
+  zeroes them; the camera constants are built at the first frame and kept
+  (``pipeline._CAMERA_CONSTANTS``);
 - the debug camera's overlay: ``tr.overlay_cast``, ``tr.overlay_draw``,
   ``tr.overlay_quantize`` and ``tr.readback`` inside ``tr.overlay`` once
-  per frame; the overlay counter's frames, segments and line pixels; the
-  frame bit-identical with and without a profiler;
+  per frame, ``tr.overlay_matrices`` and ``tr.overlay_segments`` inside
+  ``tr.overlay_draw``, at most 6 ``tr.overlay_clip`` inside
+  ``tr.overlay_segments``; the overlay counter's frames, segments and line
+  pixels; the frame bit-identical with and without a profiler;
 - the timers that spans stamp while a graph is recorded (the host's clock
   on the CPU), their bound, and how replays made under a profiler are
-  read.
+  read: under ``tr.read_timers``, which opens only when one is noted.
 
 On the card (marked ``cuda``): ``warmup_ms + record_ms == capture_ms``,
-the 8 stages' timers in a replayed frame, and the counters per direction
-with the ``H·W·3`` copy of the frame to the host.
+the 8 stages' timers in a replayed frame, one ``tr.read_timers`` per
+traced frame and none without a noted replay, the overlay's four spans
+with ``tr.overlay_kernel``, and the counters per direction with the
+``H·W·3`` copy of the frame to the host.
 """
+import numpy as np
 import pytest
 import torch
 
 import tpu_renderer_torch as tt
 from tpu_renderer_torch.models import gizmos as gz_torch
 from tpu_renderer_torch.ops import compiled
+from tpu_renderer_torch.ops import pipeline as pl
 from tpu_renderer_torch.utils import profiling
 
 from test_torch_kernels import (  # noqa: E402,F401
     RES, one_torch_thread, path_scene)
 
-HOST_SPANS = ("render", "prepare", "frame_inputs", "fill", "launch",
-              "outputs", "readback")
+HOST_SPANS = ("render", "prepare", "frame_inputs", "program_inputs",
+              "program_key", "fill", "launch", "outputs", "readback")
 STAGES = ("vertex", "visibility", "gbuffer", "sample_textures",
           "shadow_quads", "stencil", "shade", "quantize")
 #: Scene.render's branches: the plain frame, supersampling, the debug
@@ -55,6 +63,27 @@ def scene_for(path, device="cpu"):
 
 def _nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _traced_spans(scene, frames, activities=(
+        torch.profiler.ProfilerActivity.CPU,)):
+    """[(start, end, name)] of the host's ``tr.`` ranges of ``frames``
+    renders of ``scene`` under a profiler, sorted, names without ``tr.``
+    (with CUDA activity a range that launched kernels also appears on the
+    device's timeline, which is left out)."""
+    with torch.profiler.profile(activities=list(activities)) as prof:
+        for _ in range(frames):
+            scene.render()
+    return sorted((e.time_range.start, e.time_range.end, e.name[3:])
+                  for e in prof.events() if e.name.startswith("tr.")
+                  and e.device_type == torch.autograd.DeviceType.CPU)
+
+
+def _inside(spans, outer, name):
+    """For each ``outer`` range of ``spans``, the ``name`` ranges within
+    it."""
+    return [[(s, t) for s, t, n in spans if n == name and s0 <= s
+             and t <= t0] for s0, t0, o in spans if o == outer]
 
 
 def test_untraced_span_enters_no_record_function(monkeypatch):
@@ -75,14 +104,9 @@ def test_compiled_render_opens_each_host_span_once_per_frame(path):
     scene = scene_for(path)
     scene.render()
     frames = 2
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        for _ in range(frames):
-            scene.render()
-    spans = [(e.name[3:], e.time_range.start, e.time_range.end)
-             for e in prof.events() if e.name.startswith("tr.")]
+    spans = _traced_spans(scene, frames)
     by_name = {}
-    for name, s, t in spans:
+    for s, t, name in spans:
         by_name.setdefault(name, []).append((s, t))
     renders = by_name["render"]
     assert len(renders) == frames
@@ -92,7 +116,7 @@ def test_compiled_render_opens_each_host_span_once_per_frame(path):
             assert any(rs <= s and t <= rt for rs, rt in renders), name
     # No host span inside a stage's range (the stages run inside
     # tr.launch on the CPU), and no capture on the CPU.
-    stages = [(s, t) for name, s, t in spans if name in STAGES]
+    stages = [(s, t) for s, t, name in spans if name in STAGES]
     assert stages
     for name in HOST_SPANS:
         for s, t in by_name[name]:
@@ -101,10 +125,13 @@ def test_compiled_render_opens_each_host_span_once_per_frame(path):
 
 
 def test_copy_counters_per_call():
+    pl._CAMERA_CONSTANTS.clear()
     scene = scene_for("general")
     h, w = RES
     scene.render()
     prog = compiled.CACHE.last
+    kept = [id(e) for e in pl._CAMERA_CONSTANTS.values()]
+    assert len(kept) == 1
     profiling.reset()
     frames = 3
     for _ in range(frames):
@@ -126,8 +153,9 @@ def test_copy_counters_per_call():
     # and background arrays become tensors without a transfer.
     for site in ("readback", "light", "background"):
         assert set(copies[site]) == {"visits"}, site
-    # The first frame built the camera's constants; each later one reads them.
-    assert snap["camera_constants"] == {"builds": 0, "hits": frames}
+    # The first frame built the camera's constants; each later one reads
+    # the same entry.
+    assert [id(e) for e in pl._CAMERA_CONSTANTS.values()] == kept
     compiled.clear_compiled()
     assert profiling.snapshot() == snap
     profiling.reset()
@@ -135,17 +163,27 @@ def test_copy_counters_per_call():
 
 
 def test_camera_constants_are_counted_and_reset():
-    profiling.reset()
-    assert profiling.snapshot()["camera_constants"] == {"builds": 0,
-                                                        "hits": 0}
-    profiling.count_camera_constants(built=True)
-    for _ in range(3):
-        profiling.count_camera_constants(built=False)
-    assert profiling.snapshot()["camera_constants"] == {"builds": 1,
-                                                        "hits": 3}
-    profiling.reset()
-    assert profiling.snapshot()["camera_constants"] == {"builds": 0,
-                                                        "hits": 0}
+    """A moving camera's frames keep one entry of the camera constants and
+    reuse it; another ``fovy`` builds another, which is then reused."""
+    def entries():
+        return [id(e) for e in pl._CAMERA_CONSTANTS.values()]
+
+    pl._CAMERA_CONSTANTS.clear()
+    scene = scene_for("general")
+    scene.render()
+    kept = entries()
+    assert len(kept) == 1
+    for x in (0.5, 1.0, 1.5):
+        scene.camera.position = np.float32([x, 3.0, 5.0])
+        scene.render()
+        assert entries() == kept
+    scene.camera.fovy = scene.camera.fovy / 2
+    scene.render()
+    zoomed = entries()
+    assert len(zoomed) == 2 and zoomed[0] == kept[0]
+    scene.camera.position = np.float32([2.0, 3.0, 5.0])
+    scene.render()
+    assert entries() == zoomed
 
 
 def test_spans_stamp_timers_while_a_graph_records():
@@ -175,6 +213,31 @@ def test_spans_stamp_timers_while_a_graph_records():
     assert snap["replay_ms"] == pytest.approx(
         {name: 2 * v for name, v in ms.items()})
     profiling.reset()
+
+
+def test_read_timers_opens_only_with_a_noted_replay():
+    """``tr.read_timers`` opens once per read of noted replays, never with
+    nothing noted: a Scene frame on the CPU notes no replay."""
+    timers = profiling.Timers("cpu")
+    with profiling.recording(timers):
+        with profiling.span("vertex"):
+            pass
+    profiling.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        profiling.read_replay_timers()
+        profiling.replayed(timers)
+        profiling.replayed(timers)
+        profiling.read_replay_timers()
+        profiling.read_replay_timers()
+    names = [e.name for e in prof.events() if e.name.startswith("tr.")]
+    assert names == ["tr.read_timers"]
+    assert profiling.snapshot()["replays"] == 2
+    profiling.reset()
+    scene = scene_for("general")
+    scene.render()
+    spans = _traced_spans(scene, 2)
+    assert "read_timers" not in {name for _, _, name in spans}
 
 
 def test_a_graph_holds_a_bounded_number_of_timers():
@@ -209,18 +272,43 @@ def test_overlay_spans_nest_inside_the_overlay():
     scene = scene_for("debug_core")
     scene.render()
     frames = 2
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        for _ in range(frames):
-            scene.render()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name[3:])
-                   for e in prof.events() if e.name.startswith("tr."))
+    spans = _traced_spans(scene, frames)
     overlays = [(s, t) for s, t, name in spans if name == "overlay"]
     assert len(overlays) == frames
     for s0, t0 in overlays:
         inside = [name for s, t, name in spans
                   if s0 <= s and t <= t0 and name in OVERLAY_SPANS]
         assert inside == list(OVERLAY_SPANS)
+
+
+def _check_draw_spans(spans, frames, draw):
+    """``draw`` (the spans inside ``tr.overlay_draw``, in order) once per
+    frame inside it, and 1 to 6 ``tr.overlay_clip`` inside each
+    ``tr.overlay_segments``, none outside."""
+    draws = [(s, t) for s, t, name in spans if name == "overlay_draw"]
+    assert len(draws) == frames
+    for s0, t0 in draws:
+        inside = [name for s, t, name in spans
+                  if s0 <= s and t <= t0 and name in draw]
+        assert inside == list(draw)
+    clips = _inside(spans, "overlay_segments", "overlay_clip")
+    assert len(clips) == frames
+    assert all(1 <= len(c) <= 6 for c in clips)
+    assert sum(map(len, clips)) == sum(
+        name == "overlay_clip" for _, _, name in spans)
+
+
+def test_overlay_draw_spans_nest_inside_the_draw():
+    """On the CPU the debug camera's frame opens ``tr.overlay_matrices``
+    and ``tr.overlay_segments`` inside ``tr.overlay_draw`` (K11's call,
+    ``tr.overlay_kernel``, is the card's), each face's clipping inside
+    the segments."""
+    scene = scene_for("debug_core")
+    scene.render()
+    frames = 2
+    spans = _traced_spans(scene, frames)
+    _check_draw_spans(spans, frames, ("overlay_matrices", "overlay_segments"))
+    assert "overlay_kernel" not in {name for _, _, name in spans}
 
 
 def test_overlay_counters_and_the_frame_with_and_without_a_profiler():
@@ -293,6 +381,43 @@ def test_replay_timers_on_card(card):
     assert snap["replays"] == 2
     assert sorted(snap["replay_ms"]) == sorted(STAGES)
     assert all(ms > 0 for ms in snap["replay_ms"].values())
+
+
+@pytest.mark.cuda
+def test_read_timers_open_per_traced_replay_on_card(card):
+    """On the card each traced frame notes its replay and reads it under
+    one ``tr.read_timers`` inside ``tr.render``; with nothing noted, a read
+    opens none."""
+    compiled.clear_compiled()
+    scene = scene_for("general", device="cuda")
+    scene.render()
+    profiling.reset()
+    frames = 3
+    spans = _traced_spans(scene, frames, (
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA))
+    reads = _inside(spans, "render", "read_timers")
+    assert [len(r) for r in reads] == [1] * frames
+    assert profiling.snapshot()["replays"] == frames
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        profiling.read_replay_timers()
+    assert not [e for e in prof.events() if e.name.startswith("tr.")]
+
+
+@pytest.mark.cuda
+def test_overlay_draw_spans_on_card(card):
+    """On the card ``tr.overlay_draw`` holds the matrices, the segment
+    table and K11's call, in that order."""
+    compiled.clear_compiled()
+    scene = scene_for("debug_core", device="cuda")
+    scene.render()
+    frames = 2
+    spans = _traced_spans(scene, frames, (
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA))
+    _check_draw_spans(spans, frames, ("overlay_matrices", "overlay_segments",
+                                      "overlay_kernel"))
 
 
 @pytest.mark.cuda

@@ -527,9 +527,11 @@ class Scene:
 
         Under ``tr.overlay``: the float64 casts of the frame and the
         z-buffer on their device (``tr.overlay_cast``); the drawing
-        (``tr.overlay_draw``; its segments counted by
-        ``profiling.count_overlay``, its line pixels on the device,
-        ``profiling.overlay_counter``); the flip, gamma and uint8
+        (``tr.overlay_draw``, around both cameras' float64 matrices,
+        ``tr.overlay_matrices``, the segment table, ``tr.overlay_segments``,
+        and on the card K11's call, ``tr.overlay_kernel``; its segments
+        counted by ``profiling.count_overlay``, its line pixels on the
+        device, ``profiling.overlay_counter``); the flip, gamma and uint8
         (``tr.overlay_quantize``); the copy of the uint8 frame to the host
         (``tr.readback``). On the card the host computes the segment table
         (ops/overlay.frustum_segments), and K11 draws it and K12 quantizes
@@ -543,15 +545,17 @@ class Scene:
             with span("overlay_cast"):
                 frame, zb = frame.to(torch.float64), zbuf.to(torch.float64)
             with span("overlay_draw"):
-                cams = (self.camera._matrices(torch.float64),
-                        self.debug_camera._matrices(torch.float64),
-                        self.camera.position, self.camera.near,
-                        self.camera.far, self.resolution)
+                with span("overlay_matrices"):
+                    cams = (self.camera._matrices(torch.float64),
+                            self.debug_camera._matrices(torch.float64),
+                            self.camera.position, self.camera.near,
+                            self.camera.far, self.resolution)
                 counter = profiling.overlay_counter(zb.device)
                 if zb.is_cuda:
                     table = frustum_segments(*cams)
-                    ops.overlay(torch.from_numpy(table), frame, zb,
-                                self.system, counter)
+                    with span("overlay_kernel"):
+                        ops.overlay(torch.from_numpy(table), frame, zb,
+                                    self.system, counter)
                     segments = len(table)
                 else:
                     segments, pixels = draw_view_frustum(

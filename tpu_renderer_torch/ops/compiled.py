@@ -49,8 +49,9 @@ as they run.
 
 Tracing (``utils/profiling.py``, whose :func:`~tpu_renderer_torch.utils.
 profiling.snapshot` holds the process's counters): a call opens the spans
-``tr.fill`` (the copies into the static buffers), ``tr.launch`` (the
-replay; on the CPU the body) and ``tr.outputs`` (the clones); a first call
+``tr.program_key`` (the key formed and looked up), ``tr.fill`` (the copies
+into the static buffers), ``tr.launch`` (the replay; on the CPU the body)
+and ``tr.outputs`` (the clones); a first call
 on the card ``tr.warmup`` and ``tr.record``, whose host ms the program
 keeps as ``warmup_ms`` and ``record_ms`` (``capture_ms`` is their sum).
 While the graph is recorded, each ``tr.<stage>`` span of the body stamps
@@ -304,13 +305,15 @@ def call(key, body, buf, inputs, device):
     the inputs' structure, shapes, dtypes and aliases), building it on
     first use; a program whose first call raises is not kept. ``buf`` is the host
     staging buffer (pipeline.frame_inputs), ``inputs`` a tree of tensors
-    on ``device``. Returns the body's outputs, cloned."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    full = (key, device, _signature(inputs),
-            _aliases(list(_leaves(inputs))))
-    prog = CACHE.lookup(full)
+    on ``device``. Returns the body's outputs, cloned. The key is formed
+    and looked up under ``tr.program_key``."""
+    with span("program_key"):
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        full = (key, device, _signature(inputs),
+                _aliases(list(_leaves(inputs))))
+        prog = CACHE.lookup(full)
     if prog is not None:
         return prog(buf, inputs)
     prog = Program(full, body, buf, inputs, device)

@@ -33,6 +33,7 @@ import numpy as np
 
 from tpu_renderer_torch.ops.frustum import clipping
 from tpu_renderer_torch.ops.lines import bresenham_line
+from tpu_renderer_torch.utils.profiling import span
 
 __all__ = ["Frustum", "frustum_segments", "draw_segments",
            "draw_view_frustum", "draw_axis", "draw_wireframe", "draw_points",
@@ -151,42 +152,47 @@ def frustum_segments(camera_m, debug_m, camera_position, near, far,
     dtype=torch.float64) (MVP, viewport, frustum_planes). Raises
     IndexError where an edge's point lies outside the ``resolution``
     (H, W) frame, as drawing it would.
+
+    Runs under ``tr.overlay_segments``, each face's clipping under
+    ``tr.overlay_clip`` (utils/profiling.py).
     """
-    dbg_mvp = np.asarray(debug_m["MVP"], np.float64)
-    world = Frustum.vertices @ np.linalg.inv(dbg_mvp)
-    world = world / world[:, [3]]
-    planes = np.asarray(camera_m["frustum_planes"], np.float64)
+    with span("overlay_segments"):
+        dbg_mvp = np.asarray(debug_m["MVP"], np.float64)
+        world = Frustum.vertices @ np.linalg.inv(dbg_mvp)
+        world = world / world[:, [3]]
+        planes = np.asarray(camera_m["frustum_planes"], np.float64)
 
-    test = np.append(np.asarray(camera_position, np.float64), 1) @ dbg_mvp
-    inside_frustum = (-test[3] < test[0] < test[3] and
-                      -test[3] < test[1] < test[3] and
-                      -test[3] < test[2] < test[3])
+        test = np.append(np.asarray(camera_position, np.float64), 1) @ dbg_mvp
+        inside_frustum = (-test[3] < test[0] < test[3] and
+                          -test[3] < test[1] < test[3] and
+                          -test[3] < test[2] < test[3])
 
-    mvp = np.asarray(camera_m["MVP"], np.float64)
-    viewport = np.asarray(camera_m["viewport"], np.float64)
-    rows = []
-    for face in world[Frustum.faces]:
-        face = clipping(face, planes)
-        if face.shape[0] < 3:
-            continue
-        face = np.asarray(face, np.float64) @ mvp
-        face = face / face[:, [3]]
-        face = face @ viewport
+        mvp = np.asarray(camera_m["MVP"], np.float64)
+        viewport = np.asarray(camera_m["viewport"], np.float64)
+        rows = []
+        for face in world[Frustum.faces]:
+            with span("overlay_clip"):
+                face = clipping(face, planes)
+            if face.shape[0] < 3:
+                continue
+            face = np.asarray(face, np.float64) @ mvp
+            face = face / face[:, [3]]
+            face = face @ viewport
 
-        a, b, c = face[0, :3], face[1, :3], face[2, :3]
-        n = np.cross(b - a, c - a)
-        # Dashed back-face edges: odd chunks of 13 pixels.
-        dashed = bool(n[2] > 0 and not inside_frustum)
+            a, b, c = face[0, :3], face[1, :3], face[2, :3]
+            n = np.cross(b - a, c - a)
+            # Dashed back-face edges: odd chunks of 13 pixels.
+            dashed = bool(n[2] > 0 and not inside_frustum)
 
-        face[:, 2] = _linearize(face[:, 2], near, far)
-        count = len(face)
-        for i in range(count):
-            row = _segment(face[i], face[(i + 1) % count], dashed)
-            if row is not None:
-                rows.append(row)
-    table = np.array(rows, np.float64).reshape(-1, SEG_COLS)
-    _check_indices(table, resolution)
-    return table
+            face[:, 2] = _linearize(face[:, 2], near, far)
+            count = len(face)
+            for i in range(count):
+                row = _segment(face[i], face[(i + 1) % count], dashed)
+                if row is not None:
+                    rows.append(row)
+        table = np.array(rows, np.float64).reshape(-1, SEG_COLS)
+        _check_indices(table, resolution)
+        return table
 
 
 def draw_segments(table, frame, z_buffer, sign):

@@ -93,7 +93,6 @@ from tpu_renderer_torch.ops.lightning import Lightning
 from tpu_renderer_torch.ops.shadow import _cross, edge_tables, quad_tables
 from tpu_renderer_torch.ops.transforms import normalize
 from tpu_renderer_torch.parallel.mesh import all_reduce
-from tpu_renderer_torch.utils import profiling
 from tpu_renderer_torch.utils.profiling import span
 
 __all__ = ["SceneConfig", "ModelConfig", "render_core", "render_frame",
@@ -209,7 +208,6 @@ def _camera_constants(cfg: SceneConfig, projection_type, fovy, near, far):
     key = (cfg.resolution, cfg.system, cfg.subsystem, projection_type,
            fovy.tobytes(), near.tobytes(), far.tobytes())
     entry = _CAMERA_CONSTANTS.get(key)
-    profiling.count_camera_constants(built=entry is None)
     if entry is not None:
         _CAMERA_CONSTANTS.move_to_end(key)
         return entry
@@ -815,10 +813,12 @@ def _jit(name, static, cfg, dyn, body, *tensors):
     (:func:`with_face_tables`, built before the key is formed where ``dyn``
     has none; a Scene builds them once per packing, and nothing writes
     them) are no input: the body reads them as they are, so no frame
-    copies them, and another packing's tables are another program."""
+    copies them, and another packing's tables are another program. The
+    input tree is made under ``tr.program_inputs``."""
     buf, layout = frame_inputs(cfg, dyn)
-    inputs = _body_dyn(cfg, dyn)
-    faces = inputs.pop("faces", None)
+    with span("program_inputs"):
+        inputs = _body_dyn(cfg, dyn)
+        faces = inputs.pop("faces", None)
 
     def run(inputs, b):
         d, rest = inputs

@@ -14,7 +14,8 @@ Counterpart of ``tpu_renderer/utils/profiling.py``, without its
   at its exit (:class:`Timers`: a one-thread kernel writes the card's
   ``%globaltimer`` into pinned host memory), so every replay times each
   span on the device; the program reads the stamps after a replay made
-  under a profiler, once the frame is on the host (:func:`replayed`,
+  under a profiler, once the frame is on the host, waiting on an event
+  recorded behind the replay, under ``tr.read_timers`` (:func:`replayed`,
   :func:`read_replay_timers`);
 - copy counters: each copy site of the compiled frame (the program's
   static buffers, the scene's per-frame light and background tensors,
@@ -23,9 +24,8 @@ Counterpart of ``tpu_renderer/utils/profiling.py``, without its
   and one visit (:func:`tally`, :func:`count_copies`); the ``fill`` site's
   visits are the compiled calls. The first capture's two parts,
   ``warmup_ms`` and ``record_ms``, are kept (:func:`note_capture`), and
-  the builds and hits of the frame's camera constants are counted
-  (:func:`count_camera_constants`), and the debug camera's overlaid
-  frames, their segments (:func:`count_overlay`) and their line pixels,
+  the debug camera's overlaid frames, their segments
+  (:func:`count_overlay`) and their line pixels,
   which K11 adds up on the frame's device (:func:`overlay_counter`). These
   counters and the replay totals are the process's: they live in this
   module, outlive ``compiled.clear_compiled()``, and :func:`snapshot`
@@ -53,9 +53,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 __all__ = ["span", "Timers", "recording", "replayed", "read_replay_timers",
-           "tally", "count_copies", "count_camera_constants", "count_overlay",
-           "overlay_counter", "note_capture",
-           "snapshot", "reset", "trace", "nan_debug",
+           "tally", "count_copies", "count_overlay", "overlay_counter",
+           "note_capture", "snapshot", "reset", "trace", "nan_debug",
            "summarize_device_trace"]
 
 #: The file :func:`trace` writes into its directory.
@@ -75,8 +74,8 @@ MAX_TIMERS = 32
 
 def _fresh():
     return {"copies": {}, "replays": 0, "replay_ms": {}, "warmup_ms": None,
-            "record_ms": None, "camera_constants": {"builds": 0, "hits": 0},
-            "overlay": {"frames": 0, "segments": 0, "pixels": 0}}
+            "record_ms": None, "overlay": {"frames": 0, "segments": 0,
+                                           "pixels": 0}}
 
 
 _STATE = _fresh()
@@ -91,13 +90,17 @@ class Timers:
     at the span's entry and exit in stream order, at every replay. On a
     CUDA ``device`` the slots lie in pinned host memory and a one-thread
     kernel writes the card's ``%globaltimer`` into them (``csrc/stamp.cu``);
-    on the CPU the host's clock is written."""
+    on the CPU the host's clock is written. ``done``, on a CUDA device, is
+    the event :func:`replayed` records after a replay, on which
+    :func:`read_replay_timers` waits."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.names = []
+        cuda = self.device.type == "cuda"
         self.stamps = torch.zeros(2 * MAX_TIMERS, dtype=torch.int64,
-                                  pin_memory=self.device.type == "cuda")
+                                  pin_memory=cuda)
+        self.done = torch.cuda.Event() if cuda else None
 
     def open(self, name):
         """A new pair of slots for span ``name``: its index."""
@@ -167,25 +170,34 @@ def recording(timers):
 
 
 def replayed(timers):
-    """Note a replay of a graph recorded with ``timers``: under a profiler
-    its span times are read by the next :func:`read_replay_timers`."""
+    """Note a replay of a graph recorded with ``timers``, just launched on
+    the current stream: under a profiler its span times are read by the
+    next :func:`read_replay_timers`, once the event ``timers.done``
+    recorded here behind the replay has passed."""
     if timers.names and torch.autograd._profiler_enabled():
+        if timers.done is not None:
+            timers.done.record(torch.cuda.current_stream(timers.device))
         _pending.append(timers)
 
 
 def read_replay_timers():
     """Add each noted replay's ms per span to the process's totals and
-    count it. Waits for the replay's device: call it once the frame's
-    outputs are complete (``Scene.render`` does, after the copy to the
-    host; the wait is then none), or before the graph replays again."""
-    while _pending:
-        timers = _pending.pop(0)
-        if timers.device.type == "cuda":
-            torch.cuda.synchronize(timers.device)
-        totals = _STATE["replay_ms"]
-        for name, ms in timers.read():
-            totals[name] = totals.get(name, 0.0) + ms
-        _STATE["replays"] += 1
+    count it, under ``tr.read_timers`` where one is noted. Waits for the
+    replay alone (its ``done`` event), not for the whole device: call it
+    once the frame's outputs are complete (``Scene.render`` does, after
+    the copy to the host; the wait is then none), or before the graph
+    replays again."""
+    if not _pending:
+        return
+    with span("read_timers"):
+        while _pending:
+            timers = _pending.pop(0)
+            if timers.done is not None:
+                timers.done.synchronize()
+            totals = _STATE["replay_ms"]
+            for name, ms in timers.read():
+                totals[name] = totals.get(name, 0.0) + ms
+            _STATE["replays"] += 1
 
 
 def tally(copies):
@@ -215,12 +227,6 @@ def count_copies(site, copies):
         c = entry.setdefault(way, [0, 0])
         c[0] += n
         c[1] += b
-
-
-def count_camera_constants(built):
-    """One look-up of a frame's camera constants (pipeline.frame_inputs):
-    a build where ``built``, else a hit."""
-    _STATE["camera_constants"]["builds" if built else "hits"] += 1
 
 
 def count_overlay(segments):
@@ -255,12 +261,10 @@ def snapshot():
     """The process's counters, after reading any noted replay: ``copies``
     ({site: {"visits": n, direction: [copies, bytes]}}), ``replays``
     (replays timed), ``replay_ms`` ({span: device ms summed over them}),
-    ``warmup_ms`` and ``record_ms`` (the first capture's) and
-    ``camera_constants`` ({"builds": n, "hits": m}, the look-ups of
-    :func:`count_camera_constants`) and ``overlay`` ({"frames": n,
-    "segments": s, "pixels": p}, :func:`count_overlay`; ``pixels`` read
-    from :func:`overlay_counter`'s tensors, which waits for a device's
-    work)."""
+    ``warmup_ms`` and ``record_ms`` (the first capture's) and ``overlay``
+    ({"frames": n, "segments": s, "pixels": p}, :func:`count_overlay`;
+    ``pixels`` read from :func:`overlay_counter`'s tensors, which waits
+    for a device's work)."""
     read_replay_timers()
     snap = copy.deepcopy(_STATE)
     snap["overlay"]["pixels"] += sum(int(c.item())
